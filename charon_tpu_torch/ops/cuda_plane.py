@@ -1,0 +1,384 @@
+"""The port's counterpart of charon_tpu/ops/pallas_plane.py: build and bind
+the CUDA kernels, the kernel wrappers, and the composite loops over them.
+
+Kernels (ops/csrc/plane_kernels.cu, sm_90a, one thread per element over
+`(E, 12, n)` int32 limb planes — see ops/field.py for the layout):
+
+    fe_mul, fe_add, fe_sub, pt_double, pt_add     for E in {1, 2}
+
+Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` into
+`build/charon_tpu_torch/libplane.so` under the repo root, at the first launch
+(`build()`), loaded with ctypes. Nothing is built or imported from CUDA when
+this module is imported.
+
+Wrappers check device, dtype, shape and contiguity and raise on anything
+else. A CPU tensor runs the kernel's plain version (ops/field.py,
+ops/curve.py) and counts a plain call; a CUDA tensor launches the kernel on
+the current stream and counts a launch — or raises: there is no fallback.
+
+Composites are Python loops that launch one kernel per step, like the XLA
+loops of the reference they replace: `pow_scan` (_pow_scan :593),
+`scalar_mul_windowed` (_scalar_mul_windowed :677), `reduce_tree`
+(_reduce_tree_jit :763), `shared_mul` (_shared_mul_call :625, unrolled) and
+`host_fold` (_host_fold :778). Bucket sizes (`pad_batch`), the 4-bit windows
+and the MSB-first digit order are the reference's: they decide the outputs'
+shapes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..crypto import curve as PC
+from . import curve as C
+from . import field as F
+
+LIMBS = F.LIMBS
+SUB = 8            # the reference's sublanes: batch b sits at (b // W, b % W)
+TW = 128           # the reference's lanes per tile
+TILE = SUB * TW
+MIN_TILE = 128     # smallest batch bucket
+WINDOW = 4         # scalar-multiplication window bits
+POW_WINDOW = 4     # fixed-exponent power-scan window bits
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+SOURCES = (os.path.join(CSRC, "plane_kernels.cu"), os.path.join(CSRC, "fp.cuh"))
+BUILD_DIR = os.path.join(_REPO_ROOT, "build", "charon_tpu_torch")
+LIB_PATH = os.path.join(BUILD_DIR, "libplane.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def pad_batch(n: int) -> int:
+    """Batch -> padded plane size (the reference's buckets): MIN_TILE
+    multiples up to one 1024 tile, whole tiles above."""
+    floor = min(TILE, MIN_TILE)
+    b = ((max(n, 1) + floor - 1) // floor) * floor
+    if b > TILE and b % TILE:
+        b = ((b + TILE - 1) // TILE) * TILE
+    return b
+
+
+# ---------------------------------------------------------------------------
+# Build and bind
+# ---------------------------------------------------------------------------
+
+
+class BuildInfo:
+    """What the last build did: seconds spent and nvcc's -Xptxas -v report."""
+
+    seconds: float = 0.0
+    log: str = ""
+
+
+BUILD = BuildInfo()
+_build_lock = threading.Lock()
+_lib: list = []
+
+_VP = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_ARGS = {
+    "charon_fe_mul": [ctypes.c_int, _VP, _VP, _VP, _LL, _VP],
+    "charon_fe_add": [ctypes.c_int, _VP, _VP, _VP, _LL, _VP],
+    "charon_fe_sub": [ctypes.c_int, _VP, _VP, _VP, _LL, _VP],
+    "charon_pt_double": [ctypes.c_int] + [_VP] * 6 + [_LL, _VP],
+    "charon_pt_add": [ctypes.c_int] + [_VP] * 9 + [_LL, _VP],
+}
+
+
+def build(force: bool = False) -> str:
+    """Compile the kernels with nvcc unless the library is newer than every
+    source. Returns the library path; raises CalledProcessError with nvcc's
+    output when the build fails."""
+    with _build_lock:
+        fresh = (os.path.exists(LIB_PATH) and not force and
+                 os.path.getmtime(LIB_PATH) >= max(os.path.getmtime(s) for s in SOURCES))
+        if fresh:
+            return LIB_PATH
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+        if not os.path.exists(nvcc):
+            nvcc = "nvcc"
+        tmp = LIB_PATH + f".{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[0]],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise subprocess.CalledProcessError(proc.returncode, proc.args,
+                                                proc.stdout, proc.stderr)
+        os.replace(tmp, LIB_PATH)
+        BUILD.seconds = time.perf_counter() - t0
+        BUILD.log = proc.stdout + proc.stderr
+        return LIB_PATH
+
+
+def _library() -> ctypes.CDLL:
+    if not _lib:
+        path = build()
+        with _build_lock:
+            if not _lib:
+                lib = ctypes.CDLL(path)
+                for name, argtypes in _ARGS.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _lib.append(lib)
+    return _lib[0]
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+class Kernel:
+    """One CUDA kernel: where its source is, which Pallas body it replaces,
+    and how often it ran, per E. `launches` counts CUDA launches only;
+    `plain_calls` counts CPU calls of its plain version."""
+
+    def __init__(self, name: str, replaces: str):
+        self.name = name
+        self.replaces = replaces
+        self.source = "charon_tpu_torch/ops/csrc/plane_kernels.cu"
+        self.launches = {1: 0, 2: 0}
+        self.plain_calls = {1: 0, 2: 0}
+
+    def reset(self) -> None:
+        self.launches = {1: 0, 2: 0}
+        self.plain_calls = {1: 0, 2: 0}
+
+
+KERNELS = {
+    "fe_mul": Kernel("fe_mul", "charon_tpu/ops/pallas_plane.py:458"),        # _kern_mul
+    "fe_add": Kernel("fe_add", "charon_tpu/ops/pallas_plane.py:452"),        # _kern_addp
+    "fe_sub": Kernel("fe_sub", "charon_tpu/ops/pallas_plane.py:446"),        # _kern_sub
+    "pt_double": Kernel("pt_double", "charon_tpu/ops/pallas_plane.py:433"),  # _kern_double
+    "pt_add": Kernel("pt_add", "charon_tpu/ops/pallas_plane.py:439"),        # _kern_add
+}
+
+
+def reset_counts() -> None:
+    for k in KERNELS.values():
+        k.reset()
+
+
+def _check(tensors, E: int) -> torch.device:
+    if E not in (1, 2):
+        raise ValueError(f"E must be 1 or 2, got {E}")
+    first = tensors[0]
+    if first.dim() != 3 or first.shape[0] != E or first.shape[1] != LIMBS or first.shape[2] < 1:
+        raise ValueError(f"expected an ({E}, {LIMBS}, n) plane, got {tuple(first.shape)}")
+    for t in tensors:
+        if t.dtype != torch.int32:
+            raise TypeError(f"planes must be int32, got {t.dtype}")
+        if t.shape != first.shape:
+            raise ValueError(f"plane shapes differ: {tuple(t.shape)} vs {tuple(first.shape)}")
+        if t.device != first.device:
+            raise ValueError("planes are on different devices")
+        if not t.is_contiguous():
+            raise ValueError("planes must be contiguous")
+    if first.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {first.device}")
+    return first.device
+
+
+def _launch(name: str, E: int, ins, n_out: int):
+    outs = [torch.empty_like(ins[0]) for _ in range(n_out)]
+    fn = getattr(_library(), "charon_" + name)
+    with torch.cuda.device(ins[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(E, *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs],
+                ins[0].shape[2], stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name}<{E}> did not launch: error {rc}")
+    KERNELS[name].launches[E] += 1
+    return outs
+
+
+def fe_mul(a: torch.Tensor, b: torch.Tensor, E: int) -> torch.Tensor:
+    """a·b·R⁻¹ mod p over (E, 12, n) Montgomery planes (E=2: Fq2)."""
+    if _check((a, b), E).type == "cpu":
+        KERNELS["fe_mul"].plain_calls[E] += 1
+        return F.fe_mul_plain(a, b, E)
+    return _launch("fe_mul", E, (a, b), 1)[0]
+
+
+def fe_add(a: torch.Tensor, b: torch.Tensor, E: int) -> torch.Tensor:
+    """(a + b) mod p per component."""
+    if _check((a, b), E).type == "cpu":
+        KERNELS["fe_add"].plain_calls[E] += 1
+        return F.fe_add_plain(a, b, E)
+    return _launch("fe_add", E, (a, b), 1)[0]
+
+
+def fe_sub(a: torch.Tensor, b: torch.Tensor, E: int) -> torch.Tensor:
+    """(a − b) mod p per component."""
+    if _check((a, b), E).type == "cpu":
+        KERNELS["fe_sub"].plain_calls[E] += 1
+        return F.fe_sub_plain(a, b, E)
+    return _launch("fe_sub", E, (a, b), 1)[0]
+
+
+def fe_neg(a: torch.Tensor, E: int) -> torch.Tensor:
+    """−a mod p, as the reference: fe_sub(0, a)."""
+    return fe_sub(torch.zeros_like(a), a, E)
+
+
+def pt_double(X, Y, Z, E: int):
+    """Jacobian doubling (dbl-2009-l, a = 0) of a plane of points."""
+    if _check((X, Y, Z), E).type == "cpu":
+        KERNELS["pt_double"].plain_calls[E] += 1
+        return C.pt_double_plain(X, Y, Z, E)
+    return tuple(_launch("pt_double", E, (X, Y, Z), 3))
+
+
+def pt_add(X1, Y1, Z1, X2, Y2, Z2, E: int):
+    """Branchless unified Jacobian add of two planes of points."""
+    if _check((X1, Y1, Z1, X2, Y2, Z2), E).type == "cpu":
+        KERNELS["pt_add"].plain_calls[E] += 1
+        return C.pt_add_plain(X1, Y1, Z1, X2, Y2, Z2, E)
+    return tuple(_launch("pt_add", E, (X1, Y1, Z1, X2, Y2, Z2), 3))
+
+
+# ---------------------------------------------------------------------------
+# Composites: one kernel launch per step
+# ---------------------------------------------------------------------------
+
+
+def exp_digits(e: int, nbits: int = 384) -> list[int]:
+    """Fixed exponent -> MSB-first POW_WINDOW-bit window digits."""
+    w = POW_WINDOW
+    nw = nbits // w
+    mask = (1 << w) - 1
+    return [(e >> (w * (nw - 1 - i))) & mask for i in range(nw)]
+
+
+def mont_one(shape, device) -> torch.Tensor:
+    """Montgomery 1 broadcast over an (E, 12, n) shape, contiguous."""
+    col = torch.tensor(F.fq_from_int(1), dtype=torch.int32, device=device)
+    return col.view(1, LIMBS, 1).expand(*shape).contiguous()
+
+
+def pow_scan(A: torch.Tensor, digits: list[int]) -> torch.Tensor:
+    """A^e for a (1, 12, n) Fq plane and one shared exponent given as
+    MSB-first 4-bit window digits: a 16-entry power table (14 products),
+    then per digit 4 squarings and one table product (the digit selects a
+    table entry; entry 0 is one). Leading zero digits are harmless."""
+    one = mont_one(A.shape, A.device)
+    tab = [one, A]
+    for _ in range(2, 1 << POW_WINDOW):
+        tab.append(fe_mul(tab[-1], A, 1))
+    acc = one
+    for d in digits:
+        for _ in range(POW_WINDOW):
+            acc = fe_mul(acc, acc, 1)
+        acc = fe_mul(acc, tab[d], 1)
+    return acc
+
+
+def scalars_to_digitplanes(scalars, B: int, nbits: int = 256) -> np.ndarray:
+    """Per-element scalars -> (nbits/WINDOW, pad_batch(B)) uint8 MSB-first
+    window digits, element b in column b (the reference's (8, W) planes
+    flattened)."""
+    Bp = pad_batch(B)
+    nb = nbits // 8
+    n = len(scalars)
+    raw = np.zeros((Bp, nb), dtype=np.uint8)
+    if n:
+        if (isinstance(scalars, np.ndarray) and scalars.dtype.kind == "u"
+                and scalars.itemsize <= nb):
+            w = scalars.itemsize
+            be = np.ascontiguousarray(scalars.astype(scalars.dtype.newbyteorder(">")))
+            raw[:n, nb - w:] = be.view(np.uint8).reshape(n, w)
+        else:
+            blob = b"".join(int(s).to_bytes(nb, "big") for s in scalars)
+            raw[:n] = np.frombuffer(blob, np.uint8).reshape(-1, nb)
+    bits = np.unpackbits(raw, axis=1).astype(np.int32).T        # (nbits, Bp)
+    b = bits.reshape(nbits // WINDOW, WINDOW, Bp)
+    w = np.asarray([1 << (WINDOW - 1 - i) for i in range(WINDOW)], np.int32)
+    return (b * w[None, :, None]).sum(axis=1).astype(np.uint8)
+
+
+def scalar_mul_windowed(X, Y, Z, digits: torch.Tensor, E: int):
+    """Per-element k·P from (nwin, n) MSB-first 4-bit digits: a 16-entry
+    table k·P (7 doubles + 7 adds), then per window 4 doubles and one
+    unified add of the selected entry; digit 0 selects ∞ (Z = 0)."""
+    zero = torch.zeros_like(X)
+    tab = [(zero, zero, zero), (X, Y, Z)]
+    for k in range(2, 1 << WINDOW):
+        if k % 2 == 0:
+            tab.append(pt_double(*tab[k // 2], E))
+        else:
+            tab.append(pt_add(*tab[k - 1], X, Y, Z, E))
+    T = [torch.stack([t[c] for t in tab]) for c in range(3)]    # (16, E, 12, n)
+    n = X.shape[-1]
+    idx_all = digits.to(device=X.device, dtype=torch.int64)
+    acc = (zero, zero, zero)
+    for w in range(idx_all.shape[0]):
+        for _ in range(WINDOW):
+            acc = pt_double(*acc, E)
+        idx = idx_all[w].view(1, 1, 1, n).expand(1, E, LIMBS, n)
+        sel = [t.gather(0, idx)[0] for t in T]
+        acc = pt_add(*acc, *sel, E)
+    return acc
+
+
+def reduce_tree(X, Y, Z, E: int):
+    """The reference's lane- then sublane-halving sums over the (8, W) view
+    of the batch, down to min(W, 128) points, returned as (E, 12, k)."""
+    n = X.shape[-1]
+    W = n // SUB
+    pts = [c.reshape(E, LIMBS, SUB, W) for c in (X, Y, Z)]
+
+    def add(a, b):
+        shape = a[0].shape
+        out = pt_add(*[c.reshape(E, LIMBS, -1) for c in (*a, *b)], E)
+        return [c.reshape(shape) for c in out]
+
+    while pts[0].shape[-1] > TW:
+        h = pts[0].shape[-1] // 2
+        pts = add([c[..., :h].contiguous() for c in pts],
+                  [c[..., h:].contiguous() for c in pts])
+    while pts[0].shape[-2] > 1:
+        h = pts[0].shape[-2] // 2
+        pts = add([c[:, :, :h].contiguous() for c in pts],
+                  [c[:, :, h:].contiguous() for c in pts])
+    return tuple(c.reshape(E, LIMBS, -1) for c in pts)
+
+
+def shared_mul(X, Y, Z, k: int, E: int):
+    """k·P for one scalar shared by the whole batch: unrolled MSB-first
+    double-and-add, one add per set bit."""
+    if k < 1:
+        raise ValueError("shared scalar must be >= 1")
+    acc = (X, Y, Z)
+    for bit in bin(k)[2:][1:]:
+        acc = pt_double(*acc, E)
+        if bit == "1":
+            acc = pt_add(*acc, X, Y, Z, E)
+    return acc
+
+
+def host_fold(X, Y, Z, E: int):
+    """Fold an (E, 12, k) plane of Jacobians into one host Jacobian tuple of
+    canonical ints (Fq: (x, y, z); Fq2: ((x0, x1), ...))."""
+    xs, ys, zs = (np.ascontiguousarray(c.cpu().numpy()) for c in (X, Y, Z))
+    ops = PC.FqOps if E == 1 else PC.Fq2Ops
+
+    def elem(arr, i):
+        if E == 1:
+            return F.fq_to_int(arr[0, :, i])
+        return (F.fq_to_int(arr[0, :, i]), F.fq_to_int(arr[1, :, i]))
+
+    acc = PC.jac_infinity(ops)
+    for i in range(xs.shape[-1]):
+        acc = PC.jac_add(ops, acc, (elem(xs, i), elem(ys, i), elem(zs, i)))
+    return acc

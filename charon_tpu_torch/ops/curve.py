@@ -1,0 +1,136 @@
+"""Plain Jacobian point formulas on tensors: the PyTorch counterparts of the
+pt_double and pt_add CUDA kernels (ops/csrc/plane_kernels.cu).
+
+Same math and staging as the reference's in-kernel forms
+(charon_tpu/ops/pallas_plane.py `_pt_double` :371 and `_pt_add_unified`
+:389): dbl-2009-l doubling for a = 0, and the unified add whose results are
+resolved by selects in the reference's order — the P+P double, then H=0,
+R≠0 -> ∞, then q=∞ -> p, then p=∞ -> q (the last select wins). Every value
+a kernel outputs or tests is canonical, so the outputs are exactly the
+kernels'. Arithmetic is field.py's lazy digit scheme: products of one stage
+go through one plain Montgomery call, and only the outputs and the zero
+tests are reduced. The P+P double inside the add is evaluated only when a
+lane needs it, and lanes whose inputs are all zero (the ∞ padding of the
+planes) are not computed at all: the formulas give zero for their double
+and the other operand for their add. Neither changes an output.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import field as F
+
+
+def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask[None, :, None], a, b)
+
+
+def c_double(p, E: int, canonical_in: bool):
+    """dbl-2009-l on (E, n, 16) digit coordinates; loose outputs."""
+    X1, Y1, Z1 = p
+    A, B, YZ = F.mul_many([(X1, X1), (Y1, Y1), (Y1, Z1)], E, shrink=not canonical_in)
+    XB = X1 + B
+    C, t = F.mul_many([(B, B), (XB, XB)], E)
+    D = t - A - C
+    D = D + D
+    Ev = A + A + A
+    Fv = F.mul_many([(Ev, Ev)], E)[0]
+    X3 = Fv - (D + D)
+    C8 = C + C
+    C8 = C8 + C8
+    C8 = C8 + C8
+    Y3 = F.mul_many([(Ev, D - X3)], E)[0] - C8
+    Z3 = YZ + YZ
+    return (X3, Y3, Z3)
+
+
+def c_add_unified(p, q, E: int):
+    """Unified add of canonical (E, n, 16) digit points; canonical outputs."""
+    X1, Y1, Z1 = p
+    X2, Y2, Z2 = q
+    Z1Z1, Z2Z2, Z1Z2 = F.mul_many([(Z1, Z1), (Z2, Z2), (Z1, Z2)], E, shrink=False)
+    U1, U2, Y1Z2, Y2Z1 = F.mul_many([(X1, Z2Z2), (X2, Z1Z1), (Y1, Z2), (Y2, Z1)], E)
+    S1, S2 = F.mul_many([(Y1Z2, Z2Z2), (Y2Z1, Z1Z1)], E)
+    H, R = F.canon(torch.stack([U2 - U1, S2 - S1]))
+    HH, RR = F.mul_many([(H, H), (R, R)], E, shrink=False)
+    HHH, V, Z3 = F.mul_many([(H, HH), (U1, HH), (Z1Z2, H)], E)
+    X3 = RR - HHH - (V + V)
+    RVX, S1H = F.mul_many([(R, V - X3), (S1, HHH)], E)
+    Y3 = RVX - S1H
+
+    p_inf = F.is_zero(Z1)
+    q_inf = F.is_zero(Z2)
+    both = ~(p_inf | q_inf)
+    dbl = both & F.is_zero(H) & F.is_zero(R)
+    if bool(dbl.any()):
+        res = F.canon(torch.stack([X3, Y3, Z3, *c_double(p, E, True)]))
+        res = [_where(dbl, d, r) for d, r in zip(res[3:], res[:3])]
+    else:
+        res = list(F.canon(torch.stack([X3, Y3, Z3])))
+    neg = both & F.is_zero(H) & ~F.is_zero(R)
+    res = [_where(neg, torch.zeros_like(r), r) for r in res]
+    res = [_where(q_inf, a, r) for a, r in zip(p, res)]
+    return [_where(p_inf, b, r) for b, r in zip(q, res)]
+
+
+def _live(coords) -> torch.Tensor:
+    """(n,) bool: lanes where any input coordinate is nonzero."""
+    return torch.stack([(c != 0).any(0).any(0) for c in coords]).any(0)
+
+
+def _on_live(fn, coords, n_out: int):
+    """Run fn on the lanes with a nonzero input; all-zero lanes output zero
+    (fn must map all-zero inputs to all-zero outputs)."""
+    live = _live(coords)
+    if bool(live.all()):
+        return fn(coords)
+    out = [torch.zeros_like(coords[0]) for _ in range(n_out)]
+    if bool(live.any()):
+        idx = live.nonzero().squeeze(1)
+        sub = fn([c.index_select(2, idx).contiguous() for c in coords])
+        for o, s in zip(out, sub):
+            o[:, :, idx] = s
+    return tuple(out)
+
+
+def _double_limbs(coords):
+    E = coords[0].shape[0]
+    d = F.to_digits(torch.stack(coords).flatten(0, 1).contiguous())
+    X, Y, Z = d.reshape(3, E, *d.shape[1:])
+    out = F.canon(torch.stack(c_double((X, Y, Z), E, True)))
+    lim = F.from_digits(out.flatten(0, 1))
+    return tuple(lim.reshape(3, E, *lim.shape[1:]))
+
+
+def _add_limbs(coords):
+    E = coords[0].shape[0]
+    d = F.to_digits(torch.stack(coords).flatten(0, 1).contiguous())
+    c = d.reshape(6, E, *d.shape[1:])
+    out = c_add_unified(tuple(c[:3]), tuple(c[3:]), E)
+    lim = F.from_digits(torch.stack(out).flatten(0, 1))
+    return tuple(lim.reshape(3, E, *lim.shape[1:]))
+
+
+def pt_double_plain(X, Y, Z, E: int):
+    """Plain version of the pt_double kernel on (E, 12, n) limb tensors."""
+    return _on_live(_double_limbs, [X, Y, Z], 3)
+
+
+def pt_add_plain(X1, Y1, Z1, X2, Y2, Z2, E: int):
+    """Plain version of the pt_add kernel on (E, 12, n) limb tensors."""
+    coords = [X1, Y1, Z1, X2, Y2, Z2]
+    trivial = ~_live(coords[:3]) | ~_live(coords[3:])
+    if bool(trivial.any()):
+        # an all-zero operand is ∞, so the selects decide: q where p is ∞
+        # (Z1 = 0), else p
+        rest = ~trivial
+        p_inf = (Z1 == 0).all(0).all(0).view(1, 1, -1)
+        out = [torch.where(p_inf, b, a) for a, b in zip(coords[:3], coords[3:])]
+        if bool(rest.any()):
+            idx = rest.nonzero().squeeze(1)
+            sub = _add_limbs([c.index_select(2, idx).contiguous() for c in coords])
+            for o, s in zip(out, sub):
+                o[:, :, idx] = s
+        return tuple(out)
+    return _add_limbs(coords)

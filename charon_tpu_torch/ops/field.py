@@ -1,0 +1,310 @@
+"""Fq / Fq2 limb layout, Montgomery constants, and the plain field ops.
+
+Layout. A batch of field elements is an int32 tensor `(E, 12, n)`: E in
+{1, 2} extension components, 12 little-endian limbs of 32 bits (stored as
+int32 holding the uint32 bit pattern), limb-major so that neighbouring CUDA
+threads read neighbouring words. Values are canonical in [0, p) and in
+Montgomery form with R = 2^384 — the same R as the reference's 32 x 12-bit
+limbs (charon_tpu/ops/field.py), so a residue is the same integer in both
+packages and converts exactly (ops/convert.py).
+
+Plain versions. `fe_mul_plain` / `fe_add_plain` / `fe_sub_plain` are the
+PyTorch counterparts of the CUDA kernels fe_mul / fe_add / fe_sub
+(ops/csrc/plane_kernels.cu). They compute bit-identical outputs and are what
+the wrappers run on a CPU tensor and what chip_smoke.py holds each kernel
+against on the card. int64 cannot hold a 32x32-bit product plus carries, so
+the plain versions compute in an exact scheme of their own, built to keep the
+number of PyTorch calls small:
+
+* an element is 16 digits of 24 bits in int64 (`(..., 16)`). Inside a plain
+  kernel, add, sub and neg are single digit-wise ops and leave values
+  unreduced (digits and value may grow, and may go negative);
+* a product first shrinks each operand: q = round(v/p) is estimated in
+  float64 from the digits (an error of one in q is harmless), v − q·p is
+  exact in int64, and two carry folds bring the digits back to 24 bits plus
+  a small carry, |v| < 0.51p. Every digit product is then < 2^48.001 and
+  every column sum of 16 of them < 2^53, so float64 matrix products are
+  exact: the full product is an outer product summed along anti-diagonals
+  by a constant 0/1 matrix, m = (T mod R)·(−p⁻¹) mod R and m·p are products
+  with constant Toeplitz matrices, and the carry of the low half of T + m·p
+  (an exact multiple of R) is the float64-rounded value of that half / R;
+* only what a kernel outputs, and what it tests for zero, is made
+  canonical: shrink, add p where negative, and propagate carries until
+  every digit is in [0, 2^24).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+P_INT = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
+
+LIMB_BITS = 32
+LIMBS = 12                                   # 12 x 32 = 384 bits >= 381
+R_MONT = 1 << (LIMB_BITS * LIMBS)            # Montgomery R = 2^384
+R_MONT_INV = pow(R_MONT, -1, P_INT)
+R2_INT = (R_MONT * R_MONT) % P_INT
+# -p^{-1} mod 2^32: the CIOS constant of the CUDA kernels (fp.cuh FP_N0)
+N0_INV = (-pow(P_INT, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
+
+_M32 = (1 << 32) - 1
+
+
+def limbs_from_int(x: int) -> np.ndarray:
+    """int in [0, 2^384) -> (12,) int32 limbs (uint32 bit patterns)."""
+    if x >> 384:
+        raise ValueError("value exceeds 384 bits")
+    return np.frombuffer(x.to_bytes(48, "little"), "<u4").astype(np.uint32).view(
+        np.int32).copy()
+
+
+def int_from_limbs(limbs) -> int:
+    """(12,) limbs (any integer dtype holding the uint32 pattern) -> int."""
+    arr = np.asarray(limbs).astype(np.int64) & _M32
+    return int.from_bytes(arr.astype("<u4").tobytes(), "little")
+
+
+def fq_from_int(x: int) -> np.ndarray:
+    """Canonical int -> Montgomery limbs."""
+    return limbs_from_int((x % P_INT) * R_MONT % P_INT)
+
+
+def fq_to_int(limbs) -> int:
+    """Montgomery limbs -> canonical int."""
+    return int_from_limbs(limbs) * R_MONT_INV % P_INT
+
+
+def fq2_from_ints(c0: int, c1: int) -> np.ndarray:
+    return np.stack([fq_from_int(c0), fq_from_int(c1)])
+
+
+# ---------------------------------------------------------------------------
+# Byte loaders (the reference's _fp_limbs_raw / _fp_limbs_to_be, plane_agg.py
+# :188 and :1514, on 32-bit limbs).
+# ---------------------------------------------------------------------------
+
+
+def fp_limbs_raw(be: np.ndarray) -> np.ndarray:
+    """(N, 48) big-endian Fp byte strings -> (N, 12) int32 RAW limbs
+    (standard form, not Montgomery)."""
+    le = np.ascontiguousarray(np.asarray(be, np.uint8)[:, ::-1])
+    return le.view("<u4").astype(np.uint32).view(np.int32).reshape(len(le), LIMBS)
+
+
+def fp_limbs_to_be(limbs: np.ndarray) -> np.ndarray:
+    """(N, 12) int32 limbs -> (N, 48) uint8 big-endian bytes."""
+    le = np.ascontiguousarray(np.asarray(limbs, np.int32)).view(np.uint32).astype("<u4")
+    return np.ascontiguousarray(le.view(np.uint8).reshape(len(le), 48)[:, ::-1])
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: exact lazy arithmetic on 24-bit digits (module docstring).
+# ---------------------------------------------------------------------------
+
+_M24 = (1 << 24) - 1
+_DIG = 16                     # 24-bit digits per element
+
+_consts: dict = {}
+
+
+def _const(device: torch.device) -> dict:
+    """Per-device constants of the plain arithmetic."""
+    key = str(device)
+    c = _consts.get(key)
+    if c is None:
+        def digits(x):
+            return [(x >> (24 * i)) & _M24 for i in range(_DIG)]
+
+        def toeplitz(vals, ncols):
+            m = np.zeros((_DIG, ncols), np.float64)
+            for i in range(_DIG):
+                for j in range(_DIG):
+                    if i + j < ncols:
+                        m[i, i + j] = vals[j]
+            return m
+
+        anti = np.zeros((_DIG * _DIG, 2 * _DIG), np.float64)
+        for i in range(_DIG):
+            for j in range(_DIG):
+                anti[i * _DIG + j, i + j] = 1.0
+        n_prime = (-pow(P_INT, -1, R_MONT)) % R_MONT
+        f64 = dict(dtype=torch.float64, device=device)
+        c = {
+            "anti": torch.tensor(anti, **f64),
+            "nprime": torch.tensor(toeplitz(digits(n_prime), _DIG), **f64),
+            "p_full": torch.tensor(toeplitz(digits(P_INT), 2 * _DIG), **f64),
+            # v ≈ digits @ w_p · p, and the low half of T + m·p over R
+            "w_p": torch.tensor([2.0 ** (24 * k) / P_INT for k in range(_DIG)], **f64),
+            "w_r": torch.tensor([2.0 ** (24 * k - 384) for k in range(_DIG)], **f64),
+            "p": torch.tensor(digits(P_INT), dtype=torch.int64, device=device),
+        }
+        _consts[key] = c
+    return c
+
+
+def to_digits(x: torch.Tensor) -> torch.Tensor:
+    """(E, 12, n) int32 limbs -> (E, n, 16) int64 canonical 24-bit digits."""
+    E, _, n = x.shape
+    u = (x.to(torch.int64) & _M32).permute(0, 2, 1).reshape(E, n, 4, 3)
+    l0, l1, l2 = u[..., 0], u[..., 1], u[..., 2]
+    d = torch.stack([l0 & _M24, (l0 >> 24) | ((l1 & 0xFFFF) << 8),
+                     (l1 >> 16) | ((l2 & 0xFF) << 16), l2 >> 8], -1)
+    return d.reshape(E, n, _DIG)
+
+
+def from_digits(d: torch.Tensor) -> torch.Tensor:
+    """(E, n, 16) canonical digits -> (E, 12, n) int32 limbs."""
+    E, n, _ = d.shape
+    d = d.reshape(E, n, 4, 4)
+    d0, d1, d2, d3 = d[..., 0], d[..., 1], d[..., 2], d[..., 3]
+    u = torch.stack([d0 | ((d1 & 0xFF) << 24), (d1 >> 8) | ((d2 & 0xFFFF) << 16),
+                     (d2 >> 16) | (d3 << 8)], -1).reshape(E, n, LIMBS).permute(0, 2, 1)
+    return torch.where(u >= (1 << 31), u - (1 << 32), u).to(torch.int32).contiguous()
+
+
+def _fold(x: torch.Tensor, keep_top: bool = True) -> torch.Tensor:
+    """One carry pass: each digit keeps its low 24 bits and takes the carry
+    of the digit below. keep_top leaves the top digit's carry in place (the
+    value is unchanged); otherwise it is dropped (the value mod R)."""
+    hi = x >> 24
+    out = x & _M24
+    out[..., 1:] += hi[..., :-1]
+    if keep_top:
+        out[..., -1] += hi[..., -1] << 24
+    return out
+
+
+def _shrink(x: torch.Tensor) -> torch.Tensor:
+    """Loose digits -> same residue with |v| < 0.51p and digits within
+    [−2^12, 2^24 + 2^12]."""
+    k = _const(x.device)
+    q = torch.round(x.to(torch.float64) @ k["w_p"]).to(torch.int64)
+    return _fold(_fold(x - q.unsqueeze(-1) * k["p"]))
+
+
+def _normalize(v: torch.Tensor) -> torch.Tensor:
+    """Propagate carries until every digit but the top is in [0, 2^24); the
+    top digit keeps the overflow and the sign."""
+    while True:
+        c = v[..., :-1] >> 24
+        if not bool(c.any()):
+            return v
+        v = torch.cat([v[..., :-1] & _M24, v[..., -1:]], -1)
+        v[..., 1:] += c
+
+
+def canon(x: torch.Tensor) -> torch.Tensor:
+    """Loose digits -> canonical digits of the value mod p."""
+    x = _shrink(x)
+    v = _normalize(torch.stack([x, x + _const(x.device)["p"]]))
+    return torch.where(v[0, ..., -1:] < 0, v[1], v[0])
+
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor, shrink: bool = True) -> torch.Tensor:
+    """Montgomery product a·b·R⁻¹ of same-shape digit tensors (..., 16): the
+    same residue as the kernels', left loose (|v| < 1.2p). shrink=False only
+    for operands already canonical."""
+    k = _const(a.device)
+    shape = a.shape
+    N = a.numel() // _DIG
+    if shrink:
+        a, b = _shrink(a), _shrink(b)
+    da = a.reshape(N, _DIG).to(torch.float64)
+    db = b.reshape(N, _DIG).to(torch.float64)
+    # a ⊛ b: the outer product of the digits summed along anti-diagonals
+    T = ((da[:, :, None] * db[:, None, :]).reshape(N, _DIG * _DIG) @ k["anti"]).to(torch.int64)
+    t_low = _fold(_fold(T[:, :_DIG], False), False)                 # T mod R
+    m = _fold(_fold((t_low.to(torch.float64) @ k["nprime"]).to(torch.int64), False), False)
+    U = _fold(T) + (m.to(torch.float64) @ k["p_full"]).to(torch.int64)   # ≡ 0 mod R
+    carry = torch.round(U[:, :_DIG].to(torch.float64) @ k["w_r"]).to(torch.int64)
+    r = U[:, _DIG:].clone()
+    r[:, 0] += carry
+    return r.reshape(shape)
+
+
+def is_zero(x: torch.Tensor) -> torch.Tensor:
+    """(E, n, 16) canonical -> (n,) bool: every component zero."""
+    return (x == 0).all(-1).all(0)
+
+
+def mul_many(pairs, E: int, shrink: bool = True):
+    """Independent products [(a, b), ...] of (E, n, 16) digit tensors through
+    ONE mont_mul call. E=2: Karatsuba (3 products), or complex squaring (2
+    products) when a is b — the kernels' formulas."""
+    if E == 1:
+        R = mont_mul(torch.stack([a[0] for a, _ in pairs]),
+                     torch.stack([b[0] for _, b in pairs]), shrink)
+        return [R[i][None] for i in range(len(pairs))]
+    A, B, kinds = [], [], []
+    for a, b in pairs:
+        if a is b:
+            A += [a[0] + a[1], a[0]]
+            B += [a[0] - a[1], a[1]]
+            kinds.append(2)
+        else:
+            A += [a[0], a[1], a[0] + a[1]]
+            B += [b[0], b[1], b[0] + b[1]]
+            kinds.append(3)
+    R = mont_mul(torch.stack(A), torch.stack(B), shrink=True)
+    outs, pos = [], 0
+    for kind in kinds:
+        if kind == 2:
+            outs.append(torch.stack([R[pos], R[pos + 1] + R[pos + 1]]))
+        else:
+            v0, v1, t = R[pos], R[pos + 1], R[pos + 2]
+            outs.append(torch.stack([v0 - v1, t - v0 - v1]))
+        pos += kind
+    return outs
+
+
+def _reduce_once(r: torch.Tensor) -> torch.Tensor:
+    """Loose digits of a value in [0, 2p) -> canonical digits."""
+    v = _normalize(torch.stack([r, r - _const(r.device)["p"]]))
+    return torch.where(v[1, ..., -1:] < 0, v[0], v[1])
+
+
+_LANE_KEY = torch.tensor(np.random.default_rng(0x5EED).integers(1, 1 << 62, 48) | 1,
+                         dtype=torch.int64)
+
+
+def _distinct_lanes(x: torch.Tensor):
+    """(k, 12, n) -> (rep, inv) with x[..., rep][..., inv] == x, rep one lane
+    per distinct column; None when every lane is distinct. Columns are
+    keyed by a wrapping int64 hash and the result is checked exactly."""
+    n = x.shape[-1]
+    w = _LANE_KEY[:x.shape[0] * LIMBS].to(x.device).view(x.shape[0], LIMBS, 1)
+    keys, inv = torch.unique((x.to(torch.int64) * w).sum((0, 1)), return_inverse=True)
+    if keys.numel() == n:
+        return None
+    rep = torch.full((keys.numel(),), n, dtype=torch.int64, device=x.device)
+    rep.scatter_reduce_(0, inv, torch.arange(n, device=x.device), "amin")
+    if not bool((x[..., rep[inv]] == x).all()):
+        return None
+    return rep, inv
+
+
+def fe_mul_plain(a: torch.Tensor, b: torch.Tensor, E: int) -> torch.Tensor:
+    """Plain version of the fe_mul kernel: a·b·R⁻¹ mod p (Fq, or Fq2 by
+    Karatsuba) on (E, 12, n) limb tensors. Equal lanes (the padding of a
+    plane) are computed once."""
+    ab = torch.cat([a, b])
+    lanes = _distinct_lanes(ab)
+    if lanes is not None:
+        rep, inv = lanes
+        return fe_mul_plain(ab[:E, :, rep].contiguous(), ab[E:, :, rep].contiguous(), E)[..., inv]
+    d = to_digits(ab)
+    if E == 1:
+        # canonical operands: the product is in [0, 1.3p), one subtraction
+        return from_digits(_reduce_once(mont_mul(d[0], d[1], shrink=False))[None])
+    return from_digits(canon(mul_many([(d[:2], d[2:])], E)[0]))
+
+
+def fe_add_plain(a: torch.Tensor, b: torch.Tensor, E: int) -> torch.Tensor:
+    """Plain version of the fe_add kernel: (a + b) mod p per component."""
+    return from_digits(canon(to_digits(a) + to_digits(b)))
+
+
+def fe_sub_plain(a: torch.Tensor, b: torch.Tensor, E: int) -> torch.Tensor:
+    """Plain version of the fe_sub kernel: (a − b) mod p per component."""
+    return from_digits(canon(to_digits(a) - to_digits(b)))
