@@ -17,9 +17,12 @@
 //   fe_add / fe_sub: 3 x 48 B per Fq component moved, ~40 integer ops — bytes.
 //   fe_mul<1>: 144 B moved against 2 x 144 limb products = 576 multiply-adds
 //     — bytes, by 1.25x; fe_mul<2>: 288 B against 3 x 576 — operations, 1.2x.
+//   pt_double<1> / pt_add<1>: 6 or 9 x 48 B moved against 5 or 4 Fq squares
+//     (444 multiply-adds each: 78 distinct limb products + 144 for the
+//     reduction) and 2 or 12 products (3,372 / 8,688) — operations, 2.3x / 4x.
 //   pt_double<2> / pt_add<2>: 6 or 9 x 96 B moved against 16 or 44 Fq
 //     products (9,216 / 25,344 multiply-adds) — operations, by 3x / 6x
-//     (pt_add counts 16 more products on a lane that needs the P+P double).
+//     (pt_add counts a double's work more on a lane that needs the P+P double).
 // At the slot's widths (1,024-12,288 elements) every kernel is far below
 // either bound and is launch- and latency-bound: 4,096 threads are 128
 // warps, about one per SM where an SM can hold 64. This first design is

@@ -260,7 +260,8 @@ def g2_decompress(X0r, X1r, sgn, lmask):
     """Raw x component planes + flat masks -> (X, Y, Z, ok). The Fq2 square
     root by the complex method, branchless over the plane: one (p−3)/4 power
     scan serves the three candidates (δ+, δ−, −c0) and also yields 1/y0; the
-    c1 == 0 fallback candidate is (0, sqrt(−c0)); the sign is lexicographic."""
+    c1 == 0 fallback candidate is (0, sqrt(−c0)); the sign is lexicographic,
+    and its flip negates both components in one Fq2 pass."""
     X0 = to_mont(X0r)
     X1 = to_mont(X1r)
     n = X0.shape[-1]
@@ -302,11 +303,11 @@ def g2_decompress(X0r, X1r, sgn, lmask):
     y1nz = ~_all(Y1 == 0)
     csign = torch.where(y1nz, gt_half(Y1), gt_half(Y0)).to(torch.int32)
     flip = (csign != sgn) & lmask
-    Y0 = _sel(flip, CP.fe_neg(Y0, 1), Y0)
-    Y1 = _sel(flip, CP.fe_neg(Y1, 1), Y1)
+    Y = torch.cat([Y0, Y1], 0)
+    Y = _sel(flip, CP.fe_neg(Y, 2), Y)
 
     Xp = _sel(lmask, X, 0).contiguous()
-    Yp = torch.cat([_sel(lmask, Y0, 0), _sel(lmask, Y1, 0)], 0).contiguous()
+    Yp = _sel(lmask, Y, 0).contiguous()
     z0 = _sel(lmask, const_plane((1,), 1, n, dev), 0)
     Z = torch.cat([z0, torch.zeros_like(z0)], 0).contiguous()
     return Xp, Yp, Z, ok | ~lmask
@@ -603,26 +604,37 @@ def aggregate(layout, device) -> list[bytes]:
     return g2_emit_bytes(xs.cpu().numpy(), sign.cpu().numpy(), inf.cpu().numpy(), V)
 
 
-def fused_slot(layout, pks, msgs, device, pk_cache: PkPlaneCache, randomizers=None):
+def fused_slot(layout, pks, msgs, device, pk_cache: PkPlaneCache, randomizers=None,
+               mark=None):
     """Host parse + the slot's stream-ordered launches. Returns the pending
     state for `readback`: ("pending", V, group_msgs, outs) with outs =
     (ok, xs, sign, inf, sig_red, pk_reds) on the device, or ("bad_pk",
     layout) when the pubkey set is invalid. `randomizers` (V nonzero
-    64-bit values) replaces the CSPRNG draw, for tests only."""
+    64-bit values) replaces the CSPRNG draw, for tests only. `mark`, when
+    given, is called with each step's name once the step's work is issued
+    (a per-step breakdown of this sequence)."""
+    mark = mark or (lambda _name: None)
     sigs_all, scalars_all, V, Vp, T, Wv = layout
     X0r, X1r, sgn, lmask, ldig = load_partials(layout, device)
+    mark("parse + partial upload (host)")
     try:
         pkX, pkY, pkZ = pk_cache.get(pks, Vp, device)
     except ValueError:
         return ("bad_pk", layout)
+    mark("pk plane (cache, or G1 decompression + subgroup check)")
     r = sample_randomizers(V) if randomizers is None else np.asarray(randomizers, np.uint64)
     rdig = torch.as_tensor(CP.scalars_to_digitplanes(r, Vp, nbits=RLC_BITS), device=device)
     group_msgs, gmask = group_masks(msgs, Vp)
+    mark("randomizer digits + group masks (host)")
     X, Y, Z, ok = g2_decompress(X0r, X1r, sgn, lmask)
+    mark("G2 decompression")
     RX, RY, RZ = sweep_combine(X, Y, Z, ldig, T, Wv)
+    mark("Lagrange sweep + combine")
     xs, sign, inf = g2_affine_std(RX, RY, RZ)
+    mark("affine standard form")
     sig_red, pk_reds = combined_msm(RX, RY, RZ, pkX, pkY, pkZ, rdig,
                                     torch.as_tensor(gmask, device=device))
+    mark("combined RLC MSM + reduction trees")
     return ("pending", V, group_msgs, (ok, xs, sign, inf, sig_red, pk_reds))
 
 

@@ -4,7 +4,6 @@ against its plain version, and run the fused sigagg slot at 1000 validators
 x 4-of-6 through TorchImpl, checked against the native oracle.
 
     python3 chip_smoke.py            # the whole check (one CUDA card)
-    python3 chip_smoke.py --quick    # build + kernel checks at a small width
     python3 chip_smoke.py --profile  # the whole check, then one slot traced
 
 Phases, any failure exits non-zero:
@@ -19,8 +18,9 @@ Phases, any failure exits non-zero:
                once with every kernel counter at 0 (the launches of one
                slot, pk-plane miss included), median of 3 timed slots, all
                1000 aggregates byte-identical to native ct_lincomb_g2, the
-               launches and time of each step, a tampered partial gives
-               False, bad encodings raise the reference's ValueError texts.
+               launches and time of each step of plane_agg.fused_slot (its
+               step hook), a tampered partial gives False, bad encodings
+               raise the reference's ValueError texts.
 The last two lines are the kernels JSON and the device JSON.
 """
 
@@ -40,7 +40,6 @@ import torch
 from charon_tpu_torch import native
 from charon_tpu_torch.crypto import curve as PC
 from charon_tpu_torch.crypto import fields as PF
-from charon_tpu_torch.crypto.rlc import sample_randomizers
 from charon_tpu_torch.ops import convert as CV
 from charon_tpu_torch.ops import curve as C
 from charon_tpu_torch.ops import cuda_plane as CP
@@ -55,8 +54,21 @@ MSG = b"\x42" * 32
 # 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper white paper, data sheet).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-OPS_PER_FQ_PRODUCT = 2 * 2 * 12 * 12   # CIOS: 288 32x32->64 limb products, 2 ops each
+# Fq work in 32-bit multiply-adds, a 32x32->64 limb product counting 2: a
+# CIOS product needs 144 a_i*b_j and 144 m_i*p_j limb products; a square
+# needs only the 78 distinct a_i*a_j (the doubled cross terms are shifts).
+OPS_PER_FQ_PRODUCT = 2 * (12 * 12 + 12 * 12)
+OPS_PER_FQ_SQUARE = 2 * (12 * 13 // 2 + 12 * 12)
 OPS_PER_FQ_ADD = 3 * 12                # add/sub with carry, borrow, select per limb
+# (Fq squares, other Fq products) per point op, from fp.cuh's formulas; an
+# Fq2 square is 2 Fq products and an Fq2 product 3 (Karatsuba).
+FQ_WORK = {("pt_double", 1): (5, 2), ("pt_double", 2): (0, 5 * 2 + 2 * 3),
+           ("pt_add", 1): (4, 12), ("pt_add", 2): (0, 4 * 2 + 12 * 3)}
+
+
+def point_ops(name: str, E: int) -> int:
+    squares, products = FQ_WORK[(name, E)]
+    return squares * OPS_PER_FQ_SQUARE + products * OPS_PER_FQ_PRODUCT
 
 
 def log(msg: str) -> None:
@@ -176,16 +188,14 @@ def check_kernels(device, widths: dict, reps: int) -> dict:
         }
         npt = widths[("pt", E)]
         pts = _point_inputs(rng, E, npt, device)
-        per_dbl = 7 if E == 1 else 16
-        per_add = 16 if E == 1 else 44
         # lanes the add doubles (P+P with both finite): lane 8 here
         n_dbl_lanes = 1
         cases["pt_double"] = (lambda: CP.pt_double(*pts[:3], E),
                               lambda: C.pt_double_plain(*pts[:3], E),
-                              6 * E * 48 * npt, npt * per_dbl * OPS_PER_FQ_PRODUCT)
+                              6 * E * 48 * npt, npt * point_ops("pt_double", E))
         cases["pt_add"] = (lambda: CP.pt_add(*pts, E), lambda: C.pt_add_plain(*pts, E),
                            9 * E * 48 * npt,
-                           (npt * per_add + n_dbl_lanes * per_dbl) * OPS_PER_FQ_PRODUCT)
+                           npt * point_ops("pt_add", E) + n_dbl_lanes * point_ops("pt_double", E))
         for name, (kern, plain, nbytes, ops) in cases.items():
             got = kern()
             torch.cuda.synchronize()
@@ -289,38 +299,27 @@ def off_curve_x(sig: bytes) -> bytes:
 
 
 def slot_steps(batches, pubkeys, datas, device, total: int) -> None:
-    """The slot's steps one by one (the sequence of plane_agg.fused_slot,
-    pk plane decoded fresh): launches of each from the wrapper counters,
-    and its synchronised wall time. The launches must add up to `total`,
-    the first slot's count."""
-    layout = PA.layout_slots(batches)
-    _s, _l, V, Vp, T, Wv = layout
-    X0r, X1r, sgn, lmask, ldig = PA.load_partials(layout, device)
-    rdig = torch.as_tensor(CP.scalars_to_digitplanes(sample_randomizers(V), Vp, nbits=64),
-                           device=device)
-    _keys, gmask = PA.group_masks(datas, Vp)
-    rows, state = [], {}
+    """The first slot's dispatch step by step, through plane_agg.fused_slot's
+    step hook with a fresh pk-plane cache: each step's launches from the
+    wrapper counters and its wall time up to a synchronise. The launches
+    must add up to `total`, the first slot's count."""
+    rows, last = [], [0.0]
 
-    def step(name, fn):
+    def mark(name: str) -> None:
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - last[0]) * 1e3
+        rows.append((name, sum(sum(k.launches.values()) for k in CP.KERNELS.values()), ms))
         CP.reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        n = sum(sum(k.launches.values()) for k in CP.KERNELS.values())
-        rows.append((name, n, ms))
-        return out
+        last[0] = time.perf_counter()
 
-    state["pk"] = step("pk plane (G1 decompression + subgroup check)",
-                       lambda: PA.PkPlaneCache().get(pubkeys, Vp, device))
-    state["pts"] = step("G2 decompression", lambda: PA.g2_decompress(X0r, X1r, sgn, lmask))
-    state["agg"] = step("Lagrange sweep + combine",
-                        lambda: PA.sweep_combine(*state["pts"][:3], ldig, T, Wv))
-    step("affine standard form", lambda: PA.g2_affine_std(*state["agg"]))
-    step("combined RLC MSM + reduction trees",
-         lambda: PA.combined_msm(*state["agg"], *state["pk"], rdig,
-                                 torch.as_tensor(gmask, device=device)))
+    CP.reset_counts()
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    layout = PA.layout_slots(batches)
+    mark("slot layout (host)")
+    state = PA.fused_slot(layout, pubkeys, datas, device, PA.PkPlaneCache(), mark=mark)
+    if state[0] != "pending":
+        raise SystemExit(f"step run: the slot ended as {state[0]!r}")
     for name, n, ms in rows:
         log(f"step {name}: {n} launches, {ms:.2f} ms (synchronised wall)")
     if sum(n for _, n, _ in rows) != total:
@@ -328,8 +327,7 @@ def slot_steps(batches, pubkeys, datas, device, total: int) -> None:
 
 
 def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
-    main_path = [("fe_mul", 1), ("fe_mul", 2), ("fe_add", 1), ("fe_add", 2), ("fe_sub", 1),
-                 ("pt_double", 1), ("pt_double", 2), ("pt_add", 1), ("pt_add", 2)]
+    main_path = [(k, E) for k in CP.KERNELS for E in (1, 2)]
     # one slot of the main path, pk-plane miss included: counters at 0
     # just before, read just after
     CP.reset_counts()
@@ -443,7 +441,6 @@ def profile_slot(impl: TorchImpl, batches, pubkeys, datas) -> None:
 
 
 def main(argv: list[str]) -> int:
-    quick = "--quick" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
         return 2
@@ -456,16 +453,6 @@ def main(argv: list[str]) -> int:
     log(f"build: nvcc {' '.join(CP.NVCC_FLAGS)} in {CP.BUILD.seconds:.1f} s")
     for row in ptxas_summary(CP.BUILD.log):
         log(f"  ptxas {row}")
-
-    if quick:
-        log(CP.BUILD.log)
-        widths = {("fe", 1): 512, ("fe", 2): 512, ("pt", 1): 256, ("pt", 2): 256}
-        check_kernels(device, widths, reps=5)
-        log(smi)
-        print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                                 "kind": torch.cuda.get_device_name(0),
-                                                 "count": torch.cuda.device_count()}}))
-        return 0
 
     # the slot's widths: 12288 packed Fq (the (p-3)/4 scan) and 4096 G2
     # partials for the field ops; 1024 pk lanes (G1) and 4096 sweep lanes
@@ -487,12 +474,7 @@ def main(argv: list[str]) -> int:
     if "--profile" in argv:
         profile_slot(impl, batches, pubkeys, [MSG] * N_VALIDATORS)
 
-    kernels = []
-    for key, row in rows.items():
-        if key in slot["launches"]:
-            row = dict(row)
-            row["launches"] = slot["launches"][key]
-            kernels.append(row)
+    kernels = [dict(row, launches=slot["launches"][key]) for key, row in rows.items()]
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

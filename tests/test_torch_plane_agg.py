@@ -166,8 +166,12 @@ def test_slot_msm_with_injected_randomizers(keys):
     sigs, pks = keys[0][:10], keys[1][:10]
     msgs = [bytes([i % 3]) * 32 for i in range(10)]
     rands = np.asarray([random.Random(i).getrandbits(64) | 1 for i in range(10)], np.uint64)
+    steps = []
     state = PA.fused_slot(PA.layout_slots([{1: s} for s in sigs]), pks, msgs, CPU,
-                          PA.PkPlaneCache(), randomizers=rands)
+                          PA.PkPlaneCache(), randomizers=rands, mark=steps.append)
+    assert len(steps) == 7 and steps[3:] == [
+        "G2 decompression", "Lagrange sweep + combine", "affine standard form",
+        "combined RLC MSM + reduction trees"]
     out, S2, pts = PA.host_emit(PA.readback(state), CPU)
     assert out == sigs
     assert [m for m, _ in pts] == [bytes([i]) * 32 for i in range(3)] + [b""]   # G = 4
