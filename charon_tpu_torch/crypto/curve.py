@@ -1,9 +1,10 @@
 """BLS12-381 G1/G2 Jacobian group operations over Python ints.
 
 The port's own copy of the parts of the reference oracle
-(charon_tpu/crypto/curve.py) the slice uses: the host fold of the MSM
-reductions (jac_add), affine conversion, and the scalar multiplication
-behind the G1 endomorphism constants.
+(charon_tpu/crypto/curve.py) the slices use: the host fold of the MSM
+reductions (jac_add), affine conversion, the scalar multiplication behind
+the G1 endomorphism constants, and the G2 effective cofactor of
+hash-to-curve (H_EFF_G2).
 
 G1: y^2 = x^3 + 4 over Fq;  G2: y^2 = x^3 + 4(u+1) over Fq2.
 Points are Jacobian (X, Y, Z), x = X/Z^2, y = Y/Z^3; infinity is Z == 0.
@@ -69,6 +70,11 @@ G2_GEN = (
         0x0606C4A02EA734CC32ACD2B02BC28B99CB3E287E85A763AF267492AB572E99AB3F370D275CEC1DA1AAA9075FF05F79BE,
     ),
 )
+
+
+# Effective G2 cofactor of hash-to-curve (RFC 9380 §8.8.2; the reference's
+# H_EFF_G2, crypto/curve.py:250).
+H_EFF_G2 = 0xBC69F08F2EE75B3584C6A0EA91B352888E2A8E9145AD7689986FF031508FFE1329C2F178731DB956D82BF015D1212B02EC0EC69D7477C1AE954CBC06689F6A359894C0ADEBBF6B4E8020005AAA95551
 
 
 def jac_infinity(ops):

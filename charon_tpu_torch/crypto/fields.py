@@ -1,8 +1,10 @@
 """BLS12-381 base-field and scalar-field arithmetic over Python ints.
 
 The port's own copy of the Fq / Fq2 / Fr part of the reference oracle
-(charon_tpu/crypto/fields.py): the host fold, the affine conversions and the
-Lagrange coefficients of the slot need nothing of the Fq6/Fq12 tower.
+(charon_tpu/crypto/fields.py): the host fold, the affine conversions, the
+Lagrange coefficients of the slot and the host constants of the device
+tower (Frobenius γ, from fq2_pow and fq2_conj) need nothing of the Fq6/Fq12
+tower itself.
 
     Fq   : int in [0, P)
     Fq2  : (c0, c1)  meaning c0 + c1*u,  u^2 = -1
@@ -94,6 +96,21 @@ def fq2_inv(a):
     a0, a1 = a
     d = pow((a0 * a0 + a1 * a1) % P, -1, P)
     return ((a0 * d) % P, (P - a1) * d % P if a1 else 0)
+
+
+def fq2_conj(a):
+    return (a[0], fq_neg(a[1]))
+
+
+def fq2_pow(a, e: int):
+    result = FQ2_ONE
+    base = a
+    while e:
+        if e & 1:
+            result = fq2_mul(result, base)
+        base = fq2_sqr(base)
+        e >>= 1
+    return result
 
 
 def fq2_sign(a) -> int:

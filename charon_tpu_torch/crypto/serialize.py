@@ -1,15 +1,16 @@
-"""ETH compressed serialization of BLS12-381 points (encoding half only).
+"""ETH compressed serialization of BLS12-381 points.
 
-The port's own copy of the encoders of charon_tpu/crypto/serialize.py:
-G1 is 48 bytes of big-endian x, G2 is 96 bytes c1 || c0 of x; the top byte
-carries bit7 = compressed, bit6 = infinity, bit5 = y sign (lexicographically
-largest convention).
+The port's own copy of the encoders of charon_tpu/crypto/serialize.py, and
+of the G2 decoder without its subgroup check (for H(m) points, which
+hash-to-curve put in the subgroup): G1 is 48 bytes of big-endian x, G2 is
+96 bytes c1 || c0 of x; the top byte carries bit7 = compressed, bit6 =
+infinity, bit5 = y sign (lexicographically largest convention).
 """
 
 from __future__ import annotations
 
 from . import fields as F
-from .curve import Fq2Ops, FqOps, to_affine
+from .curve import B_G2, Fq2Ops, FqOps, to_affine
 
 _COMP = 0x80
 _INF = 0x40
@@ -44,3 +45,29 @@ def g2_affine_to_bytes(aff) -> bytes:
     out = bytearray(x1.to_bytes(48, "big") + x0.to_bytes(48, "big"))
     out[0] |= flags
     return bytes(out)
+
+
+def g2_affine_from_bytes(data: bytes):
+    """Decompress a 96-byte G2 encoding to affine ints ((x0, x1), (y0, y1)),
+    None for infinity; no subgroup check. Raises ValueError on a malformed
+    encoding."""
+    if len(data) != 96:
+        raise ValueError("G2 compressed must be 96 bytes")
+    flags = data[0]
+    if not flags & _COMP:
+        raise ValueError("uncompressed G2 not supported")
+    if flags & _INF:
+        if any(data[1:]) or flags & ~(_COMP | _INF):
+            raise ValueError("invalid infinity encoding")
+        return None
+    x1 = int.from_bytes(bytes([data[0] & 0x1F]) + data[1:48], "big")
+    x0 = int.from_bytes(data[48:], "big")
+    if x0 >= F.P or x1 >= F.P:
+        raise ValueError("x not in field")
+    x = (x0, x1)
+    y = F.fq2_sqrt(F.fq2_add(F.fq2_mul(F.fq2_sqr(x), x), B_G2))
+    if y is None:
+        raise ValueError("x not on curve")
+    if F.fq2_sign(y) != (1 if flags & _SIGN else 0):
+        y = F.fq2_neg(y)
+    return (x, y)

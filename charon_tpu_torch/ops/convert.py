@@ -1,11 +1,11 @@
-"""Limb planes between the two packages.
+"""Limb planes and rows between the two packages.
 
 The reference keeps a field element batch as an `(E, 32, 8, W)` int32 plane
 of 12-bit limbs (batch b at (b // W, b % W), pallas_plane.py to_plane /
-from_plane); the port keeps `(E, 12, Bp)` int32 tensors of 32-bit limbs with
-batch b in column b. Both use R = 2^384, so a Montgomery residue is the same
-integer in both and converts exactly: every 8 limbs of 12 bits are 3 limbs
-of 32 bits.
+from_plane), or as `(..., 32)` rows; the port keeps `(E, 12, Bp)` int32
+tensors of 32-bit limbs with batch b in column b, or `(..., 12)` rows. Both
+use R = 2^384, so a Montgomery residue is the same integer in both and
+converts exactly: every 8 limbs of 12 bits are 3 limbs of 32 bits.
 """
 
 from __future__ import annotations
@@ -63,3 +63,27 @@ def ints_from_port(t: torch.Tensor) -> list:
     if a.shape[0] == 1:
         return [F.fq_to_int(a[0, :, i]) for i in range(a.shape[-1])]
     return [(F.fq_to_int(a[0, :, i]), F.fq_to_int(a[1, :, i])) for i in range(a.shape[-1])]
+
+
+def rows_from_jax(rows_np) -> torch.Tensor:
+    """Reference (..., 32) 12-bit rows -> port (..., 12) int32 rows."""
+    r = np.asarray(rows_np).astype(np.uint64)
+    lead = r.shape[:-1]
+    l = [r.reshape(-1, 4, 8)[:, :, k] for k in range(8)]
+    w0 = l[0] | (l[1] << 12) | ((l[2] & 0xFF) << 24)
+    w1 = (l[2] >> 8) | (l[3] << 4) | (l[4] << 16) | ((l[5] & 0xF) << 28)
+    w2 = (l[5] >> 4) | (l[6] << 8) | (l[7] << 20)
+    words = np.stack([w0, w1, w2], axis=2).reshape(*lead, 12)
+    return torch.from_numpy((words & 0xFFFFFFFF).astype(np.uint32).view(np.int32).copy())
+
+
+def rows_to_jax(t: torch.Tensor) -> np.ndarray:
+    """Port (..., 12) rows -> reference (..., 32) 12-bit rows."""
+    w = t.detach().cpu().numpy().view(np.uint32).astype(np.uint64)
+    lead = w.shape[:-1]
+    g = w.reshape(-1, 4, 3)
+    w0, w1, w2 = g[:, :, 0], g[:, :, 1], g[:, :, 2]
+    m = 0xFFF
+    l = [w0 & m, (w0 >> 12) & m, (w0 >> 24) | ((w1 & 0xF) << 8), (w1 >> 4) & m,
+         (w1 >> 16) & m, (w1 >> 28) | ((w2 & 0xFF) << 4), (w2 >> 8) & m, (w2 >> 20) & m]
+    return np.stack(l, axis=2).reshape(*lead, 32).astype(np.int32)

@@ -1,7 +1,11 @@
-// The port's five field/point kernels for Hopper (sm_90a), one thread per
-// batch element over limb-major (E, 12, n) uint32 planes: limb j of
-// component e of element i lives at [(e*12 + j)*n + i], so the 32 threads
-// of a warp read 32 neighbouring words of one limb row.
+// The port's field/point kernels for Hopper (sm_90a), one thread per batch
+// element, over two layouts of uint32 limbs:
+//   planes: limb-major (E, 12, n): limb j of component e of element i lives
+//     at [(e*12 + j)*n + i], so the 32 threads of a warp read 32
+//     neighbouring words of one limb row;
+//   rows: (n, 12), element i limb j at [i*12 + j] — the layout of the
+//     pairing, tower and hash-to-curve code (ops/rows.py), read in place
+//     with no transpose.
 //
 // Each kernel replaces one Pallas body of charon_tpu/ops/pallas_plane.py:
 //   fe_mul<E>    -> _kern_mul    (Montgomery product; E=2 Karatsuba)
@@ -9,6 +13,10 @@
 //   fe_sub<E>    -> _kern_sub    ((a - b) mod p per component; also -a)
 //   pt_double<E> -> _kern_double (Jacobian dbl-2009-l, a = 0)
 //   pt_add<E>    -> _kern_add    (branchless unified add with its selects)
+//   fe_mul_rows  -> _kern_mul as launched by _mont_rows_call (rows, E = 1)
+// and two more stand for XLA-op code of the reference's rows field plane
+// (charon_tpu/ops/field.py fq_add / fq_sub / fq_neg):
+//   fe_add_rows, fe_sub_rows (fq_neg(a) is fe_sub_rows(0, a))
 //
 // What bounds them on an H100 (3.35 TB/s; 32-bit integer multiply-adds at
 // 132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7 T/s, from the Hopper white
@@ -23,6 +31,12 @@
 //   pt_double<2> / pt_add<2>: 6 or 9 x 96 B moved against 16 or 44 Fq
 //     products (9,216 / 25,344 multiply-adds) — operations, by 3x / 6x
 //     (pt_add counts a double's work more on a lane that needs the P+P double).
+// fe_mul_rows moves the same 144 B per product as fe_mul<1> against the same
+// 576 multiply-adds, so it is bound by bytes, by 1.25x; fe_add_rows and
+// fe_sub_rows move 144 B against ~36 integer ops, bound by bytes. At the
+// pairing's widths (108-6,912 rows: one Fq12 product's 54 Fq products on 2
+// to 128 lanes) each launch is a few dozen warps: latency- and launch-bound
+// like the rest.
 // At the slot's widths (1,024-12,288 elements) every kernel is far below
 // either bound and is launch- and latency-bound: 4,096 threads are 128
 // warps, about one per SM where an SM can hold 64. This first design is
@@ -51,9 +65,18 @@ struct FieldOf<2> {
     typedef Fq2 T;
 };
 
+enum Layout { kPlane, kRows };
+
+// Word index of limb j of element i (component 0) in an n-element array.
+template <Layout L>
+__device__ __forceinline__ long long word(long long n, long long i, int j) {
+    return L == kPlane ? (long long)j * n + i : i * FP_LIMBS + j;
+}
+
+template <Layout L = kPlane>
 __device__ __forceinline__ void load(Fq& x, const uint32_t* b, long long n, long long i) {
 #pragma unroll
-    for (int j = 0; j < FP_LIMBS; ++j) x.v[j] = b[j * n + i];
+    for (int j = 0; j < FP_LIMBS; ++j) x.v[j] = b[word<L>(n, i, j)];
 }
 
 __device__ __forceinline__ void load(Fq2& x, const uint32_t* b, long long n, long long i) {
@@ -61,9 +84,10 @@ __device__ __forceinline__ void load(Fq2& x, const uint32_t* b, long long n, lon
     load(x.c1, b + FP_LIMBS * n, n, i);
 }
 
+template <Layout L = kPlane>
 __device__ __forceinline__ void store(uint32_t* b, const Fq& x, long long n, long long i) {
 #pragma unroll
-    for (int j = 0; j < FP_LIMBS; ++j) b[j * n + i] = x.v[j];
+    for (int j = 0; j < FP_LIMBS; ++j) b[word<L>(n, i, j)] = x.v[j];
 }
 
 __device__ __forceinline__ void store(uint32_t* b, const Fq2& x, long long n, long long i) {
@@ -163,6 +187,47 @@ __global__ void __launch_bounds__(kBlock) pt_add_kernel(const uint32_t* x1, cons
     store(oz, r.z, n, i);
 }
 
+// Rows kernels: one Fq row per thread, read and written in place (E = 1).
+// fe_mul_rows replaces _kern_mul as _mont_rows_call launches it
+// (pallas_plane.py:969, :982), without the reference's transposes into an
+// (1, LIMBS, 8, W) tile. Bound: bytes, as fe_mul<1>.
+__global__ void __launch_bounds__(kBlock) fe_mul_rows_kernel(const uint32_t* a, const uint32_t* b,
+                                                             uint32_t* o, long long n) {
+    const long long i = element();
+    if (i >= n) return;
+    Fq x, y, r;
+    load<kRows>(x, a, n, i);
+    load<kRows>(y, b, n, i);
+    fq_mul(r, x, y);
+    store<kRows>(o, r, n, i);
+}
+
+// Stands for the XLA-op field.fq_add of the reference's rows plane. Bound:
+// bytes.
+__global__ void __launch_bounds__(kBlock) fe_add_rows_kernel(const uint32_t* a, const uint32_t* b,
+                                                             uint32_t* o, long long n) {
+    const long long i = element();
+    if (i >= n) return;
+    Fq x, y, r;
+    load<kRows>(x, a, n, i);
+    load<kRows>(y, b, n, i);
+    fq_add(r, x, y);
+    store<kRows>(o, r, n, i);
+}
+
+// Stands for the XLA-op field.fq_sub (and fq_neg as 0 - a, which maps 0 to
+// 0). Bound: bytes.
+__global__ void __launch_bounds__(kBlock) fe_sub_rows_kernel(const uint32_t* a, const uint32_t* b,
+                                                             uint32_t* o, long long n) {
+    const long long i = element();
+    if (i >= n) return;
+    Fq x, y, r;
+    load<kRows>(x, a, n, i);
+    load<kRows>(y, b, n, i);
+    fq_sub(r, x, y);
+    store<kRows>(o, r, n, i);
+}
+
 inline unsigned grid_for(long long n) { return (unsigned)((n + kBlock - 1) / kBlock); }
 
 typedef const uint32_t* In;
@@ -238,6 +303,24 @@ int charon_pt_add(int E, const void* x1, const void* y1, const void* z1, const v
                                                         (In)z2, (Out)ox, (Out)oy, (Out)oz, n);
     else
         return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+}
+
+int charon_fe_mul_rows(const void* a, const void* b, void* o, long long n, void* stream) {
+    if (n <= 0) return (int)cudaErrorInvalidValue;
+    fe_mul_rows_kernel<<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>((In)a, (In)b, (Out)o, n);
+    return (int)cudaGetLastError();
+}
+
+int charon_fe_add_rows(const void* a, const void* b, void* o, long long n, void* stream) {
+    if (n <= 0) return (int)cudaErrorInvalidValue;
+    fe_add_rows_kernel<<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>((In)a, (In)b, (Out)o, n);
+    return (int)cudaGetLastError();
+}
+
+int charon_fe_sub_rows(const void* a, const void* b, void* o, long long n, void* stream) {
+    if (n <= 0) return (int)cudaErrorInvalidValue;
+    fe_sub_rows_kernel<<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>((In)a, (In)b, (Out)o, n);
     return (int)cudaGetLastError();
 }
 

@@ -2,9 +2,11 @@
 the CUDA kernels, the kernel wrappers, and the composite loops over them.
 
 Kernels (ops/csrc/plane_kernels.cu, sm_90a, one thread per element over
-`(E, 12, n)` int32 limb planes — see ops/field.py for the layout):
+`(E, 12, n)` int32 limb planes — see ops/field.py for the layout — or over
+`(n, 12)` rows, see ops/rows.py):
 
     fe_mul, fe_add, fe_sub, pt_double, pt_add     for E in {1, 2}
+    fe_mul_rows, fe_add_rows, fe_sub_rows         rows (E = 1)
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` into
 `build/charon_tpu_torch/libplane.so` under the repo root, at the first launch
@@ -91,6 +93,9 @@ _ARGS = {
     "charon_fe_sub": [ctypes.c_int, _VP, _VP, _VP, _LL, _VP],
     "charon_pt_double": [ctypes.c_int] + [_VP] * 6 + [_LL, _VP],
     "charon_pt_add": [ctypes.c_int] + [_VP] * 9 + [_LL, _VP],
+    "charon_fe_mul_rows": [_VP, _VP, _VP, _LL, _VP],
+    "charon_fe_add_rows": [_VP, _VP, _VP, _LL, _VP],
+    "charon_fe_sub_rows": [_VP, _VP, _VP, _LL, _VP],
 }
 
 
@@ -140,20 +145,21 @@ def _library() -> ctypes.CDLL:
 
 
 class Kernel:
-    """One CUDA kernel: where its source is, which Pallas body it replaces,
-    and how often it ran, per E. `launches` counts CUDA launches only;
-    `plain_calls` counts CPU calls of its plain version."""
+    """One CUDA kernel: where its source is, which TPU kernel (or, for the
+    rows add and sub, which XLA-op function) it replaces, and how often it
+    ran, per E (the rows kernels have E = 1 only). `launches` counts CUDA
+    launches only; `plain_calls` counts CPU calls of its plain version."""
 
-    def __init__(self, name: str, replaces: str):
+    def __init__(self, name: str, replaces: str, variants=(1, 2)):
         self.name = name
         self.replaces = replaces
         self.source = "charon_tpu_torch/ops/csrc/plane_kernels.cu"
-        self.launches = {1: 0, 2: 0}
-        self.plain_calls = {1: 0, 2: 0}
+        self.variants = tuple(variants)
+        self.reset()
 
     def reset(self) -> None:
-        self.launches = {1: 0, 2: 0}
-        self.plain_calls = {1: 0, 2: 0}
+        self.launches = {E: 0 for E in self.variants}
+        self.plain_calls = {E: 0 for E in self.variants}
 
 
 KERNELS = {
@@ -162,6 +168,11 @@ KERNELS = {
     "fe_sub": Kernel("fe_sub", "charon_tpu/ops/pallas_plane.py:446"),        # _kern_sub
     "pt_double": Kernel("pt_double", "charon_tpu/ops/pallas_plane.py:433"),  # _kern_double
     "pt_add": Kernel("pt_add", "charon_tpu/ops/pallas_plane.py:439"),        # _kern_add
+    # _kern_mul as _mont_rows_call launches it (its pallas_call at :982)
+    "fe_mul_rows": Kernel("fe_mul_rows", "charon_tpu/ops/pallas_plane.py:969", (1,)),
+    # XLA-op field.fq_add / fq_sub (and fq_neg) of the rows plane
+    "fe_add_rows": Kernel("fe_add_rows", "charon_tpu/ops/field.py:134", (1,)),
+    "fe_sub_rows": Kernel("fe_sub_rows", "charon_tpu/ops/field.py:138", (1,)),
 }
 
 
@@ -201,6 +212,22 @@ def _launch(name: str, E: int, ins, n_out: int):
         raise RuntimeError(f"CUDA kernel {name}<{E}> did not launch: error {rc}")
     KERNELS[name].launches[E] += 1
     return outs
+
+
+def launch_rows(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch a rows kernel on checked, contiguous CUDA rows (ops/rows.py),
+    on the current stream of the rows' device."""
+    if a.device.index != torch.cuda.current_device():
+        with torch.cuda.device(a.device):
+            return launch_rows(name, a, b)
+    out = torch.empty_like(a)
+    rc = getattr(_library(), "charon_" + name)(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                               a.numel() // LIMBS,
+                                               torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} did not launch: error {rc}")
+    KERNELS[name].launches[1] += 1
+    return out
 
 
 def fe_mul(a: torch.Tensor, b: torch.Tensor, E: int) -> torch.Tensor:

@@ -31,6 +31,13 @@ number of PyTorch calls small:
 * only what a kernel outputs, and what it tests for zero, is made
   canonical: shrink, add p where negative, and propagate carries until
   every digit is in [0, 2^24).
+* a plain add or sub of canonical operands needs no digits at all: on int64
+  limbs of 32 bits, of v − p, v, v + p (v = a ± b) the first that is not
+  negative is the answer (`_rows_sum`).
+
+The rows kernels (ops/rows.py) have plain versions here too:
+`rows_mul_plain` is the same digit product entered from `(..., 12)` rows,
+`rows_add_plain` / `rows_sub_plain` the same sum as fe_add / fe_sub.
 """
 
 from __future__ import annotations
@@ -77,6 +84,19 @@ def fq_to_int(limbs) -> int:
 
 def fq2_from_ints(c0: int, c1: int) -> np.ndarray:
     return np.stack([fq_from_int(c0), fq_from_int(c1)])
+
+
+def fq_rows(values) -> np.ndarray:
+    """Canonical ints -> (n, 12) int32 Montgomery rows."""
+    blob = b"".join(((v % P_INT) * R_MONT % P_INT).to_bytes(48, "little") for v in values)
+    return np.frombuffer(blob, "<u4").astype(np.uint32).view(np.int32).reshape(-1, LIMBS).copy()
+
+
+def fq_ints(rows) -> list[int]:
+    """(..., 12) Montgomery rows -> canonical ints, in row order."""
+    blob = np.ascontiguousarray(np.asarray(rows, np.int32).reshape(-1, LIMBS)).tobytes()
+    return [int.from_bytes(blob[48 * i:48 * (i + 1)], "little") * R_MONT_INV % P_INT
+            for i in range(len(blob) // 48)]
 
 
 # ---------------------------------------------------------------------------
@@ -138,29 +158,34 @@ def _const(device: torch.device) -> dict:
             "w_p": torch.tensor([2.0 ** (24 * k) / P_INT for k in range(_DIG)], **f64),
             "w_r": torch.tensor([2.0 ** (24 * k - 384) for k in range(_DIG)], **f64),
             "p": torch.tensor(digits(P_INT), dtype=torch.int64, device=device),
+            "p32": torch.tensor([(P_INT >> (32 * i)) & _M32 for i in range(LIMBS)],
+                                dtype=torch.int64, device=device),
         }
         _consts[key] = c
     return c
 
 
+def rows_to_digits(x: torch.Tensor) -> torch.Tensor:
+    """(..., 12) int32 limb rows -> (..., 16) int64 canonical 24-bit digits
+    (every 3 little-endian bytes are one digit)."""
+    b = x.contiguous().view(torch.uint8).reshape(*x.shape[:-1], _DIG, 3).to(torch.int64)
+    return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16)
+
+
+def digits_to_rows(d: torch.Tensor) -> torch.Tensor:
+    """(..., 16) canonical digits -> (..., 12) int32 limb rows."""
+    b = (torch.stack([d, d >> 8, d >> 16], -1) & 0xFF).to(torch.uint8)
+    return b.reshape(*d.shape[:-1], 3 * _DIG).view(torch.int32)
+
+
 def to_digits(x: torch.Tensor) -> torch.Tensor:
     """(E, 12, n) int32 limbs -> (E, n, 16) int64 canonical 24-bit digits."""
-    E, _, n = x.shape
-    u = (x.to(torch.int64) & _M32).permute(0, 2, 1).reshape(E, n, 4, 3)
-    l0, l1, l2 = u[..., 0], u[..., 1], u[..., 2]
-    d = torch.stack([l0 & _M24, (l0 >> 24) | ((l1 & 0xFFFF) << 8),
-                     (l1 >> 16) | ((l2 & 0xFF) << 16), l2 >> 8], -1)
-    return d.reshape(E, n, _DIG)
+    return rows_to_digits(x.permute(0, 2, 1))
 
 
 def from_digits(d: torch.Tensor) -> torch.Tensor:
     """(E, n, 16) canonical digits -> (E, 12, n) int32 limbs."""
-    E, n, _ = d.shape
-    d = d.reshape(E, n, 4, 4)
-    d0, d1, d2, d3 = d[..., 0], d[..., 1], d[..., 2], d[..., 3]
-    u = torch.stack([d0 | ((d1 & 0xFF) << 24), (d1 >> 8) | ((d2 & 0xFFFF) << 16),
-                     (d2 >> 16) | (d3 << 8)], -1).reshape(E, n, LIMBS).permute(0, 2, 1)
-    return torch.where(u >= (1 << 31), u - (1 << 32), u).to(torch.int32).contiguous()
+    return digits_to_rows(d).permute(0, 2, 1).contiguous()
 
 
 def _fold(x: torch.Tensor, keep_top: bool = True) -> torch.Tensor:
@@ -183,14 +208,15 @@ def _shrink(x: torch.Tensor) -> torch.Tensor:
     return _fold(_fold(x - q.unsqueeze(-1) * k["p"]))
 
 
-def _normalize(v: torch.Tensor) -> torch.Tensor:
-    """Propagate carries until every digit but the top is in [0, 2^24); the
-    top digit keeps the overflow and the sign."""
+def _normalize(v: torch.Tensor, bits: int = 24) -> torch.Tensor:
+    """Propagate carries until every digit but the top is in [0, 2^bits);
+    the top digit keeps the overflow and the sign."""
+    mask = (1 << bits) - 1
     while True:
-        c = v[..., :-1] >> 24
+        c = v[..., :-1] >> bits
         if not bool(c.any()):
             return v
-        v = torch.cat([v[..., :-1] & _M24, v[..., -1:]], -1)
+        v = torch.cat([v[..., :-1] & mask, v[..., -1:]], -1)
         v[..., 1:] += c
 
 
@@ -300,11 +326,45 @@ def fe_mul_plain(a: torch.Tensor, b: torch.Tensor, E: int) -> torch.Tensor:
     return from_digits(canon(mul_many([(d[:2], d[2:])], E)[0]))
 
 
+def _rows_sum(a: torch.Tensor, b: torch.Tensor, sign: int) -> torch.Tensor:
+    """(a ± b) mod p of canonical rows on int64 32-bit limbs: the first of
+    v − p, v, v + p that is not negative, v = a ± b."""
+    x = torch.stack([a, b]).to(torch.int64) & _M32
+    v = x[0] + x[1] if sign > 0 else x[0] - x[1]
+    p = _const(v.device)["p32"]
+    c = _normalize(torch.stack([v - p, v, v + p]), 32)
+    neg = c[..., -1:] < 0
+    r = torch.where(neg[0], torch.where(neg[1], c[2], c[1]), c[0])
+    return torch.where(r >= 1 << 31, r - (1 << 32), r).to(torch.int32)
+
+
 def fe_add_plain(a: torch.Tensor, b: torch.Tensor, E: int) -> torch.Tensor:
-    """Plain version of the fe_add kernel: (a + b) mod p per component."""
-    return from_digits(canon(to_digits(a) + to_digits(b)))
+    """Plain version of the fe_add kernel: (a + b) mod p per component, for
+    canonical a, b (the kernel's contract)."""
+    return _rows_sum(a.transpose(1, 2), b.transpose(1, 2), 1).transpose(1, 2).contiguous()
 
 
 def fe_sub_plain(a: torch.Tensor, b: torch.Tensor, E: int) -> torch.Tensor:
-    """Plain version of the fe_sub kernel: (a − b) mod p per component."""
-    return from_digits(canon(to_digits(a) - to_digits(b)))
+    """Plain version of the fe_sub kernel: (a − b) mod p per component, for
+    canonical a, b."""
+    return _rows_sum(a.transpose(1, 2), b.transpose(1, 2), -1).transpose(1, 2).contiguous()
+
+
+# Plain versions of the rows kernels (ops/rows.py): the same digit
+# arithmetic as fe_*_plain (E = 1), entered from (..., 12) rows directly.
+
+
+def rows_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of fe_mul_rows: a·b·R⁻¹ mod p per canonical row."""
+    d = rows_to_digits(torch.stack([a, b]))
+    return digits_to_rows(_reduce_once(mont_mul(d[0], d[1], shrink=False)))
+
+
+def rows_add_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of fe_add_rows: (a + b) mod p per canonical row."""
+    return _rows_sum(a, b, 1)
+
+
+def rows_sub_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of fe_sub_rows: (a − b) mod p per canonical row."""
+    return _rows_sum(a, b, -1)

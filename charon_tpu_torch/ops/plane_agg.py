@@ -12,8 +12,10 @@ sequence of kernel launches (cuda_plane) followed by a host finish:
   4. the combined sig+pk RLC MSM and its reduction trees (`combined_msm`),
   5. host emit: compressed aggregate bytes and the host fold of the reduced
      MSM planes (`host_emit`),
-  6. verify: one native multi-pairing over (P_m, H(m)) and (−g1, S)
-     (`pairing_finish`, the slice's declared verify path).
+  6. verify: one multi-pairing over (P_m, H(m)) and (−g1, S)
+     (`pairing_finish`): by default on the device (the rows kernels of
+     ops/rows.py through ops/pairing.py, H(m) from the dual-form cache and
+     the device hash-to-G2 of ops/h2c.py), or on the native rung when asked.
 
 The pk plane is decompressed and subgroup-checked once per pubkey set
 (`PkPlaneCache`). Batch element b of a plane sits in column b of an
@@ -39,9 +41,11 @@ from ..crypto import fields as PF
 from ..crypto.curve import (B_G1, B_G2, FqOps, Fq2Ops, g1_generator, jac_is_infinity,
                             jac_mul, to_affine, to_jacobian)
 from ..crypto.rlc import RLC_BITS, sample_randomizers
-from ..crypto.serialize import g1_to_bytes, g2_to_bytes
+from ..crypto.serialize import g1_to_bytes, g2_affine_from_bytes, g2_affine_to_bytes, g2_to_bytes
 from . import cuda_plane as CP
 from . import field as F
+from . import h2c as h2c_mod
+from . import pairing as pairing_mod
 
 LIMBS = F.LIMBS
 SUB = CP.SUB
@@ -532,46 +536,160 @@ def unembed_g1(jac2):
 
 
 # ---------------------------------------------------------------------------
-# Verify: H(m) cache and the native multi-pairing (:2135, :2265, :2289)
+# Verify: the dual-form H(m) cache (:2089-2222), the device pairing check
+# (:2225) and the two rungs of the finish (:2265, :2289)
 # ---------------------------------------------------------------------------
+
+VERIFY_PATHS = ("device", "native")
 
 
 class H2CCache:
-    """Bounded LRU of compressed H(m) over native ct_hash_to_g2."""
+    """Bounded LRU of H(m) keyed by the message bytes, each entry dual-form:
+    [96-byte compressed, (hx, hy) affine Montgomery rows (2, 12) | None].
+    The compressed form feeds the native rung; the rows feed the device
+    pairing. `get` (bytes) fills a miss through native ct_hash_to_g2 and
+    stores no rows; `planes` fills misses through the device hash-to-G2, in
+    one batch, and upgrades a bytes-only entry in place by decompressing
+    its bytes on the host. A cap <= 0 disables the cache. `hits` and
+    `misses` count lookups (the reference's ops_hash_to_g2_cache_total)."""
 
-    CAP = 1024
+    CAP = 4096    # policy.h2c_cache_cap_default
 
-    def __init__(self):
+    def __init__(self, cap: int = CAP):
+        self.cap = cap
         self._entries: OrderedDict = OrderedDict()
         self._lock = threading.Lock()
+        self.hits = self.misses = 0
+
+    def set_cap(self, cap: int) -> int:
+        """Set the bound (evicting down if needed); returns the previous."""
+        with self._lock:
+            prev, self.cap = self.cap, cap
+            while len(self._entries) > max(cap, 0):
+                self._entries.popitem(last=False)
+        return prev
+
+    def entry(self, m: bytes):
+        with self._lock:
+            return self._entries.get(bytes(m))
+
+    def _store(self, key: bytes, comp: bytes, planes) -> None:
+        with self._lock:
+            if self.cap <= 0:
+                return
+            entry = self._entries.get(key)
+            if entry is None:
+                self._entries[key] = [comp, planes]
+            elif planes is not None and entry[1] is None:
+                entry[1] = planes
+            self._entries.move_to_end(key)
+            while len(self._entries) > self.cap:
+                self._entries.popitem(last=False)
 
     def get(self, m: bytes) -> bytes:
+        """Compressed H(m); native ct_hash_to_g2 on a miss."""
         key = bytes(m)
         with self._lock:
-            out = self._entries.get(key)
-            if out is not None:
+            entry = self._entries.get(key)
+            if entry is not None:
                 self._entries.move_to_end(key)
-                return out
+                self.hits += 1
+                return entry[0]
+            self.misses += 1
         out = native.hash_to_g2(key)
-        with self._lock:
-            self._entries[key] = out
-            while len(self._entries) > self.CAP:
-                self._entries.popitem(last=False)
+        self._store(key, out, None)
         return out
 
+    def planes(self, msgs, device):
+        """Affine H(m) rows for a message batch on `device`: (hx, hy), each
+        (B, 2, 12). Misses run ONE device hash-to-G2 batch and store both
+        forms."""
+        device = torch.device(device)
+        B = len(msgs)
+        got: list = [None] * B
+        derive, missing = [], []
+        with self._lock:
+            for i, m in enumerate(msgs):
+                key = bytes(m)
+                entry = self._entries.get(key)
+                if entry is None:
+                    missing.append((i, key))
+                    continue
+                self._entries.move_to_end(key)
+                if entry[1] is None:
+                    derive.append((i, key, entry[0]))
+                else:
+                    got[i] = entry[1]
+            self.hits += B - len(missing)
+            self.misses += len(missing)
+        for i, key, comp in derive:
+            got[i] = _planes_from_compressed(comp, device)
+            self._store(key, comp, got[i])
+        if missing:
+            hx, hy = h2c_mod.hash_to_g2_device([k for _, k in missing], device)
+            ints = F.fq_ints(torch.stack([hx, hy], 1).cpu().numpy())   # x0 x1 y0 y1 per msg
+            for j, (i, key) in enumerate(missing):
+                got[i] = (hx[j], hy[j])
+                x0, x1, y0, y1 = ints[4 * j:4 * j + 4]
+                self._store(key, g2_affine_to_bytes(((x0, x1), (y0, y1))), got[i])
+        if not B:
+            empty = torch.zeros((0, 2, LIMBS), dtype=torch.int32, device=device)
+            return empty, empty.clone()
+        return (torch.stack([g[0].to(device) for g in got]),
+                torch.stack([g[1].to(device) for g in got]))
 
-def pairing_finish(S, group_points, h2c: H2CCache, pairing_path: dict) -> bool:
-    """Π e(P_m, H(m)) · e(−g1, S) == 1 through native ct_pairing_check.
-    An infinity P_m drops its pair; an infinity S verifies only when every
-    P_m vanished too."""
-    live = [(bytes(m), P) for m, P in group_points if not jac_is_infinity(FqOps, P)]
-    if jac_is_infinity(Fq2Ops, S):
-        return not live
+
+def _planes_from_compressed(comp: bytes, device):
+    """Host decompression of a stored H(m) into affine rows — the upgrade of
+    an entry first filled by `get`. The point came from hash-to-curve, so
+    no subgroup check."""
+    (x0, x1), (y0, y1) = g2_affine_from_bytes(comp)
+    rows = torch.as_tensor(F.fq_rows([x0, x1, y0, y1]).reshape(2, 2, LIMBS), device=device)
+    return rows[0], rows[1]
+
+
+def pairing_rows(S, live, h2c: H2CCache, device):
+    """The pairs of a slot's check as device rows: H(m) from the cache (one
+    device hash-to-G2 batch on the misses) against the live P_m, then the
+    signature pair (−g1, S). Returns (p_x, p_y, q_x, q_y): (n, 12) affine
+    G1 and (n, 2, 12) affine G2 Montgomery rows, n = len(live) + 1."""
+    hx, hy = h2c.planes([m for m, _ in live], device)
+    px, py = pairing_mod.g1_rows([to_affine(FqOps, P) for _m, P in live]
+                                 + [pairing_mod._G1_NEG], device)
+    sx, sy = pairing_mod.g2_rows([to_affine(Fq2Ops, S)], device)
+    return px, py, torch.cat([hx, sx]), torch.cat([hy, sy])
+
+
+def device_pairing_check(S, live, h2c: H2CCache, device) -> bool:
+    """The device rung: every pair's Miller loop on its own lane and one
+    final exponentiation (pairing.pairing_check_planes)."""
+    return pairing_mod.pairing_check_planes(*pairing_rows(S, live, h2c, device))
+
+
+def native_pairing_check(S, live, h2c: H2CCache) -> bool:
+    """The native rung: compressed pairs through native ct_pairing_check."""
     g1_pts = [g1_to_bytes(P) for _m, P in live] + [g1_to_bytes(g1_generator())]
     g2_pts = [h2c.get(m) for m, _P in live] + [g2_to_bytes(S)]
     negs = bytes([0] * len(live) + [1])
-    pairing_path["native"] = pairing_path.get("native", 0) + 1
     return native.pairing_check(b"".join(g1_pts), b"".join(g2_pts), negs)
+
+
+def pairing_finish(S, group_points, h2c: H2CCache, pairing_path: dict,
+                   verify: str = "device", device=None) -> bool:
+    """Π e(P_m, H(m)) · e(−g1, S) == 1 on the chosen rung: "device" (the
+    default, as in the reference) or "native". An infinity P_m drops its
+    pair; an infinity S verifies only when every P_m vanished too.
+    `pairing_path` counts pairs per rung (ops_pairing_total{path}). There
+    is no fallback between the rungs: a device error propagates."""
+    if verify not in VERIFY_PATHS:
+        raise ValueError(f"verify must be one of {VERIFY_PATHS}, got {verify!r}")
+    live = [(bytes(m), P) for m, P in group_points if not jac_is_infinity(FqOps, P)]
+    if jac_is_infinity(Fq2Ops, S):
+        return not live
+    pairing_path[verify] = pairing_path.get(verify, 0) + len(live) + 1
+    if verify == "device":
+        return device_pairing_check(S, live, h2c, device)
+    return native_pairing_check(S, live, h2c)
 
 
 # ---------------------------------------------------------------------------
@@ -666,7 +784,8 @@ def host_emit(hstate, device):
 
 class SlotTimes:
     """Seconds of the last slot's phases: dispatch (host parse + launches),
-    readback, emit (bytes + host folds) and verify (the native pairing)."""
+    readback, emit (bytes + host folds) and verify (the pairing check on
+    whichever rung ran)."""
 
     def __init__(self):
         self.dispatch = self.readback = self.emit = self.verify = 0.0
@@ -674,8 +793,9 @@ class SlotTimes:
 
 def threshold_aggregate_and_verify(batches, pks, msgs, device, pk_cache: PkPlaneCache,
                                    h2c: H2CCache, pairing_path: dict,
-                                   times: SlotTimes | None = None):
-    """The fused sigagg slot end to end: (compressed aggregates, all_valid)."""
+                                   times: SlotTimes | None = None, verify: str = "device"):
+    """The fused sigagg slot end to end: (compressed aggregates, all_valid),
+    verified on the `verify` rung ("device" or "native")."""
     if not batches:
         return [], True
     if not (len(batches) == len(pks) == len(msgs)):
@@ -687,7 +807,7 @@ def threshold_aggregate_and_verify(batches, pks, msgs, device, pk_cache: PkPlane
     t2 = time.perf_counter()
     out, S, pts = host_emit(hstate, device)
     t3 = time.perf_counter()
-    ok = S is not None and pairing_finish(S, pts, h2c, pairing_path)
+    ok = S is not None and pairing_finish(S, pts, h2c, pairing_path, verify, device)
     t4 = time.perf_counter()
     if times is not None:
         times.dispatch, times.readback, times.emit, times.verify = t1 - t0, t2 - t1, t3 - t2, t4 - t3

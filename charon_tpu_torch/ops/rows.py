@@ -1,0 +1,238 @@
+"""The rows field plane: Fq / Fq2 arithmetic on `(..., 12)` int32 rows, and
+the seam every product of the tower, the pairing and hash-to-G2 goes
+through.
+
+The port's counterpart of the reference's rows plane
+(charon_tpu/ops/field.py :92-250 on `(..., 32)` rows of 12-bit limbs) and of
+its seam (charon_tpu/ops/curve.py :24-69, `_mont_mul`, `_fq_mul_many`,
+`_fq2_mul_many`). A row is one Fq element: 12 little-endian 32-bit limbs,
+limb axis last, canonical in [0, p), Montgomery form with R = 2^384 (the
+same residues as the reference's rows and the port's planes). An Fq2
+element is `(..., 2, 12)`. Leading axes are any batch shape.
+
+Three CUDA kernels (ops/csrc/plane_kernels.cu) compute on rows in place:
+
+    fe_mul_rows   a·b·R⁻¹ mod p   (pallas_plane._mont_rows_call :969)
+    fe_add_rows   (a + b) mod p   (field.fq_add, XLA ops in the reference)
+    fe_sub_rows   (a − b) mod p   (field.fq_sub; fq_neg(a) = sub(0, a))
+
+Their wrappers take same-shape contiguous int32 rows with a trailing 12.
+A CUDA tensor launches the kernel and counts a launch in
+cuda_plane.KERNELS; a CPU tensor runs the plain version — field.rows_*_plain,
+the digit arithmetic of field.fe_*_plain entered from rows — and counts a
+plain call.
+There is no fallback between the two, and no switch between field planes:
+on the card every product takes fe_mul_rows (the reference pins its "xla"
+and "pallas" planes bit-identical, so one plane is faithful to both).
+
+Batching. `_fq_mul_many` is ONE product launch over the stacked rows;
+`_fq2_mul_many` is ONE add launch for all Karatsuba pre-sums, ONE product
+launch and two sub launches. Every output is canonical, so how the adds are
+batched changes no value.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_plane as CP
+from . import field as F
+
+LIMBS = F.LIMBS
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(a: torch.Tensor, b: torch.Tensor) -> torch.device:
+    for t in (a, b):
+        if t.dtype != torch.int32:
+            raise TypeError(f"rows must be int32, got {t.dtype}")
+    if a.shape != b.shape:
+        raise ValueError(f"row shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
+    if a.dim() < 1 or a.shape[-1] != LIMBS or a.numel() == 0:
+        raise ValueError(f"expected (..., {LIMBS}) rows, got {tuple(a.shape)}")
+    if a.device != b.device:
+        raise ValueError("rows are on different devices")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("rows must be contiguous")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {a.device}")
+    return a.device
+
+
+def _run(name: str, plain, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if _check(a, b).type == "cpu":
+        CP.KERNELS[name].plain_calls[1] += 1
+        return plain(a, b)
+    return CP.launch_rows(name, a, b)
+
+
+def mont_mul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery products a·b·R⁻¹ mod p over same-shape rows, canonical:
+    the contract of pallas_plane.mont_mul_rows, any leading rank."""
+    return _run("fe_mul_rows", F.rows_mul_plain, a, b)
+
+
+def add_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod p over same-shape rows."""
+    return _run("fe_add_rows", F.rows_add_plain, a, b)
+
+
+def sub_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a − b) mod p over same-shape rows."""
+    return _run("fe_sub_rows", F.rows_sub_plain, a, b)
+
+
+# ---------------------------------------------------------------------------
+# Field ops (the reference's field.py names; Fq2 adds are Fq adds)
+# ---------------------------------------------------------------------------
+
+
+def _shape(xs) -> tuple:
+    """The broadcast shape of xs (torch.broadcast_shapes without its cost)."""
+    shapes = [tuple(x.shape) for x in xs]
+    n = max(len(s) for s in shapes)
+    out = [1] * n
+    for s in shapes:
+        for i, d in enumerate(s, n - len(s)):
+            if d != 1:
+                if out[i] not in (1, d):
+                    raise ValueError(f"shapes {shapes} do not broadcast")
+                out[i] = d
+    return tuple(out)
+
+
+def _bc(*xs):
+    """Broadcast to one shape, contiguous."""
+    first = xs[0].shape
+    if all(x.shape == first for x in xs):
+        return [x.contiguous() for x in xs]
+    shape = _shape(xs)
+    return [x.expand(shape).contiguous() for x in xs]
+
+
+def stack(xs, dim: int = 0) -> torch.Tensor:
+    """Stack elements of possibly broadcast shapes."""
+    return torch.stack(_bc(*xs), dim)
+
+
+def fq_add(a, b):
+    return add_rows(*_bc(a, b))
+
+
+def fq_sub(a, b):
+    return sub_rows(*_bc(a, b))
+
+
+def fq_neg(a):
+    a = a.contiguous()
+    return sub_rows(torch.zeros_like(a), a)
+
+
+def fq_mont_mul(a, b):
+    return _mont_mul(a, b)
+
+
+def fq_sqr(a):
+    return _mont_mul(a, a)
+
+
+def fq_is_zero(a):
+    return (a == 0).all(-1)
+
+
+fq2_add = fq_add
+fq2_sub = fq_sub
+fq2_neg = fq_neg
+
+
+def fq2_mul(a, b):
+    return _fq2_mul_many([(a, b)])[0]
+
+
+def fq2_sqr(a):
+    return _fq2_mul_many([(a, a)])[0]
+
+
+def fq2_is_zero(a):
+    return (a == 0).all(-1).all(-1)
+
+
+def fq_select(mask, a, b):
+    return torch.where(mask[..., None], a, b)
+
+
+def fq2_select(mask, a, b):
+    return torch.where(mask[..., None, None], a, b)
+
+
+def const(rows, like: torch.Tensor) -> torch.Tensor:
+    """Host limb rows (numpy) as a tensor on `like`'s device."""
+    return torch.as_tensor(rows, dtype=torch.int32, device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# The seam (curve.py :24-69)
+# ---------------------------------------------------------------------------
+
+
+def _mont_mul(a, b):
+    """One possibly stacked Montgomery product through fe_mul_rows."""
+    return mont_mul_rows(*_bc(a, b))
+
+
+def _fq_mul_many(pairs):
+    """k independent Fq products as ONE product launch over stacked rows."""
+    if len(pairs) == 1:
+        return [_mont_mul(*pairs[0])]
+    k = len(pairs)
+    ab = stack([a for a, _ in pairs] + [b for _, b in pairs])
+    return list(mont_mul_rows(ab[:k], ab[k:]).unbind(0))
+
+
+def _fq2_mul_many(pairs):
+    """k independent Fq2 Karatsuba products: one add launch (a0+a1, b0+b1 of
+    every pair), one product launch (3k wide), two sub launches."""
+    k = len(pairs)
+    ab = stack([a for a, _ in pairs] + [b for _, b in pairs]).movedim(-2, 0).contiguous()
+    x0, x1 = ab[0], ab[1]                         # (2k, ..., 12): a then b
+    s = add_rows(x0, x1)
+    lhs = torch.cat([x0[:k], x1[:k], s[:k]])
+    rhs = torch.cat([x0[k:], x1[k:], s[k:]])
+    v = mont_mul_rows(lhs, rhs)
+    v0, v1, t = v[:k], v[k:2 * k], v[2 * k:]
+    d = sub_rows(torch.cat([v0, t]), torch.cat([v1, v0]))    # c0, t − v0
+    c1 = sub_rows(d[k:], v1)
+    return list(torch.stack([d[:k], c1], -2).unbind(0))
+
+
+# ---------------------------------------------------------------------------
+# Fixed-exponent powers
+# ---------------------------------------------------------------------------
+
+
+def pow_rows(a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e for a host-known exponent e >= 1 over Fq rows: a 16-entry table
+    (14 products), then per MSB-first 4-bit window 4 squarings and one table
+    product, skipped where the window is 0 (the exponent is known on the
+    host, so no lane needs it). The value is the reference's square-and-
+    multiply scan's (canonical either way)."""
+    if e < 1:
+        raise ValueError("exponent must be >= 1")
+    digits = CP.exp_digits(e)
+    while digits[0] == 0:
+        digits = digits[1:]
+    a = a.contiguous()
+    tab = [None, a]
+    for _ in range(2, 1 << CP.POW_WINDOW):
+        tab.append(mont_mul_rows(tab[-1], a))
+    acc = tab[digits[0]]
+    for d in digits[1:]:
+        for _ in range(CP.POW_WINDOW):
+            acc = mont_mul_rows(acc, acc)
+        if d:
+            acc = mont_mul_rows(acc, tab[d])
+    return acc

@@ -1,0 +1,251 @@
+"""Fq6 / Fq12 extension towers on rows (the port's charon_tpu/ops/tower.py).
+
+Same tower as the host oracle: Fq2 = Fq[u]/(u²+1), Fq6 = Fq2[v]/(v³−ξ) with
+ξ = 1+u, Fq12 = Fq6[w]/(w²−v). Elements are nested tuples of Fq2 rows
+`(..., 2, 12)` (ops/rows.py): Fq6 = (c0, c1, c2), Fq12 = (g, h).
+
+The formulas are the reference's. What differs is only how the work is
+issued: every independent Fq2 product of a step is stacked into one
+`rows._fq2_mul_many` (one product launch), and the adds and subs around
+them are stacked into as few rows launches as their dependencies allow
+(`_add_many`, `_sub_many`, `_mul_xi_many`). Every value is canonical, so the
+outputs are the reference's limb for limb.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..crypto import fields as PF
+from . import field as F
+from . import rows as R
+
+# -- batched Fq2 adds, subs and ξ products ------------------------------------
+
+
+def _add_many(xs, ys):
+    """[x + y for x, y in zip(xs, ys)] in one add launch."""
+    k = len(xs)
+    t = R.stack(list(xs) + list(ys))
+    return list(R.add_rows(t[:k], t[k:]).unbind(0))
+
+
+def _sub_many(xs, ys):
+    """[x − y for x, y in zip(xs, ys)] in one sub launch."""
+    k = len(xs)
+    t = R.stack(list(xs) + list(ys))
+    return list(R.sub_rows(t[:k], t[k:]).unbind(0))
+
+
+def _neg_many(xs):
+    return list(R.fq_neg(R.stack(list(xs))).unbind(0))
+
+
+def _mul_xi_many(xs):
+    """[x·ξ for x in xs]: (x0 − x1) + (x0 + x1)u, one sub and one add launch."""
+    X = R.stack(list(xs))
+    x0, x1 = X[..., 0, :].contiguous(), X[..., 1, :].contiguous()
+    return list(torch.stack([R.sub_rows(x0, x1), R.add_rows(x0, x1)], -2).unbind(0))
+
+
+def _conj_many(xs):
+    """[conj(x) for x in xs]: one neg launch over the u components."""
+    X = R.stack(list(xs))
+    return list(torch.stack([X[..., 0, :], R.fq_neg(X[..., 1, :])], -2).unbind(0))
+
+
+def fq2_mul_xi(a):
+    """(a0 + a1·u)(1 + u) = (a0 − a1) + (a0 + a1)u."""
+    return _mul_xi_many([a])[0]
+
+
+def fq2_conj(a):
+    return _conj_many([a])[0]
+
+
+# -- Fq6 ----------------------------------------------------------------------
+
+
+def fq6_add(a, b):
+    return tuple(_add_many(a, b))
+
+
+def fq6_sub(a, b):
+    return tuple(_sub_many(a, b))
+
+
+def fq6_neg(a):
+    return tuple(_neg_many(a))
+
+
+def fq6_mul_many(pairs):
+    """k independent Fq6 Karatsuba products: one add launch for the
+    pre-sums, all 6k Fq2 products in one `_fq2_mul_many`, five launches for
+    the recombination (reference formulas, tower.py :50)."""
+    k = len(pairs)
+    L, Rr = [], []
+    for a, b in pairs:
+        a0, a1, a2 = a
+        b0, b1, b2 = b
+        L += [a1, b1, a0, b0, a0, b0]
+        Rr += [a2, b2, a1, b1, a2, b2]
+    S = _add_many(L, Rr)
+    ops = []
+    for i, (a, b) in enumerate(pairs):
+        s = S[6 * i:6 * i + 6]
+        ops += [(a[0], b[0]), (a[1], b[1]), (a[2], b[2]),
+                (s[0], s[1]), (s[2], s[3]), (s[4], s[5])]
+    rs = R._fq2_mul_many(ops)
+    t0, t1, t2, s12, s01, s02 = (rs[j::6] for j in range(6))
+    u = _sub_many(s12 + s01 + s02, t1 + t0 + t0)
+    w = _sub_many(u, t2 + t1 + t2)
+    xi = _mul_xi_many(w[:k] + t2)
+    c = _add_many(t0 + w[k:2 * k] + w[2 * k:], xi[:k] + xi[k:] + t1)
+    # c0 = t0 + ξ(s12 − t1 − t2), c1 = (s01 − t0 − t1) + ξt2,
+    # c2 = (s02 − t0 − t2) + t1
+    return [(c[i], c[k + i], c[2 * k + i]) for i in range(k)]
+
+
+def fq6_mul(a, b):
+    return fq6_mul_many([(a, b)])[0]
+
+
+def fq6_sqr(a):
+    return fq6_mul(a, a)
+
+
+def fq6_mul_v(a):
+    return (fq2_mul_xi(a[2]), a[0], a[1])
+
+
+def fq6_inv(a):
+    a0, a1, a2 = a
+    sq0, m12, sq2, m01, sq1, m02 = R._fq2_mul_many(
+        [(a0, a0), (a1, a2), (a2, a2), (a0, a1), (a1, a1), (a0, a2)])
+    x12, x22 = _mul_xi_many([m12, sq2])
+    c0, c1, c2 = _sub_many([sq0, x22, sq1], [x12, m01, m02])
+    p0, p21, p12 = R._fq2_mul_many([(a0, c0), (a2, c1), (a1, c2)])
+    t = R.fq2_add(p0, fq2_mul_xi(R.fq2_add(p21, p12)))
+    ti = fq2_inv(t)
+    return tuple(R._fq2_mul_many([(c0, ti), (c1, ti), (c2, ti)]))
+
+
+# -- Fq inversion: a^(p−2) ------------------------------------------------------
+
+
+def fq_inv(a):
+    """a^(p−2) (0 for 0), the exponent's zero windows skipped (rows.pow_rows)."""
+    return R.pow_rows(a, F.P_INT - 2)
+
+
+def fq2_inv(a):
+    a0, a1 = a[..., 0, :], a[..., 1, :]
+    n0, n1 = R._fq_mul_many([(a0, a0), (a1, a1)])
+    d = fq_inv(R.fq_add(n0, n1))
+    m0, m1 = R._fq_mul_many([(a0, d), (a1, d)])
+    return torch.stack([m0, R.fq_neg(m1)], -2)
+
+
+# -- Fq12 ---------------------------------------------------------------------
+
+
+def fq12_one_like(x):
+    """Fq12 one, broadcast to x's batch shape; x is an Fq2 row (..., 2, 12)."""
+    one = torch.as_tensor(F.fq_from_int(1), device=x.device).expand(x[..., 0, :].shape)
+    f2_one = torch.stack([one, torch.zeros_like(one)], -2)
+    f2_zero = torch.zeros_like(f2_one)
+    return ((f2_one, f2_zero, f2_zero), (f2_zero, f2_zero, f2_zero))
+
+
+def fq12_add(a, b):
+    return (fq6_add(a[0], b[0]), fq6_add(a[1], b[1]))
+
+
+def fq12_mul(a, b):
+    a0, a1 = a
+    b0, b1 = b
+    s = _add_many(list(a0) + list(b0), list(a1) + list(b1))
+    # the 3 Karatsuba Fq6 products are independent: one 18-wide Fq2 stack
+    t0, t1, st = fq6_mul_many([(a0, b0), (a1, b1), (tuple(s[:3]), tuple(s[3:]))])
+    r = _add_many(list(t0) + list(t0), [fq2_mul_xi(t1[2]), t1[0], t1[1]] + list(t1))
+    c0 = tuple(r[:3])                               # t0 + v·t1
+    c1 = tuple(_sub_many(st, r[3:]))                # s − (t0 + t1)
+    return (c0, c1)
+
+
+def fq12_sqr(a):
+    return fq12_mul(a, a)
+
+
+def fq12_conj(a):
+    return (a[0], fq6_neg(a[1]))
+
+
+def fq12_inv(a):
+    a0, a1 = a
+    s0, s1 = fq6_mul_many([(a0, a0), (a1, a1)])
+    ti = fq6_inv(fq6_sub(s0, fq6_mul_v(s1)))
+    m0, m1 = fq6_mul_many([(a0, ti), (a1, ti)])
+    return (m0, fq6_neg(m1))
+
+
+def fq12_mul_sparse(f, a, b, c):
+    """f · (a + b·vw + c·v²w) for Fq2 a, b, c — the Miller line shape
+    (basis 1, v, v², w, vw, v²w with w² = v, v³ = ξ):
+      c0' = a f0 + ξ(b f4 + c f3)      c3' = a f3 + ξ(b f2 + c f1)
+      c1' = a f1 + ξ(b f5 + c f4)      c4' = a f4 + b f0 + ξ c f2
+      c2' = a f2 + b f3 + ξ c f5       c5' = a f5 + b f1 + c f0
+    All 18 Fq2 products in one stack."""
+    (f0, f1, f2), (f3, f4, f5) = f
+    coeffs = (f0, f1, f2, f3, f4, f5)
+    rs = R._fq2_mul_many([(a, x) for x in coeffs] + [(b, x) for x in coeffs]
+                         + [(c, x) for x in coeffs])
+    af, bf, cf = rs[0:6], rs[6:12], rs[12:18]
+    g0, g1, g3, g5 = _add_many([bf[4], bf[5], bf[2], bf[1]], [cf[3], cf[4], cf[1], cf[0]])
+    x0, x1, x3, xc5, xc2 = _mul_xi_many([g0, g1, g3, cf[5], cf[2]])
+    h2, h4 = _add_many([bf[3], bf[0]], [xc5, xc2])
+    o = _add_many(af, [x0, x1, h2, x3, h4, g5])
+    return ((o[0], o[1], o[2]), (o[3], o[4], o[5]))
+
+
+# -- Frobenius with host-computed γ constants -----------------------------------
+
+
+def _host_frob_constants():
+    """γ_{n,k} for frobeniusⁿ on basis (1, v, v², w, vw, v²w):
+    frobⁿ(Σ c_k e_k) = Σ conjⁿ(c_k)·γ_{n,k}·e_k (the reference's tables)."""
+    xi = (1, 1)
+    e = (PF.P - 1) // 6
+    gamma1 = [PF.fq2_pow(xi, e * k) for k in [0, 2, 4, 1, 3, 5]]
+    tables = [gamma1]
+    prev = gamma1
+    for _ in range(2):  # frob^2, frob^3
+        prev = [PF.fq2_mul(PF.fq2_conj(pk), g1k) for pk, g1k in zip(prev, gamma1)]
+        tables.append(prev)
+    return tables
+
+
+_FROB_TABLES = _host_frob_constants()
+
+
+def fq12_frobenius(f, n: int = 1):
+    """frobⁿ for n in {1, 2, 3}."""
+    if n not in (1, 2, 3):
+        raise ValueError("frobenius power must be 1..3")
+    (f0, f1, f2), (f3, f4, f5) = f
+    coeffs = [f0, f1, f2, f3, f4, f5]
+    if n % 2 == 1:
+        coeffs = _conj_many(coeffs)
+    consts = [torch.as_tensor(F.fq2_from_ints(*g), device=f0.device) for g in _FROB_TABLES[n - 1]]
+    out = R._fq2_mul_many(list(zip(coeffs, consts)))
+    return ((out[0], out[1], out[2]), (out[3], out[4], out[5]))
+
+
+def fq12_is_one(f):
+    """Canonical equality with 1 (Montgomery one in slot 0), per batch lane."""
+    one = fq12_one_like(f[0][0])
+    ok = torch.ones(f[0][0].shape[:-2], dtype=torch.bool, device=f[0][0].device)
+    for fa, fb in zip(f, one):
+        for ca, cb in zip(fa, fb):
+            ok = ok & (ca == cb).all(-1).all(-1)
+    return ok

@@ -9,6 +9,11 @@ device errors propagate.
 The device is explicit. `TorchImpl()` runs on cuda:0 and raises when CUDA is
 absent; only `TorchImpl(device="cpu")` selects the plain versions of the
 kernels, which is what the CPU tests pass.
+
+The slot verifies on the device by default (`verify="device"`: H(m) and the
+multi-pairing on the rows kernels, as the reference's default device
+verify); `verify="native"` selects the native ct_pairing_check rung
+explicitly. Neither falls back to the other.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ class TorchImpl:
 
     name = "torch-cuda"
 
-    def __init__(self, device: str | torch.device | None = None):
+    def __init__(self, device: str | torch.device | None = None, verify: str = "device"):
+        if verify not in PA.VERIFY_PATHS:
+            raise ValueError(f"verify must be one of {PA.VERIFY_PATHS}, got {verify!r}")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("TorchImpl needs a CUDA device; pass device='cpu' "
@@ -32,10 +39,10 @@ class TorchImpl:
             device = "cuda:0"
         self.device = torch.device(device)
         self.pk_cache = PA.PkPlaneCache()
+        self.verify = verify
         self.h2c = PA.H2CCache()
-        # verify calls by path; the native multi-pairing is this slice's
-        # declared verify path
-        self.pairing_path: dict[str, int] = {"native": 0}
+        # pairs checked per rung (the reference's ops_pairing_total{path})
+        self.pairing_path: dict[str, int] = {p: 0 for p in PA.VERIFY_PATHS}
         self.last_times = PA.SlotTimes()
 
     @staticmethod
@@ -62,5 +69,5 @@ class TorchImpl:
         raw, ok = PA.threshold_aggregate_and_verify(
             self._raw(batches), [bytes(pk) for pk in public_keys],
             [bytes(d) for d in datas], self.device, self.pk_cache, self.h2c,
-            self.pairing_path, times=self.last_times)
+            self.pairing_path, times=self.last_times, verify=self.verify)
         return [Signature(r) for r in raw], ok

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, hold each
 against its plain version, and run the fused sigagg slot at 1000 validators
-x 4-of-6 through TorchImpl, checked against the native oracle.
+x 4-of-6 through TorchImpl — verified on the device by default — checked
+against the native oracle.
 
     python3 chip_smoke.py            # the whole check (one CUDA card)
     python3 chip_smoke.py --profile  # the whole check, then one slot traced
@@ -12,15 +13,29 @@ Phases, any failure exits non-zero:
   3. kernels — every kernel x E bit-equal to its plain version on seeded
                inputs at the slot's widths (4096 G2 partials, 2048 combined
                MSM elements, 12288 packed Fq elements) with the edges 0, 1,
-               p-1, P+P, P+(-P), inf+Q, P+inf; time per launch vs the plain
-               version and the card's bound.
-  4. slot    — the fixed probe (seed 99, 1000 x 4-of-6, msg 0x42*32): warm
-               once with every kernel counter at 0 (the launches of one
-               slot, pk-plane miss included), median of 3 timed slots, all
-               1000 aggregates byte-identical to native ct_lincomb_g2, the
-               launches and time of each step of plane_agg.fused_slot (its
-               step hook), a tampered partial gives False, bad encodings
-               raise the reference's ValueError texts.
+               p-1, P+P, P+(-P), inf+Q, P+inf; the rows kernels at the
+               verify's widths (108 and 6912 rows: one Fq12 product's 54 Fq
+               products on 2 and 128 lanes) with the edges 0, 1, p-1, R mod
+               p; time per launch vs the plain version and the card's bound.
+  4. slot    — the fixed probe (seed 99, 1000 x 4-of-6, msg 0x42*32) with
+               the default device verify: warm once with every kernel
+               counter at 0 (the launches of one slot: pk-plane miss, device
+               hash-to-G2 of the message, device pairing), median of 3 timed
+               slots, all 1000 aggregates byte-identical to native
+               ct_lincomb_g2, the launches and time of each step of
+               plane_agg.fused_slot (its step hook), a tampered partial
+               gives False, bad encodings raise the reference's ValueError
+               texts; the same slots with verify="native" give the same
+               verdicts; the launches of one first and one steady device
+               verify by kernel.
+  5. verify  — the committee slot (64 messages, validator v signs message
+               v % 64; 65 pairs, a 64-message device hash-to-G2 batch):
+               True, tampered False, each verdict the native rung's, all 64
+               device H(m) byte-identical to native ct_hash_to_g2; the
+               1,040-pair chunked check (its 65 pairs x 16: two 1,024-lane
+               chunks) True, and False with a pair of the last chunk
+               tampered; the RFC 9380 J.10.1 vector through the device
+               hash-to-G2.
 The last two lines are the kernels JSON and the device JSON.
 """
 
@@ -44,11 +59,22 @@ from charon_tpu_torch.ops import convert as CV
 from charon_tpu_torch.ops import curve as C
 from charon_tpu_torch.ops import cuda_plane as CP
 from charon_tpu_torch.ops import field as F
+from charon_tpu_torch.ops import h2c as H2C
+from charon_tpu_torch.ops import pairing as PR
 from charon_tpu_torch.ops import plane_agg as PA
+from charon_tpu_torch.ops import rows as RW
 from charon_tpu_torch.tbls.torch_impl import TorchImpl
 
 N_VALIDATORS, NUM_SHARES, THRESHOLD = 1000, 6, 4
 MSG = b"\x42" * 32
+# one signing root per committee (MAX_COMMITTEES_PER_SLOT = 64)
+COMMITTEE_MSGS = [bytes([0x50 + (c % 64)]) * 31 + bytes([c]) for c in range(64)]
+# RFC 9380 J.10.1: BLS12381G2_XMD:SHA-256_SSWU_RO_, msg = ""
+RFC_DST = b"QUUX-V01-CS02-with-BLS12381G2_XMD:SHA-256_SSWU_RO_"
+RFC_P = ((0x0141EBFBDCA40EB85B87142E130AB689C673CF60F1A3E98D69335266F30D9B8D4AC44C1038E9DCDD5393FAF5C41FB78A,
+          0x05CB8437535E20ECFFAEF7752BADDF98034139C38452458BAEEFAB379BA13DFF5BF5DD71B72418717047F5B0F37DA03D),
+         (0x0503921D7F6A12805E72940B963C0CF3471C7B2A524950CA195D11062EE75EC076DAF2D4BC358C4B190C0C98064FDD92,
+          0x12424AC32561493F3FE3C260708A12B7C620E7BE00099A974E259DDC7D1F6395C3C811CDD19F1E8DBF3E9ECFDCBAB8D6))
 
 # H100 SXM: 3.35 TB/s HBM3 (data sheet); 32-bit integer multiply-adds at
 # 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper white paper, data sheet).
@@ -96,8 +122,9 @@ def ptxas_summary(text: str) -> list[str]:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = re.search(r"((?:fe_mul|fe_add|fe_sub|pt_double|pt_add)_kernel)ILi(\d)EE", name)
-            short = f"{k.group(1)}<{k.group(2)}>" if k else name
+            k = re.search(r"((?:fe_mul|fe_add|fe_sub|pt_double|pt_add)(?:_rows)?_kernel)(?:ILi(\d)EE)?",
+                          name)
+            short = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")) if k else name
             rows.append(f"{short}: {m.group(1)} registers, {props}")
             name, props = None, ""
     return rows
@@ -224,6 +251,53 @@ def check_kernels(device, widths: dict, reps: int) -> dict:
     return rows
 
 
+def check_rows_kernels(device, n: int, reps: int) -> dict:
+    """The three rows kernels against their plain versions on (n, 12) rows
+    (edge rows 0, 1, p-1, R mod p first); returns per-kernel rows."""
+    rng = random.Random(4321 + n)
+    a = _rand_plane(rng, 1, n, device)[0].t().contiguous()
+    b = _rand_plane(rng, 1, n, device)[0].t().contiguous()
+    b[:4] = a[:4].flip(0)
+    nbytes = 3 * 48 * n
+    cases = {
+        "fe_mul_rows": (lambda: (RW.mont_mul_rows(a, b),), lambda: (F.rows_mul_plain(a, b),),
+                        n * OPS_PER_FQ_PRODUCT),
+        "fe_add_rows": (lambda: (RW.add_rows(a, b),), lambda: (F.rows_add_plain(a, b),),
+                        n * OPS_PER_FQ_ADD),
+        "fe_sub_rows": (lambda: (RW.sub_rows(a, b),), lambda: (F.rows_sub_plain(a, b),),
+                        n * OPS_PER_FQ_ADD),
+    }
+    rows = {}
+    for name, (kern, plain, ops) in cases.items():
+        got = kern()
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, plain())
+        if err != 0:
+            raise SystemExit(f"kernel {name} disagrees with its plain version at {n} rows: "
+                             f"max abs limb difference {err}")
+        ms = _time_ms(kern, reps)
+        plain_ms = _wall_ms(plain, 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / INT32_OPS_PER_S * 1e3
+        rows[(name, 1)] = {
+            "name": name, "route": "cuda", "source": CP.KERNELS[name].source,
+            "replaces": CP.KERNELS[name].replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+            "width": n,
+        }
+        log(f"kernel {name} n={n}: bit-equal to plain (max_abs_err 0); {ms * 1e3:.2f} us/launch, "
+            f"plain {plain_ms * 1e3:.1f} us, bound {rows[(name, 1)]['bound_ms'] * 1e3:.3f} us "
+            f"({rows[(name, 1)]['bound_by']})")
+    # fq_neg is sub(0, a): 0 -> 0
+    z = torch.zeros_like(a)
+    neg = RW.fq_neg(a)
+    if _max_abs_err((neg,), (F.rows_sub_plain(z, a),)) != 0 or bool((neg[0] != 0).any()):
+        raise SystemExit("fe_sub_rows negation disagrees with its plain version")
+    torch.cuda.synchronize()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Slot
 # ---------------------------------------------------------------------------
@@ -278,12 +352,17 @@ def gen_cluster(pool: ThreadPoolExecutor):
         secrets_.append(sk)
         jobs.append({i: shares[i] for i in ids})
     pubkeys = list(pool.map(_pubkey, secrets_))
+    return sign_cluster(pool, jobs, [MSG] * N_VALIDATORS), pubkeys, jobs
+
+
+def sign_cluster(pool: ThreadPoolExecutor, jobs, msgs) -> list[dict]:
+    """Validator v's partial signatures over msgs[v], one per share it holds."""
     flat = [(v, i, s) for v, job in enumerate(jobs) for i, s in job.items()]
-    sigs = list(pool.map(lambda t: _sign(t[2], MSG), flat))
-    batches = [dict() for _ in range(N_VALIDATORS)]
+    sigs = list(pool.map(lambda t: _sign(t[2], msgs[t[0]]), flat))
+    batches = [dict() for _ in range(len(jobs))]
     for (v, i, _s), sig in zip(flat, sigs):
         batches[v][i] = sig
-    return batches, pubkeys, jobs
+    return batches
 
 
 def off_curve_x(sig: bytes) -> bytes:
@@ -299,10 +378,11 @@ def off_curve_x(sig: bytes) -> bytes:
 
 
 def slot_steps(batches, pubkeys, datas, device, total: int) -> None:
-    """The first slot's dispatch step by step, through plane_agg.fused_slot's
-    step hook with a fresh pk-plane cache: each step's launches from the
-    wrapper counters and its wall time up to a synchronise. The launches
-    must add up to `total`, the first slot's count."""
+    """The first slot step by step, with a fresh pk-plane cache and a fresh
+    H(m) cache: plane_agg.fused_slot's step hook for the dispatch, then
+    readback, emit and the device verify (H(m) miss). Each step's launches
+    from the wrapper counters and its wall time up to a synchronise. The
+    launches must add up to `total`, the first slot's count."""
     rows, last = [], [0.0]
 
     def mark(name: str) -> None:
@@ -320,6 +400,13 @@ def slot_steps(batches, pubkeys, datas, device, total: int) -> None:
     state = PA.fused_slot(layout, pubkeys, datas, device, PA.PkPlaneCache(), mark=mark)
     if state[0] != "pending":
         raise SystemExit(f"step run: the slot ended as {state[0]!r}")
+    hstate = PA.readback(state)
+    mark("readback")
+    _out, S, pts = PA.host_emit(hstate, device)
+    mark("emit: bytes + host folds")
+    if not PA.pairing_finish(S, pts, PA.H2CCache(), {}, "device", device):
+        raise SystemExit("step run: device verify False on valid aggregates")
+    mark("device verify: hash-to-G2 of the message + pairing check")
     for name, n, ms in rows:
         log(f"step {name}: {n} launches, {ms:.2f} ms (synchronised wall)")
     if sum(n for _, n, _ in rows) != total:
@@ -327,7 +414,7 @@ def slot_steps(batches, pubkeys, datas, device, total: int) -> None:
 
 
 def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
-    main_path = [(k, E) for k in CP.KERNELS for E in (1, 2)]
+    main_path = [(k, E) for k in CP.KERNELS for E in CP.KERNELS[k].variants]
     # one slot of the main path, pk-plane miss included: counters at 0
     # just before, read just after
     CP.reset_counts()
@@ -340,7 +427,8 @@ def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
     missing = [f"{k}<{E}>" for (k, E), c in launches.items() if c == 0]
     if missing:
         raise SystemExit(f"main path launched no {missing}")
-    log(f"slot warm (first, pk plane decoded): {warm_s:.3f} s; launches "
+    log(f"slot warm (first: pk plane decoded, H(m) hashed on the device, device verify): "
+        f"{warm_s:.3f} s, verify {impl.last_times.verify:.4f} s; launches "
         + ", ".join(f"{k}<{E}>={c}" for (k, E), c in launches.items()))
 
     times, shares = [], []
@@ -353,7 +441,8 @@ def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
         if not ok:
             raise SystemExit("slot verdict False on valid aggregates")
     med = statistics.median(times)
-    log(f"slot 1000x4-of-6: median {med:.4f} s, runs " + ", ".join(f"{t:.4f}" for t in times)
+    log(f"slot 1000x4-of-6 (verify={impl.verify}): median {med:.4f} s, runs "
+        + ", ".join(f"{t:.4f}" for t in times)
         + f"; pairing share {statistics.median(shares):.4f}; phases of the last run: "
         + ", ".join(f"{k} {v:.4f} s" for k, v in vars(impl.last_times).items()))
 
@@ -369,9 +458,10 @@ def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
     slot_steps(batches, pubkeys, datas, impl.device, sum(launches.values()))
 
     # a tampered partial: validator 17's first partial replaced by validator 18's
+    v17, v18 = 17 % len(batches), 18 % len(batches)
     tampered = [dict(b) for b in batches]
-    first = sorted(tampered[17])[0]
-    tampered[17][first] = batches[18][sorted(batches[18])[0]]
+    first = sorted(tampered[v17])[0]
+    tampered[v17][first] = batches[v18][sorted(batches[v18])[0]]
     _aggs, ok_t = impl.threshold_aggregate_verify_batch(tampered, pubkeys, datas)
     if ok_t:
         raise SystemExit("tampered partial verified True")
@@ -382,10 +472,11 @@ def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
     i0 = sorted(flag[5])[0]
     flag[5][i0] = bytes([flag[5][i0][0] & 0x7F]) + flag[5][i0][1:]
     bad = [dict(b) for b in batches]
-    i1 = sorted(bad[300])[1]
-    bad[300][i1] = off_curve_x(bad[300][i1])
+    v300 = 300 % len(batches)
+    i1 = sorted(bad[v300])[1]
+    bad[v300][i1] = off_curve_x(bad[v300][i1])
     layout = PA.layout_slots(bad)
-    k = layout[0].index(bad[300][i1])
+    k = layout[0].index(bad[v300][i1])
     for case, want_text in ((flag, "uncompressed G2 not supported"),
                             (bad, f"invalid G2 point at index {k}")):
         try:
@@ -396,9 +487,133 @@ def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
         else:
             raise SystemExit(f"bad encoding did not raise ({want_text})")
         log(f"bad encoding: ValueError({want_text!r})")
-    log(f"pairing_path: {impl.pairing_path}")
+    log(f"pairing_path (pairs per rung): {impl.pairing_path}")
     return {"launches": launches, "median_s": med, "times_s": times,
-            "pairing_share": statistics.median(shares)}
+            "pairing_share": statistics.median(shares), "tampered": tampered}
+
+
+def native_twin(batches, pubkeys, datas, tampered) -> None:
+    """The same slots with verify="native": the same verdicts, and the
+    native slot's median and verify phase beside the device's."""
+    impl = TorchImpl(verify="native")
+    _aggs, ok = impl.threshold_aggregate_verify_batch(batches, pubkeys, datas)
+    times, verifies = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _aggs, ok = impl.threshold_aggregate_verify_batch(batches, pubkeys, datas)
+        times.append(time.perf_counter() - t0)
+        verifies.append(impl.last_times.verify)
+        if not ok:
+            raise SystemExit("native rung: verdict False on valid aggregates")
+    _aggs, ok_t = impl.threshold_aggregate_verify_batch(tampered, pubkeys, datas)
+    if ok_t:
+        raise SystemExit("native rung: tampered partial verified True")
+    log(f"slot 1000x4-of-6 (verify=native): median {statistics.median(times):.4f} s, runs "
+        + ", ".join(f"{t:.4f}" for t in times) + "; verify phase "
+        + ", ".join(f"{v:.4f}" for v in verifies) + " s; verdicts True / tampered False, "
+        "as the device rung's")
+
+
+def slot_pairs(impl: TorchImpl, batches, pubkeys, datas):
+    """(S, live) of one slot, from the slot's own dispatch/readback/emit."""
+    layout = PA.layout_slots(batches)
+    state = PA.fused_slot(layout, pubkeys, datas, impl.device, impl.pk_cache)
+    _out, S, pts = PA.host_emit(PA.readback(state), impl.device)
+    live = [(bytes(m), P) for m, P in pts if not PC.jac_is_infinity(PC.FqOps, P)]
+    return S, live
+
+
+def verify_launches(impl: TorchImpl, S, live, label: str) -> dict:
+    """Launches and synchronised wall of one device verify by kernel."""
+    CP.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok = PA.pairing_finish(S, live, impl.h2c, {}, "device", impl.device)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {f"{k}<{E}>" if len(v.variants) > 1 else k: v.launches[E]
+              for k, v in CP.KERNELS.items() for E in v.variants if v.launches[E]}
+    if not ok:
+        raise SystemExit(f"{label} device verify False on valid aggregates")
+    log(f"{label} device verify: {dt:.4f} s, {sum(counts.values())} launches: "
+        + ", ".join(f"{k}={c}" for k, c in counts.items()))
+    return counts
+
+
+def committee_slot(pool, jobs, pubkeys) -> None:
+    """1000 x 4-of-6 over 64 committee roots: device verify against the
+    native rung, the 64 device H(m) against ct_hash_to_g2, then the chunked
+    1,040-pair check built from this slot's 65 pairs."""
+    k = len(COMMITTEE_MSGS)
+    datas = [COMMITTEE_MSGS[v % k] for v in range(N_VALIDATORS)]
+    t0 = time.perf_counter()
+    batches = sign_cluster(pool, jobs, datas)
+    log(f"committee probe: {N_VALIDATORS} validators over {k} messages signed natively in "
+        f"{time.perf_counter() - t0:.1f} s")
+    impl, native_impl = TorchImpl(), TorchImpl(verify="native")
+    CP.reset_counts()
+    t0 = time.perf_counter()
+    _aggs, ok = impl.threshold_aggregate_verify_batch(batches, pubkeys, datas)
+    first = time.perf_counter() - t0
+    rows_launches = sum(CP.KERNELS[k].launches[1] for k in ("fe_mul_rows", "fe_add_rows",
+                                                            "fe_sub_rows"))
+    _aggs, ok_n = native_impl.threshold_aggregate_verify_batch(batches, pubkeys, datas)
+    if not (ok and ok_n):
+        raise SystemExit(f"committee slot: device verdict {ok}, native verdict {ok_n}")
+    log(f"committee slot (first, {k} H(m) hashed on the device): {first:.3f} s, verify "
+        f"{impl.last_times.verify:.4f} s, {rows_launches} rows-kernel launches; "
+        f"pairing_path {impl.pairing_path}")
+    times = []
+    for _ in range(3):
+        _aggs, ok = impl.threshold_aggregate_verify_batch(batches, pubkeys, datas)
+        times.append(impl.last_times.verify)
+        if not ok:
+            raise SystemExit("committee slot: verdict False on valid aggregates")
+    log(f"committee slot steady device verify ({k + 1} pairs): "
+        + ", ".join(f"{t:.4f}" for t in times) + f" s, median {statistics.median(times):.4f} s")
+    same = sum(impl.h2c.entry(m)[0] == native.hash_to_g2(m) for m in COMMITTEE_MSGS)
+    if same != k:
+        raise SystemExit(f"only {same}/{k} device H(m) match native ct_hash_to_g2")
+    log(f"committee slot: {k}/{k} device H(m) byte-identical to native ct_hash_to_g2")
+    v100, v101 = 100 % len(batches), 101 % len(batches)
+    tampered = [dict(b) for b in batches]
+    first_id = sorted(tampered[v100])[0]
+    tampered[v100][first_id] = batches[v101][sorted(batches[v101])[0]]
+    _a, ok_t = impl.threshold_aggregate_verify_batch(tampered, pubkeys, datas)
+    _a, ok_tn = native_impl.threshold_aggregate_verify_batch(tampered, pubkeys, datas)
+    if ok_t or ok_tn:
+        raise SystemExit(f"committee slot tampered: device {ok_t}, native {ok_tn}")
+    log("committee slot tampered partial: device False, native False")
+
+    # the chunked check: this slot's k + 1 pairs x 16 (1,040 pairs at k = 64:
+    # one full chunk and 16 pairs)
+    S, live = slot_pairs(impl, batches, pubkeys, datas)
+    px, py, qx, qy = PA.pairing_rows(S, live, impl.h2c, impl.device)
+    if px.shape[0] != k + 1:
+        raise SystemExit(f"committee slot has {px.shape[0]} pairs, expected {k + 1}")
+    rep = [t.repeat(16, *([1] * (t.dim() - 1))) for t in (px, py, qx, qy)]
+    n = rep[0].shape[0]
+    t0 = time.perf_counter()
+    ok_c = PR.pairing_check_planes(*rep)
+    dt = time.perf_counter() - t0
+    # the last message pair (pair n - 1 is the S pair) takes H(m_0)
+    last = n - 2
+    qx_t, qy_t = rep[2].clone(), rep[3].clone()
+    qx_t[last], qy_t[last] = qx[0], qy[0]
+    ok_ct = PR.pairing_check_planes(rep[0], rep[1], qx_t, qy_t)
+    if not ok_c or ok_ct:
+        raise SystemExit(f"chunked check: valid {ok_c}, tampered last chunk {ok_ct}")
+    spans = [hi - lo for lo, hi in PR.buckets.chunk_spans(n, PR.MAX_PAIR_TILE)]
+    log(f"chunked check {n} pairs (chunks {spans}): True in {dt:.3f} s; pair {last} of the "
+        "last chunk tampered gives False")
+
+
+def rfc_vector(device) -> None:
+    hx, hy = H2C.hash_to_g2_device([b""], device, dst=RFC_DST)
+    x0, x1, y0, y1 = F.fq_ints(torch.stack([hx, hy], 1).cpu().numpy())
+    if ((x0, x1), (y0, y1)) != RFC_P:
+        raise SystemExit("device hash-to-G2 misses the RFC 9380 J.10.1 vector")
+    log("RFC 9380 J.10.1 (msg '') through the device hash-to-G2: exact")
 
 
 def profile_slot(impl: TorchImpl, batches, pubkeys, datas) -> None:
@@ -462,14 +677,24 @@ def main(argv: list[str]) -> int:
     # the combined MSM plane's width as well
     check_kernels(device, {("fe", 1): 2048, ("fe", 2): 2048, ("pt", 1): 2048, ("pt", 2): 2048},
                   reps=5)
+    # the verify's rows: one Fq12 product's 54 Fq products on 2 and 128 lanes
+    check_rows_kernels(device, 108, reps=50)
+    rows.update(check_rows_kernels(device, 6912, reps=50))
 
     with ThreadPoolExecutor(max_workers=8) as pool:
         t0 = time.perf_counter()
-        batches, pubkeys, _jobs = gen_cluster(pool)
+        batches, pubkeys, jobs = gen_cluster(pool)
         log(f"probe: {N_VALIDATORS} validators x {THRESHOLD}-of-{NUM_SHARES} signed natively "
             f"in {time.perf_counter() - t0:.1f} s")
         impl = TorchImpl()
-        slot = run_slot(impl, batches, pubkeys, [MSG] * N_VALIDATORS, pool)
+        datas = [MSG] * N_VALIDATORS
+        slot = run_slot(impl, batches, pubkeys, datas, pool)
+        native_twin(batches, pubkeys, datas, slot["tampered"])
+        S, live = slot_pairs(impl, batches, pubkeys, datas)
+        verify_launches(TorchImpl(), S, live, "first (H(m) miss)")
+        verify_launches(impl, S, live, "steady (H(m) cached)")
+        committee_slot(pool, jobs, pubkeys)
+    rfc_vector(device)
     torch.cuda.synchronize()
     if "--profile" in argv:
         profile_slot(impl, batches, pubkeys, [MSG] * N_VALIDATORS)

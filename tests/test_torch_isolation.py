@@ -54,7 +54,8 @@ for v in range(4):
         s = (ctypes.c_uint8 * 96)(); lib.ct_sign(shares[i].to_bytes(32, "big"), msg, 32, s)
         b[i] = bytes(s)
     batches.append(b); msgs.append(msg)
-aggs, ok = TorchImpl(device="cpu").threshold_aggregate_verify_batch(batches, pks, msgs)
+aggs, ok = TorchImpl(device="cpu", verify="native").threshold_aggregate_verify_batch(
+    batches, pks, msgs)
 assert ok and len(aggs) == 4
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "charon_tpu" or m.startswith("charon_tpu."))

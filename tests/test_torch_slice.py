@@ -1,22 +1,36 @@
-"""The whole slice on the CPU: TorchImpl(device="cpu") against the JAX
-package's TPUImpl (which routes a small batch to its native path on a CPU
-host) on the same V=8, 4-of-6, two-message inputs — identical aggregate
-bytes and verdicts, the bad_pk contract, the parse error, the tbls facade —
-and the plain-path call counts of one slot, which pin that the slot goes
-through every kernel."""
+"""The whole slice on the CPU: TorchImpl(device="cpu") — verifying on the
+device path by default, or on the native rung with verify="native" —
+against the JAX package's TPUImpl (which routes a small batch to its native
+path on a CPU host) on the same V=8, 4-of-6, two-message inputs: identical
+aggregate bytes and verdicts, the bad_pk contract, the parse error, the tbls
+facade; the pairs counted per rung; the dual-form H(m) cache's cap, cap-0
+and upgrade-in-place semantics (tests/test_device_verify.py:259-305); the
+degenerate pairing rules and the absence of any fallback; and the
+plain-path call counts of one slot and of one verify, which pin that the
+slot goes through every kernel and the verify through the rows kernels."""
 
 import random
 
+import numpy as np
 import pytest
 import torch
 
 import charon_tpu.tbls as tbls
 from charon_tpu.crypto import fields as RPF
+from charon_tpu.crypto.curve import Fq2Ops as RFq2Ops
+from charon_tpu.crypto.curve import to_affine as r_to_affine
+from charon_tpu.crypto.hash_to_curve import DST_ETH, hash_to_g2
 from charon_tpu.ops import plane_agg as RPA
 from charon_tpu.tbls.native_impl import NativeImpl
 from charon_tpu.tbls.tpu_impl import TPUImpl
 from charon_tpu.tbls.types import PrivateKey
+from charon_tpu_torch import native as PN
+from charon_tpu_torch.crypto import curve as PC
 from charon_tpu_torch.ops import cuda_plane as CP
+from charon_tpu_torch.ops import field as F
+from charon_tpu_torch.ops import h2c as H
+from charon_tpu_torch.ops import pairing as PR
+from charon_tpu_torch.ops import plane_agg as PA
 from charon_tpu_torch.tbls.torch_impl import TorchImpl
 
 V, N, T = 8, 6, 4
@@ -49,17 +63,30 @@ def _cluster(native, seed, V, total, threshold):
 
 @pytest.fixture(scope="module")
 def slot():
-    """One TorchImpl for the module (its pk cache is shared by the tests) and
-    the first slot's plain-path call counts."""
+    """One TorchImpl for the module (its pk and H(m) caches are shared by the
+    tests), the first slot's plain-path call counts, and the (S, group
+    points) its verify received."""
     native = NativeImpl()
     batches, pks, datas = _cluster(native, 8, V, N, T)
     impl = TorchImpl(device="cpu")
-    CP.reset_counts()
-    aggs, ok = impl.threshold_aggregate_verify_batch(batches, pks, datas)
+    seen = []
+    real = PA.pairing_finish
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(PA, "pairing_finish", lambda S, pts, *a: seen.append((S, pts)) or real(S, pts, *a))
+        CP.reset_counts()
+        aggs, ok = impl.threshold_aggregate_verify_batch(batches, pks, datas)
     calls = {k: dict(v.plain_calls) for k, v in CP.KERNELS.items()}
     launches = {k: dict(v.launches) for k, v in CP.KERNELS.items()}
     return dict(impl=impl, native=native, batches=batches, pks=pks, datas=datas,
-                aggs=aggs, ok=ok, calls=calls, launches=launches)
+                aggs=aggs, ok=ok, calls=calls, launches=launches, pairs=seen[0],
+                pairing_path=dict(impl.pairing_path))
+
+
+def _tampered(slot):
+    batches = [dict(b) for b in slot["batches"]]
+    i = sorted(batches[3])[0]
+    batches[3][i] = slot["batches"][4][sorted(slot["batches"][4])[0]]
+    return batches
 
 
 def test_slot_bytes_and_verdict_match_the_jax_package(slot):
@@ -67,13 +94,38 @@ def test_slot_bytes_and_verdict_match_the_jax_package(slot):
         slot["batches"], slot["pks"], slot["datas"])
     assert slot["ok"] is True and ref_ok is True
     assert [bytes(a) for a in slot["aggs"]] == [bytes(a) for a in ref_aggs]
-    assert slot["impl"].pairing_path["native"] >= 1
+    assert slot["impl"].verify == "device"
+
+
+def test_pairing_path_counts_pairs(slot):
+    """Two message groups and the signature pair: 3 pairs on the device
+    rung (the reference's ops_pairing_total{path} counts pairs, not calls)."""
+    assert slot["pairing_path"] == {"device": 3, "native": 0}
+
+
+def test_native_rung_gives_the_same_verdicts(slot):
+    impl = TorchImpl(device="cpu", verify="native")
+    impl.pk_cache = slot["impl"].pk_cache
+    aggs, ok = impl.threshold_aggregate_verify_batch(slot["batches"], slot["pks"], slot["datas"])
+    assert ok is True and [bytes(a) for a in aggs] == [bytes(a) for a in slot["aggs"]]
+    assert impl.pairing_path == {"device": 0, "native": 3}
+    batches = _tampered(slot)
+    _aggs, ok_t = impl.threshold_aggregate_verify_batch(batches, slot["pks"], slot["datas"])
+    _r, ref_ok = TPUImpl().threshold_aggregate_verify_batch(batches, slot["pks"], slot["datas"])
+    assert ok_t is False and ref_ok is False
+    assert impl.pairing_path == {"device": 0, "native": 6}
+    assert impl.last_times.verify > 0
+
+
+def test_unknown_verify_rung_raises():
+    with pytest.raises(ValueError, match="verify"):
+        TorchImpl(device="cpu", verify="tpu")
+    with pytest.raises(ValueError, match="verify"):
+        PA.pairing_finish(None, [], PA.H2CCache(), {}, "gpu")
 
 
 def test_tampered_partial_fails_on_both(slot):
-    batches = [dict(b) for b in slot["batches"]]
-    i = sorted(batches[3])[0]
-    batches[3][i] = slot["batches"][4][sorted(slot["batches"][4])[0]]
+    batches = _tampered(slot)
     aggs, ok = slot["impl"].threshold_aggregate_verify_batch(batches, slot["pks"], slot["datas"])
     ref_aggs, ref_ok = TPUImpl().threshold_aggregate_verify_batch(
         batches, slot["pks"], slot["datas"])
@@ -127,18 +179,140 @@ def test_facade_threshold_aggregate_gives_native_bytes():
     assert bytes(got) == bytes(native.threshold_aggregate(batches[0]))
 
 
+# A verify of 3 pairs (bucket 4, H(m) cached): 63 doubling and 5 addition
+# steps, the two-level Fq12 fold and one final exponentiation. The device
+# hash-to-G2 of one batch: five p-sized power scans and the affine
+# inversion's, plus the SSWU, isogeny and affine products. Plain calls by
+# rows kernel.
+VERIFY_CALLS = {"fe_mul_rows": 1255, "fe_add_rows": 4051, "fe_sub_rows": 3912}
+H2C_CALLS = {"fe_mul_rows": 2926, "fe_add_rows": 30, "fe_sub_rows": 41}
+
+
 def test_one_slot_goes_through_every_kernel(slot):
-    """Plain-path calls of the first V=8 slot (pk plane decoded), by kernel
-    and E. The point ops follow from the slot's structure (Vp=128, T=4,
-    G=2 groups): pt_double<2> = (7 + 64·4) sweep + (7 + 16·4) MSM = 334;
-    pt_add<2> = (7 + 64) sweep + 3 combine + (7 + 16) MSM + 3·(1 + 2)
+    """Plain-path calls of the first V=8 slot (pk plane decoded, both
+    messages hashed on the device path, device verify), by kernel and E.
+    The aggregation's point ops follow from the slot's structure (Vp=128,
+    T=4, G=2 groups): pt_double<2> = (7 + 64·4) sweep + (7 + 16·4) MSM =
+    334; pt_add<2> = (7 + 64) sweep + 3 combine + (7 + 16) MSM + 3·(1 + 2)
     reduction trees = 106; pt_double<1> / pt_add<1> are [u²]P's 127
-    doublings and 16 adds (the pk subgroup check). fe_mul<1> is dominated by
-    four 494-product power scans (sqrt, (p−3)/4, p−2, G1 sqrt)."""
+    doublings and 16 adds (the pk subgroup check). The device hash-to-G2
+    adds its cofactor clear (635 doublings, 304 additions, and q0 + q1) to
+    the G2 point ops; everything else of the verify runs on the rows
+    kernels. fe_mul<1> is dominated by four 494-product power scans (sqrt,
+    (p−3)/4, p−2, G1 sqrt)."""
     assert slot["calls"] == {
         "fe_mul": {1: 2014, 2: 6}, "fe_add": {1: 6, 2: 1}, "fe_sub": {1: 7, 2: 1},
-        "pt_double": {1: 127, 2: 334}, "pt_add": {1: 16, 2: 106}}
+        "pt_double": {1: 127, 2: 334 + 635}, "pt_add": {1: 16, 2: 106 + 305},
+        "fe_mul_rows": {1: VERIFY_CALLS["fe_mul_rows"] + H2C_CALLS["fe_mul_rows"]},
+        "fe_add_rows": {1: VERIFY_CALLS["fe_add_rows"] + H2C_CALLS["fe_add_rows"]},
+        "fe_sub_rows": {1: VERIFY_CALLS["fe_sub_rows"] + H2C_CALLS["fe_sub_rows"]}}
     u2 = RPF.X_ABS * RPF.X_ABS
     assert slot["calls"]["pt_double"][1] == u2.bit_length() - 1
     assert slot["calls"]["pt_add"][1] == bin(u2).count("1") - 1
-    assert all(c == {1: 0, 2: 0} for c in slot["launches"].values())
+    assert all(c == {E: 0 for E in c} for c in slot["launches"].values())
+
+
+def test_one_verify_goes_through_the_rows_kernels(slot):
+    """A steady verify (H(m) cached) runs on the three rows kernels only."""
+    S, pts = slot["pairs"]
+    CP.reset_counts()
+    assert PA.pairing_finish(S, pts, slot["impl"].h2c, {}, "device", torch.device("cpu"))
+    calls = {k: sum(v.plain_calls.values()) for k, v in CP.KERNELS.items()}
+    assert calls == {"fe_mul": 0, "fe_add": 0, "fe_sub": 0, "pt_double": 0, "pt_add": 0,
+                     **VERIFY_CALLS}
+
+
+# ---------------------------------------------------------------------------
+# The dual-form H(m) cache (tests/test_device_verify.py:259-305)
+# ---------------------------------------------------------------------------
+
+
+def _host_affine(m: bytes):
+    return r_to_affine(RFq2Ops, hash_to_g2(m, DST_ETH))
+
+
+def _ints(row) -> tuple:
+    return tuple(F.fq_ints(row.numpy()))
+
+
+def test_device_h2c_entries_hold_both_forms(slot):
+    """The slot's misses went to the device hash-to-G2 in one batch and were
+    stored as [compressed, rows]: bytes equal native ct_hash_to_g2, rows the
+    host reference's affine point; a second lookup is all hits."""
+    h2c = slot["impl"].h2c
+    for m in MSGS:
+        comp, planes = h2c.entry(m)
+        assert comp == PN.hash_to_g2(m)
+        assert (_ints(planes[0]), _ints(planes[1])) == _host_affine(m)
+    hits = h2c.hits
+    hx, hy = h2c.planes(MSGS, "cpu")
+    assert h2c.hits == hits + 2
+    assert hx.shape == (2, 2, 12) and hx.dtype == torch.int32
+
+
+def test_h2c_upgrades_a_bytes_entry_in_place():
+    h2c = PA.H2CCache()
+    m = b"upgrade-entry"
+    comp = h2c.get(m)
+    assert h2c.entry(m)[1] is None and h2c.misses == 1
+    hx, hy = h2c.planes([m], "cpu")
+    assert h2c.hits == 1 and h2c.misses == 1
+    assert h2c.entry(m)[1] is not None
+    assert (_ints(hx[0]), _ints(hy[0])) == _host_affine(m)
+    assert h2c.get(m) == comp
+
+
+def test_h2c_cap_and_cap_zero(monkeypatch):
+    assert PA.H2CCache().cap == 4096
+    h2c = PA.H2CCache(cap=2)
+    for m in (b"a", b"b", b"c"):
+        h2c.get(m)
+    assert h2c.entry(b"a") is None and h2c.entry(b"c") is not None
+    assert h2c.set_cap(1) == 2 and h2c.entry(b"b") is None
+    # cap 0 stores nothing, through either accessor (the device map is
+    # replaced by the host reference here)
+    monkeypatch.setattr(H, "hash_to_g2_device", lambda msgs, device: tuple(
+        torch.as_tensor(F.fq_rows([c for m in msgs for c in _host_affine(m)[k]]).reshape(-1, 2, 12))
+        for k in (0, 1)))
+    off = PA.H2CCache(cap=0)
+    off.get(b"uncached")
+    hx, _hy = off.planes([b"uncached"], "cpu")
+    assert off.entry(b"uncached") is None and off.misses == 2
+    assert _ints(hx[0]) == _host_affine(b"uncached")[0]
+    assert off.planes([], "cpu")[0].shape == (0, 2, 12)
+
+
+# ---------------------------------------------------------------------------
+# Degenerate pairs and no fallback
+# ---------------------------------------------------------------------------
+
+
+def test_degenerate_pairing_rules(slot, monkeypatch):
+    """An infinity P_m drops its pair; an infinity S verifies only when no
+    pair is left — on either rung."""
+    S, pts = slot["pairs"]
+    inf1, inf2 = PC.jac_infinity(PC.FqOps), PC.jac_infinity(PC.Fq2Ops)
+    for rung in ("device", "native"):
+        path = {}
+        assert PA.pairing_finish(inf2, [(b"m", inf1)], PA.H2CCache(), path, rung) is True
+        assert PA.pairing_finish(inf2, pts, PA.H2CCache(), path, rung) is False
+        assert path == {}
+    seen = []
+    monkeypatch.setattr(PA, "device_pairing_check", lambda S, live, h2c, dev: seen.append(live) or True)
+    path = {}
+    assert PA.pairing_finish(S, [(b"gone", inf1)] + list(pts), PA.H2CCache(), path, "device", "cpu")
+    assert [m for m, _ in seen[0]] == [m for m, _ in pts] and path == {"device": 3}
+
+
+def test_a_device_error_propagates(slot, monkeypatch):
+    """No fallback from the device rung to the native one."""
+    def boom(*_a):
+        raise RuntimeError("device fault")
+
+    native_calls = []
+    monkeypatch.setattr(PR, "pairing_check_planes", boom)
+    monkeypatch.setattr(PA, "native_pairing_check", lambda *a: native_calls.append(a) or True)
+    S, pts = slot["pairs"]
+    with pytest.raises(RuntimeError, match="device fault"):
+        PA.pairing_finish(S, pts, slot["impl"].h2c, {}, "device", "cpu")
+    assert native_calls == []
