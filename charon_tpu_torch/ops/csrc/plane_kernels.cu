@@ -1,8 +1,8 @@
-// The port's field/point kernels for Hopper (sm_90a), one thread per batch
-// element, over two layouts of uint32 limbs:
+// The port's field/point kernels for Hopper (sm_90a), over two layouts of
+// uint32 limbs:
 //   planes: limb-major (E, 12, n): limb j of component e of element i lives
-//     at [(e*12 + j)*n + i], so the 32 threads of a warp read 32
-//     neighbouring words of one limb row;
+//     at [(e*12 + j)*n + i], so neighbouring threads read neighbouring words
+//     of one limb row;
 //   rows: (n, 12), element i limb j at [i*12 + j] — the layout of the
 //     pairing, tower and hash-to-curve code (ops/rows.py), read in place
 //     with no transpose.
@@ -12,7 +12,7 @@
 //   fe_add<E>    -> _kern_addp   ((a + b) mod p per component)
 //   fe_sub<E>    -> _kern_sub    ((a - b) mod p per component; also -a)
 //   pt_double<E> -> _kern_double (Jacobian dbl-2009-l, a = 0)
-//   pt_add<E>    -> _kern_add    (branchless unified add with its selects)
+//   pt_add<E>    -> _kern_add    (unified add with its selects)
 //   fe_mul_rows  -> _kern_mul as launched by _mont_rows_call (rows, E = 1)
 // and two more stand for XLA-op code of the reference's rows field plane
 // (charon_tpu/ops/field.py fq_add / fq_sub / fq_neg):
@@ -37,18 +37,21 @@
 // pairing's widths (108-6,912 rows: one Fq12 product's 54 Fq products on 2
 // to 128 lanes) each launch is a few dozen warps: latency- and launch-bound
 // like the rest.
-// At the slot's widths (1,024-12,288 elements) every kernel is far below
-// either bound and is launch- and latency-bound: 4,096 threads are 128
-// warps, about one per SM where an SM can hold 64. This first design is
-// plain and right: the products are out-of-line calls in the point kernels
-// (small code, fast build, spills to L1-cached local memory expected for
-// Fq2). Making them
-// fast is later work: several elements per thread, mul.wide/mad.cc carry
-// chains, shared-memory staging, and fusing the composite loops (pow scan,
-// windowed scalar multiplication, reduction tree) into single kernels.
+// The field kernels run one thread per element in blocks of 128: at the
+// slot's widths (1,024-12,288 elements, 8-96 blocks, so at 4,096 elements
+// 32 blocks on 32 of the 132 SMs) each is far below either bound, latency-
+// and launch-bound. The point kernels were built the same way at first, and
+// one thread walking a whole formula waited through its 16 or 44 dependent
+// Fq products (~2.4 us each); they now give each point a group of G threads
+// that runs the formula as levels of independent Fq operations
+// (ops/point_schedule.py), so a thread waits through one product per level:
+// see "Point kernels" below. Later work: mul.wide/mad.cc carry chains in
+// fq_mul, and fusing the composite loops (pow scan, windowed scalar
+// multiplication, reduction tree) into single kernels.
 #include <cuda_runtime.h>
 
 #include "fp.cuh"
+#include "point_schedule.h"
 
 namespace {
 
@@ -144,47 +147,294 @@ __global__ void __launch_bounds__(kBlock) fe_sub_kernel(const uint32_t* a, const
     store(o, r, n, i);
 }
 
-// Replaces _kern_double (pallas_plane.py:433): dbl-2009-l, a = 0.
-// Bound: operations (7 / 16 Fq products per element for E = 1 / 2).
-template <int E>
-__global__ void __launch_bounds__(kBlock) pt_double_kernel(const uint32_t* x, const uint32_t* y,
-                                                           const uint32_t* z, uint32_t* ox,
-                                                           uint32_t* oy, uint32_t* oz,
-                                                           long long n) {
-    const long long i = element();
-    if (i >= n) return;
-    Pt<typename FieldOf<E>::T> p, r;
-    load(p.x, x, n, i);
-    load(p.y, y, n, i);
-    load(p.z, z, n, i);
-    pt_double(r, p);
-    store(ox, r.x, n, i);
-    store(oy, r.y, n, i);
-    store(oz, r.z, n, i);
+// ---------------------------------------------------------------------------
+// Point kernels: a group of G threads per point, P = kPoints points per block
+// ---------------------------------------------------------------------------
+//
+// The block loads the limb rows of its P points from the planes into shared
+// memory (consecutive threads on consecutive words: limb j of points
+// i..i+P-1 are neighbours in a plane), and each group walks its kernel's
+// schedule (point_schedule.h, written by cuda_plane.build() from
+// ops/point_schedule.py): per level, thread r of the group runs operations
+// r, r + G, ... on the point's Fq slots, then the group syncs. Slot s of
+// point pt holds its 12 limbs at sm[s * kSlotWords + pt * 12 + j], read and
+// written 16 bytes at a time; a slot stride of 4 words mod 32 puts the
+// different slots that a group reads at once on different banks. A group
+// whose point lies past n skips its levels but not the block's barriers;
+// the ragged edge is masked at the loads and stores.
+//
+// What bounds them: latency, not the card's rates. Each thread still waits
+// through one whole fq_mul per product level (CIOS: 288 limb products in
+// carry order), and a warp issues it once for all of its lanes, busy or
+// not; between the product levels the adds and subs wait on each other as
+// well, and the launch with its staging costs as much as a few levels. At
+// 4,096 lanes two to four warps share each SM sub-partition. PERF.md ("PR
+// 3") has the split, from `chip_smoke.py --ab --diagnose`.
+
+constexpr int kPoints = 16;
+constexpr int kSlotWords = FP_LIMBS * kPoints + 4;
+static_assert(FP_LIMBS % 4 == 0 && kSlotWords % 32 == 4, "16-byte rows, spread slots");
+
+// Group sizes: the widest product level rounded to a power of two
+// (pt_double<2> 7 products, the E = 1 kernels 5 and 3), except pt_add<2>,
+// whose widest levels (13 and 12 products) would take 16: with 8 a thread
+// runs two products in each of them, but a warp carries four points instead
+// of two, and at the sweep's 4,096 lanes that is faster (PERF.md;
+// `chip_smoke.py --ab` times other sizes by patching these constants).
+constexpr int kDoubleG1 = 4;
+constexpr int kDoubleG2 = 8;
+constexpr int kAddG1 = 4;
+constexpr int kAddG2 = 8;
+
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+    static_assert(G < 32 && 32 % G == 0, "a group lies inside one warp");
+    return ((1u << G) - 1) << (threadIdx.x % 32 / G * G);
 }
 
-// Replaces _kern_add (pallas_plane.py:439): unified add with the reference's
-// selects. Bound: operations (16 / 44 Fq products per element, +7 / +16 on a
-// lane that takes the P+P double).
+__device__ __forceinline__ int sword(int s, int pt) { return s * kSlotWords + pt * FP_LIMBS; }
+
+__device__ __forceinline__ void sload(Fq& x, const uint32_t* sm, int s, int pt) {
+    const uint4* q = reinterpret_cast<const uint4*>(sm + sword(s, pt));
+#pragma unroll
+    for (int k = 0; k < FP_LIMBS / 4; ++k) {
+        const uint4 v = q[k];
+        x.v[4 * k] = v.x;
+        x.v[4 * k + 1] = v.y;
+        x.v[4 * k + 2] = v.z;
+        x.v[4 * k + 3] = v.w;
+    }
+}
+
+__device__ __forceinline__ void sstore(uint32_t* sm, int s, int pt, const Fq& x) {
+    uint4* q = reinterpret_cast<uint4*>(sm + sword(s, pt));
+#pragma unroll
+    for (int k = 0; k < FP_LIMBS / 4; ++k)
+        q[k] = make_uint4(x.v[4 * k], x.v[4 * k + 1], x.v[4 * k + 2], x.v[4 * k + 3]);
+}
+
+// PTX for limbs 0..11 of a carry chain: in-place operands %0-%11, the
+// other operand's limbs at %(off)-%(off + 11).
+#define FQ_CHAIN_LIMB(op, i, j) op " %" #i ", %" #i ", %" #j ";\n\t"
+#define FQ_CHAIN_RLIMB(op, i, j) op " %" #i ", %" #j ", %" #i ";\n\t"
+#define FQ_CHAIN(L, first, next, last, o0, o1, o2, o3, o4, o5, o6, o7, o8, o9, o10, o11) \
+    L(first, 0, o0) L(next, 1, o1) L(next, 2, o2) L(next, 3, o3) L(next, 4, o4)         \
+    L(next, 5, o5) L(next, 6, o6) L(next, 7, o7) L(next, 8, o8) L(next, 9, o9)          \
+    L(next, 10, o10) L(last, 11, o11)
+#define FQ_LIMB_OPERANDS(x) \
+    "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]), "r"(x[5]), "r"(x[6]), "r"(x[7]), \
+    "r"(x[8]), "r"(x[9]), "r"(x[10]), "r"(x[11])
+#define FQ_LIMB_INOUT(x) \
+    "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3]), "+r"(x[4]), "+r"(x[5]), "+r"(x[6]), \
+    "+r"(x[7]), "+r"(x[8]), "+r"(x[9]), "+r"(x[10]), "+r"(x[11])
+
+// (a + b) mod p, or (a - b) mod p as a + (p - b), in one branch-free path,
+// so that the threads of a level that add and those that subtract do not
+// diverge: on the card on add.cc / sub.cc carry chains, each chain inside a
+// single asm statement (nvcc does not promise to keep the carry flag from one
+// statement to the next), elsewhere (a host build of this file) through fp.cuh, so a CPU
+// build does not run the chains. Canonical inputs, canonical output.
+__device__ __forceinline__ void fq_addsub(Fq& r, const Fq& a, const Fq& b, bool sub) {
+#if defined(__CUDA_ARCH__)
+    const uint32_t p[FP_LIMBS] = FP_P_INIT;
+    uint32_t t[FP_LIMBS], d[FP_LIMBS], hi;
+#pragma unroll
+    for (int i = 0; i < FP_LIMBS; ++i) t[i] = b.v[i];
+    // t = p - b (b < p: no borrow out)
+    asm(FQ_CHAIN(FQ_CHAIN_RLIMB, "sub.cc.u32", "subc.cc.u32", "subc.u32", 12, 13, 14, 15, 16,
+                 17, 18, 19, 20, 21, 22, 23)
+        : FQ_LIMB_INOUT(t)
+        : FQ_LIMB_OPERANDS(p));
+#pragma unroll
+    for (int i = 0; i < FP_LIMBS; ++i) t[i] = sub ? t[i] : b.v[i];
+    // t += a, its carry into hi
+    asm(FQ_CHAIN(FQ_CHAIN_LIMB, "add.cc.u32", "addc.cc.u32", "addc.cc.u32", 13, 14, 15, 16, 17,
+                 18, 19, 20, 21, 22, 23, 24) "addc.u32 %12, 0, 0;"
+        : FQ_LIMB_INOUT(t), "=r"(hi)
+        : FQ_LIMB_OPERANDS(a.v));
+    // t < 2p < 2^382: d = t - p, kept unless it borrows
+#pragma unroll
+    for (int i = 0; i < FP_LIMBS; ++i) d[i] = t[i];
+    asm(FQ_CHAIN(FQ_CHAIN_LIMB, "sub.cc.u32", "subc.cc.u32", "subc.cc.u32", 13, 14, 15, 16, 17,
+                 18, 19, 20, 21, 22, 23, 24) "subc.u32 %12, %12, 0;"
+        : FQ_LIMB_INOUT(d), "+r"(hi)
+        : FQ_LIMB_OPERANDS(p));
+    const bool ge = hi == 0;
+#pragma unroll
+    for (int i = 0; i < FP_LIMBS; ++i) r.v[i] = ge ? d[i] : t[i];
+#else
+    if (sub)
+        fq_sub(r, a, b);
+    else
+        fq_add(r, a, b);
+#endif
+}
+
+// x = slot a, a + b or a - b (b = kSchedNone: a + 0).
+__device__ __forceinline__ void operand(Fq& x, const uint32_t* sm, int a, int b, bool sub,
+                                        int pt) {
+    Fq y;
+    sload(x, sm, a, pt);
+    if (b != kSchedNone)
+        sload(y, sm, b, pt);
+    else
+#pragma unroll
+        for (int j = 0; j < FP_LIMBS; ++j) y.v[j] = 0;
+    fq_addsub(x, x, y, sub);
+}
+
+// Levels [first, last) of the schedule tables for one point; every thread of
+// the group calls it. The thread's first operation of the next level is
+// fetched while this level runs.
+template <int G>
+__device__ void run_levels(uint32_t* sm, int first, int last, int pt, int rank, unsigned mask) {
+    uint32_t lv = kSchedLevels[first];
+    uint64_t next = rank < (int)(lv >> 16 & 0xff) ? kSchedOps[(lv & 0xffff) + rank] : 0;
+#pragma unroll 1
+    for (int L = first; L < last; ++L) {
+        const int op0 = lv & 0xffff, count = lv >> 16 & 0xff;
+        const bool mul = lv >> 24;
+        const uint64_t mine = next;
+        if (L + 1 < last) {
+            lv = kSchedLevels[L + 1];
+            if (rank < (int)(lv >> 16 & 0xff)) next = kSchedOps[(lv & 0xffff) + rank];
+        }
+#pragma unroll 1
+        for (int k = rank; k < count; k += G) {
+            const uint64_t op = k == rank ? mine : kSchedOps[op0 + k];
+            const int flags = (int)(op >> 40);
+            Fq x, y, z;
+            operand(x, sm, op >> 8 & 0xff, op >> 16 & 0xff, flags & 1, pt);
+            operand(y, sm, op >> 24 & 0xff, op >> 32 & 0xff, flags & 2, pt);
+            if (mul)
+                fq_mul(z, x, y);
+            else
+                fq_addsub(z, x, y, flags & 4);
+            sstore(sm, op & 0xff, pt, z);
+        }
+        __syncwarp(mask);
+    }
+}
+
 template <int E>
-__global__ void __launch_bounds__(kBlock) pt_add_kernel(const uint32_t* x1, const uint32_t* y1,
-                                                        const uint32_t* z1, const uint32_t* x2,
-                                                        const uint32_t* y2, const uint32_t* z2,
-                                                        uint32_t* ox, uint32_t* oy, uint32_t* oz,
-                                                        long long n) {
-    const long long i = element();
-    if (i >= n) return;
-    Pt<typename FieldOf<E>::T> p, q, r;
-    load(p.x, x1, n, i);
-    load(p.y, y1, n, i);
-    load(p.z, z1, n, i);
-    load(q.x, x2, n, i);
-    load(q.y, y2, n, i);
-    load(q.z, z2, n, i);
-    pt_add(r, p, q);
-    store(ox, r.x, n, i);
-    store(oy, r.y, n, i);
-    store(oz, r.z, n, i);
+__device__ __forceinline__ bool slots_zero(const uint32_t* sm, int tab, int pt) {
+    bool zero = true;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        Fq x;
+        sload(x, sm, kSchedSlots[tab + e], pt);
+        zero = zero && fq_is_zero(x);
+    }
+    return zero;
+}
+
+// Coordinates c of the planes src into slots c * E + e (every schedule puts
+// its inputs first, in order); points past n read as zero. A block of T
+// threads: each thread issues all of its loads before it writes any, so
+// their latencies overlap.
+template <int E, int NC, int T>
+__device__ __forceinline__ void load_points(uint32_t* sm, const uint32_t* const (&src)[NC],
+                                            long long base, long long n) {
+    constexpr int W = E * FP_LIMBS * kPoints, K = (W + T - 1) / T;
+    uint32_t v[NC][K];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int w = threadIdx.x + k * T, pt = w % kPoints, ej = w / kPoints;
+            v[c][k] = w < W && base + pt < n ? src[c][ej * n + base + pt] : 0u;
+        }
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int w = threadIdx.x + k * T, pt = w % kPoints, ej = w / kPoints;
+            if (w < W) sm[sword(c * E + ej / FP_LIMBS, pt) + ej % FP_LIMBS] = v[c][k];
+        }
+}
+
+// X, Y, Z of point pt from the slots listed at kSchedSlots[off[pt] + c * E +
+// e], or zeros where off[pt] < 0.
+template <int E, int T>
+__device__ __forceinline__ void store_points(uint32_t* const (&dst)[3], const uint32_t* sm,
+                                             const short* off, long long base, long long n) {
+    constexpr int W = E * FP_LIMBS * kPoints, K = (W + T - 1) / T;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int w = threadIdx.x + k * T, pt = w % kPoints, ej = w / kPoints;
+            if (w >= W || base + pt >= n) continue;
+            const int o = off[pt];
+            dst[c][ej * n + base + pt] =
+                o < 0 ? 0u : sm[sword(kSchedSlots[o + c * E + ej / FP_LIMBS], pt) + ej % FP_LIMBS];
+        }
+}
+
+// Replaces _kern_double (pallas_plane.py:433): dbl-2009-l, a = 0.
+// Bound: operations (7 / 16 Fq products per element for E = 1 / 2).
+template <int E, int G>
+__global__ void __launch_bounds__(G * kPoints) pt_double_kernel(const uint32_t* x, const uint32_t* y,
+                                                                const uint32_t* z, uint32_t* ox,
+                                                                uint32_t* oy, uint32_t* oz,
+                                                                long long n) {
+    typedef Sched<kPtDouble, E> S;
+    static_assert(S::kSlots * kSlotWords * 4 <= 48 * 1024, "static shared memory");
+    __shared__ __align__(16) uint32_t sm[S::kSlots * kSlotWords];
+    __shared__ short off[kPoints];
+    const long long base = (long long)blockIdx.x * kPoints;
+    const int pt = threadIdx.x / G, rank = threadIdx.x % G;
+    const uint32_t* const src[3] = {x, y, z};
+    load_points<E, 3, G * kPoints>(sm, src, base, n);
+    if (rank == 0) off[pt] = S::kOut;
+    __syncthreads();
+    if (base + pt < n)
+        run_levels<G>(sm, S::kLevel0, S::kLevel0 + S::kLevels, pt, rank, group_mask<G>());
+    __syncthreads();
+    uint32_t* const dst[3] = {ox, oy, oz};
+    store_points<E, G * kPoints>(dst, sm, off, base, n);
+}
+
+// Replaces _kern_add (pallas_plane.py:439): the unified add's general sum,
+// then on the groups whose points need it the P+P double, and the
+// reference's selects (P+P double, H=0 & R!=0 -> infinity, q = inf -> p,
+// p = inf -> q; the last wins) as the choice of the slots stored. Bound:
+// operations (16 / 44 Fq products per element, +7 / +16 on a lane that
+// takes the P+P double).
+template <int E, int G>
+__global__ void __launch_bounds__(G * kPoints) pt_add_kernel(const uint32_t* x1, const uint32_t* y1,
+                                                             const uint32_t* z1, const uint32_t* x2,
+                                                             const uint32_t* y2, const uint32_t* z2,
+                                                             uint32_t* ox, uint32_t* oy,
+                                                             uint32_t* oz, long long n) {
+    typedef Sched<kPtAdd, E> S;
+    static_assert(S::kSlots * kSlotWords * 4 <= 48 * 1024, "static shared memory");
+    __shared__ __align__(16) uint32_t sm[S::kSlots * kSlotWords];
+    __shared__ short off[kPoints];
+    const long long base = (long long)blockIdx.x * kPoints;
+    const int pt = threadIdx.x / G, rank = threadIdx.x % G;
+    const uint32_t* const src[6] = {x1, y1, z1, x2, y2, z2};
+    load_points<E, 6, G * kPoints>(sm, src, base, n);
+    __syncthreads();
+    if (base + pt < n) {
+        const unsigned mask = group_mask<G>();
+        run_levels<G>(sm, S::kLevel0, S::kLevel0 + S::kMain, pt, rank, mask);
+        const bool p_inf = slots_zero<E>(sm, S::kIn + 2 * E, pt);
+        const bool q_inf = slots_zero<E>(sm, S::kIn + 5 * E, pt);
+        const bool h_zero = slots_zero<E>(sm, S::kH, pt);
+        const bool r_zero = slots_zero<E>(sm, S::kR, pt);
+        if (!p_inf && !q_inf && h_zero && r_zero)
+            run_levels<G>(sm, S::kLevel0 + S::kMain, S::kLevel0 + S::kLevels, pt, rank, mask);
+        if (rank == 0)
+            off[pt] = p_inf    ? S::kIn + 3 * E
+                      : q_inf  ? S::kIn
+                      : !h_zero ? S::kOut
+                      : r_zero ? S::kDblOut
+                               : -1;
+    }
+    __syncthreads();
+    uint32_t* const dst[3] = {ox, oy, oz};
+    store_points<E, G * kPoints>(dst, sm, off, base, n);
 }
 
 // Rows kernels: one Fq row per thread, read and written in place (E = 1).
@@ -229,6 +479,7 @@ __global__ void __launch_bounds__(kBlock) fe_sub_rows_kernel(const uint32_t* a, 
 }
 
 inline unsigned grid_for(long long n) { return (unsigned)((n + kBlock - 1) / kBlock); }
+inline unsigned point_blocks(long long n) { return (unsigned)((n + kPoints - 1) / kPoints); }
 
 typedef const uint32_t* In;
 typedef uint32_t* Out;
@@ -280,11 +531,11 @@ int charon_pt_double(int E, const void* x, const void* y, const void* z, void* o
     if (n <= 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     if (E == 1)
-        pt_double_kernel<1><<<grid_for(n), kBlock, 0, s>>>((In)x, (In)y, (In)z, (Out)ox, (Out)oy,
-                                                           (Out)oz, n);
+        pt_double_kernel<1, kDoubleG1><<<point_blocks(n), kDoubleG1 * kPoints, 0, s>>>(
+            (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n);
     else if (E == 2)
-        pt_double_kernel<2><<<grid_for(n), kBlock, 0, s>>>((In)x, (In)y, (In)z, (Out)ox, (Out)oy,
-                                                           (Out)oz, n);
+        pt_double_kernel<2, kDoubleG2><<<point_blocks(n), kDoubleG2 * kPoints, 0, s>>>(
+            (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n);
     else
         return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
@@ -296,11 +547,11 @@ int charon_pt_add(int E, const void* x1, const void* y1, const void* z1, const v
     if (n <= 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     if (E == 1)
-        pt_add_kernel<1><<<grid_for(n), kBlock, 0, s>>>((In)x1, (In)y1, (In)z1, (In)x2, (In)y2,
-                                                        (In)z2, (Out)ox, (Out)oy, (Out)oz, n);
+        pt_add_kernel<1, kAddG1><<<point_blocks(n), kAddG1 * kPoints, 0, s>>>(
+            (In)x1, (In)y1, (In)z1, (In)x2, (In)y2, (In)z2, (Out)ox, (Out)oy, (Out)oz, n);
     else if (E == 2)
-        pt_add_kernel<2><<<grid_for(n), kBlock, 0, s>>>((In)x1, (In)y1, (In)z1, (In)x2, (In)y2,
-                                                        (In)z2, (Out)ox, (Out)oy, (Out)oz, n);
+        pt_add_kernel<2, kAddG2><<<point_blocks(n), kAddG2 * kPoints, 0, s>>>(
+            (In)x1, (In)y1, (In)z1, (In)x2, (In)y2, (In)z2, (Out)ox, (Out)oy, (Out)oz, n);
     else
         return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();

@@ -1,17 +1,20 @@
 """The port's counterpart of charon_tpu/ops/pallas_plane.py: build and bind
 the CUDA kernels, the kernel wrappers, and the composite loops over them.
 
-Kernels (ops/csrc/plane_kernels.cu, sm_90a, one thread per element over
-`(E, 12, n)` int32 limb planes — see ops/field.py for the layout — or over
-`(n, 12)` rows, see ops/rows.py):
+Kernels (ops/csrc/plane_kernels.cu, sm_90a, over `(E, 12, n)` int32 limb
+planes — see ops/field.py for the layout — or over `(n, 12)` rows, see
+ops/rows.py):
 
-    fe_mul, fe_add, fe_sub, pt_double, pt_add     for E in {1, 2}
-    fe_mul_rows, fe_add_rows, fe_sub_rows         rows (E = 1)
+    fe_mul, fe_add, fe_sub                        for E in {1, 2}, a thread per element
+    pt_double, pt_add                             for E in {1, 2}, a group of threads
+                                                  per point (ops/point_schedule.py)
+    fe_mul_rows, fe_add_rows, fe_sub_rows         rows (E = 1), a thread per row
 
-Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` into
-`build/charon_tpu_torch/libplane.so` under the repo root, at the first launch
-(`build()`), loaded with ctypes. Nothing is built or imported from CUDA when
-this module is imported.
+Build: the point schedules' header into `build/charon_tpu_torch/`, then
+`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -I build/charon_tpu_torch`
+into `build/charon_tpu_torch/libplane.so` under the repo root, at the first
+launch (`build()`), loaded with ctypes. Nothing is built or imported from
+CUDA when this module is imported.
 
 Wrappers check device, dtype, shape and contiguity and raise on anything
 else. A CPU tensor runs the kernel's plain version (ops/field.py,
@@ -29,6 +32,7 @@ shapes.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import subprocess
@@ -41,6 +45,7 @@ import torch
 from ..crypto import curve as PC
 from . import curve as C
 from . import field as F
+from . import point_schedule as PS
 
 LIMBS = F.LIMBS
 SUB = 8            # the reference's sublanes: batch b sits at (b // W, b % W)
@@ -52,9 +57,11 @@ POW_WINDOW = 4     # fixed-exponent power-scan window bits
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = (os.path.join(CSRC, "plane_kernels.cu"), os.path.join(CSRC, "fp.cuh"))
+SOURCES = (os.path.join(CSRC, "plane_kernels.cu"), os.path.join(CSRC, "fp.cuh"),
+           os.path.abspath(PS.__file__))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "charon_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libplane.so")
+SCHEDULE_HEADER = os.path.join(BUILD_DIR, "point_schedule.h")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -99,22 +106,29 @@ _ARGS = {
 }
 
 
+def nvcc() -> str:
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    return path if os.path.exists(path) else "nvcc"
+
+
 def build(force: bool = False) -> str:
     """Compile the kernels with nvcc unless the library is newer than every
-    source. Returns the library path; raises CalledProcessError with nvcc's
-    output when the build fails."""
+    source: first the point schedules' header (ops/point_schedule.py) into
+    BUILD_DIR, then the library. Returns the library path; raises
+    CalledProcessError with nvcc's output when the build fails."""
     with _build_lock:
         fresh = (os.path.exists(LIB_PATH) and not force and
                  os.path.getmtime(LIB_PATH) >= max(os.path.getmtime(s) for s in SOURCES))
         if fresh:
             return LIB_PATH
         os.makedirs(BUILD_DIR, exist_ok=True)
-        nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-        if not os.path.exists(nvcc):
-            nvcc = "nvcc"
+        tmp_h = f"{SCHEDULE_HEADER}.{os.getpid()}.tmp"
+        with open(tmp_h, "w") as f:
+            f.write(PS.header())
+        os.replace(tmp_h, SCHEDULE_HEADER)
         tmp = LIB_PATH + f".{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[0]],
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", BUILD_DIR, "-o", tmp, SOURCES[0]],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             raise subprocess.CalledProcessError(proc.returncode, proc.args,
@@ -125,17 +139,22 @@ def build(force: bool = False) -> str:
         return LIB_PATH
 
 
+def bind(path: str) -> ctypes.CDLL:
+    """Load a built library and declare its C interface."""
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _ARGS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     if not _lib:
         path = build()
         with _build_lock:
             if not _lib:
-                lib = ctypes.CDLL(path)
-                for name, argtypes in _ARGS.items():
-                    fn = getattr(lib, name)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-                _lib.append(lib)
+                _lib.append(bind(path))
     return _lib[0]
 
 
@@ -148,7 +167,8 @@ class Kernel:
     """One CUDA kernel: where its source is, which TPU kernel (or, for the
     rows add and sub, which XLA-op function) it replaces, and how often it
     ran, per E (the rows kernels have E = 1 only). `launches` counts CUDA
-    launches only; `plain_calls` counts CPU calls of its plain version."""
+    launches only, `widths` the plane kernels' launches by (E, width);
+    `plain_calls` counts CPU calls of its plain version."""
 
     def __init__(self, name: str, replaces: str, variants=(1, 2)):
         self.name = name
@@ -160,6 +180,7 @@ class Kernel:
     def reset(self) -> None:
         self.launches = {E: 0 for E in self.variants}
         self.plain_calls = {E: 0 for E in self.variants}
+        self.widths = collections.Counter()     # launches by (E, width)
 
 
 KERNELS = {
@@ -201,16 +222,24 @@ def _check(tensors, E: int) -> torch.device:
     return first.device
 
 
-def _launch(name: str, E: int, ins, n_out: int):
+def call(lib: ctypes.CDLL, name: str, E: int, ins, n_out: int):
+    """Launch charon_<name> of a bound library on CUDA planes, on the current
+    stream of their device, and return the new output planes."""
     outs = [torch.empty_like(ins[0]) for _ in range(n_out)]
-    fn = getattr(_library(), "charon_" + name)
+    fn = getattr(lib, "charon_" + name)
     with torch.cuda.device(ins[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(E, *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs],
                 ins[0].shape[2], stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name}<{E}> did not launch: error {rc}")
+    return outs
+
+
+def _launch(name: str, E: int, ins, n_out: int):
+    outs = call(_library(), name, E, ins, n_out)
     KERNELS[name].launches[E] += 1
+    KERNELS[name].widths[E, ins[0].shape[2]] += 1
     return outs
 
 

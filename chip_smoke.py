@@ -6,17 +6,27 @@ against the native oracle.
 
     python3 chip_smoke.py            # the whole check (one CUDA card)
     python3 chip_smoke.py --profile  # the whole check, then one slot traced
+    python3 chip_smoke.py --ab [--diagnose] [--slot-rounds N] [--widths 4096,...]
+                               [NAME=DIR[:CONST=V,...] ...]
+                                     # A/B of kernel builds, in turns (below)
 
 Phases, any failure exits non-zero:
   1. device  — CUDA present; the card's name and power limit (nvidia-smi).
-  2. build   — nvcc for sm_90a from ops/csrc; build time, registers, spills.
+  2. build   — nvcc for sm_90a from ops/csrc and the point schedules'
+               header; build time, registers, spills.
   3. kernels — every kernel x E bit-equal to its plain version on seeded
-               inputs at the slot's widths (4096 G2 partials, 2048 combined
-               MSM elements, 12288 packed Fq elements) with the edges 0, 1,
-               p-1, P+P, P+(-P), inf+Q, P+inf; the rows kernels at the
-               verify's widths (108 and 6912 rows: one Fq12 product's 54 Fq
-               products on 2 and 128 lanes) with the edges 0, 1, p-1, R mod
-               p; time per launch vs the plain version and the card's bound.
+               inputs: the field kernels at the slot's widths (4096 G2
+               partials, 2048 combined MSM elements, 12288 packed Fq
+               elements) with the edges 0, 1, p-1; the point kernels at
+               every width the main path launches them (4096 sweep, 2048
+               MSM, 1024 combine and pk subgroup check, 512-128 the MSM's
+               reduction tree, 64 and 1 cofactor clear) with the edge lanes
+               P+P, P+(-P), inf+Q, P+inf, inf+inf and an all-zero lane where
+               the width has room, and at 1 lane a random lane and a P+P
+               lane; the rows kernels at the verify's widths (108 and 6912
+               rows: one Fq12 product's 54 Fq products on 2 and 128 lanes)
+               with the edges 0, 1, p-1, R mod p; time per launch vs the
+               plain version and the card's bound.
   4. slot    — the fixed probe (seed 99, 1000 x 4-of-6, msg 0x42*32) with
                the default device verify: warm once with every kernel
                counter at 0 (the launches of one slot: pk-plane miss, device
@@ -37,11 +47,32 @@ Phases, any failure exits non-zero:
                tampered; the RFC 9380 J.10.1 vector through the device
                hash-to-G2.
 The last two lines are the kernels JSON and the device JSON.
+
+--ab builds each variant NAME=DIR (the plane_kernels.cu and fp.cuh in DIR,
+with `constexpr int CONST = V;` lines of the source set as given, e.g. the
+point kernels' group sizes kAddG2=16) into build/charon_tpu_torch/ab beside
+this checkout's point schedules' header; with no variant named, this
+checkout's ops/csrc. It then times the point kernels of every variant in
+turns (forward, then backward; device us per launch, the mean of the two)
+at each width on the main path's inputs (the edge lanes with the P+P lane
+made general, and at 4,096 lanes also with it), each variant held bit for
+bit against the plain versions. --diagnose adds three builds of this
+checkout's source with part of the level loop's work taken out, to show
+where a launch's time goes: no-arith (each operation only copies a slot),
+no-linear (the linear levels run no operation) and no-products (each
+product is an add); their outputs are wrong by design and not checked.
+--slot-rounds N then runs N rounds of the 1000 x 4-of-6 slot with each
+variant's library in turn, the order alternating by round: per variant a
+steady device-verified slot, a steady native-verified slot and a first slot
+step by step; each side's median and quartiles and the pairs each variant
+wins. Variants of one call are comparable; calls are not.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import random
 import re
 import statistics
@@ -62,6 +93,7 @@ from charon_tpu_torch.ops import field as F
 from charon_tpu_torch.ops import h2c as H2C
 from charon_tpu_torch.ops import pairing as PR
 from charon_tpu_torch.ops import plane_agg as PA
+from charon_tpu_torch.ops import point_schedule as PS
 from charon_tpu_torch.ops import rows as RW
 from charon_tpu_torch.tbls.torch_impl import TorchImpl
 
@@ -90,6 +122,8 @@ OPS_PER_FQ_ADD = 3 * 12                # add/sub with carry, borrow, select per 
 # Fq2 square is 2 Fq products and an Fq2 product 3 (Karatsuba).
 FQ_WORK = {("pt_double", 1): (5, 2), ("pt_double", 2): (0, 5 * 2 + 2 * 3),
            ("pt_add", 1): (4, 12), ("pt_add", 2): (0, 4 * 2 + 12 * 3)}
+# every width at which the main path launches the point kernels
+POINT_WIDTHS = (4096, 2048, 1024, 512, 256, 128, 64, 1)
 
 
 def point_ops(name: str, E: int) -> int:
@@ -122,9 +156,12 @@ def ptxas_summary(text: str) -> list[str]:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = re.search(r"((?:fe_mul|fe_add|fe_sub|pt_double|pt_add)(?:_rows)?_kernel)(?:ILi(\d)EE)?",
-                          name)
-            short = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")) if k else name
+            k = re.search(r"((?:fe_mul|fe_add|fe_sub|pt_double|pt_add)(?:_rows)?_kernel)"
+                          r"(?:ILi(\d)E(?:Li(\d+)E)?E)?", name)
+            short = name
+            if k:
+                short = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                         + (f" (G={k.group(3)})" if k.group(3) else ""))
             rows.append(f"{short}: {m.group(1)} registers, {props}")
             name, props = None, ""
     return rows
@@ -213,16 +250,6 @@ def check_kernels(device, widths: dict, reps: int) -> dict:
             "fe_sub": (lambda: (CP.fe_sub(a, b, E),), lambda: (F.fe_sub_plain(a, b, E),),
                        nbytes_fe, n * E * OPS_PER_FQ_ADD),
         }
-        npt = widths[("pt", E)]
-        pts = _point_inputs(rng, E, npt, device)
-        # lanes the add doubles (P+P with both finite): lane 8 here
-        n_dbl_lanes = 1
-        cases["pt_double"] = (lambda: CP.pt_double(*pts[:3], E),
-                              lambda: C.pt_double_plain(*pts[:3], E),
-                              6 * E * 48 * npt, npt * point_ops("pt_double", E))
-        cases["pt_add"] = (lambda: CP.pt_add(*pts, E), lambda: C.pt_add_plain(*pts, E),
-                           9 * E * 48 * npt,
-                           npt * point_ops("pt_add", E) + n_dbl_lanes * point_ops("pt_double", E))
         for name, (kern, plain, nbytes, ops) in cases.items():
             got = kern()
             torch.cuda.synchronize()
@@ -242,11 +269,89 @@ def check_kernels(device, widths: dict, reps: int) -> dict:
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None,
-                "width": n if name.startswith("fe") else npt,
+                "width": n,
             }
             log(f"kernel {name}<{E}> n={rows[(name, E)]['width']}: bit-equal to plain "
                 f"(max_abs_err 0); {ms * 1e3:.2f} us/launch, plain {plain_ms * 1e3:.1f} us, "
                 f"bound {rows[(name, E)]['bound_ms'] * 1e3:.3f} us ({rows[(name, E)]['bound_by']})")
+    torch.cuda.synchronize()
+    return rows
+
+
+def _point_cases(rng, E: int, n: int, device) -> list:
+    """[(label, inputs, lanes the add doubles)] at width n: the edge lanes
+    8-13 of _point_inputs where n has room, else (n < 16) a window of
+    random lanes and, as a second case, the window that starts at the P+P
+    lane."""
+    pts = _point_inputs(rng, E, max(n, 16), device)
+    if n >= 16:
+        return [("", pts, 1)]
+
+    def window(lo):
+        return tuple(t[:, :, lo:lo + n].contiguous() for t in pts)
+
+    return [("", window(16 - n), 0), (" P+P", window(8), 1)]
+
+
+def _without_pp(pts):
+    """The same add inputs with lane 8 a general lane (q from lane 14): no
+    lane needs the P+P double, as on the main path."""
+    out = [t.clone() for t in pts]
+    for t in out[3:]:
+        t[:, :, 8] = t[:, :, 14]
+    return tuple(out)
+
+
+def check_point_kernels(device, widths, reps: int) -> dict:
+    """pt_double<E> and pt_add<E> against their plain versions at every
+    width of the main path; returns per-(kernel, E, width) rows, timed on
+    the first case of each width."""
+    rng = random.Random(5678)
+    rows = {}
+    for E in (1, 2):
+        for n in widths:
+            for i, (label, pts, n_dbl) in enumerate(_point_cases(rng, E, n, device)):
+                cases = {
+                    "pt_double": (lambda: CP.pt_double(*pts[:3], E),
+                                  lambda: C.pt_double_plain(*pts[:3], E),
+                                  6 * E * 48 * n, n * point_ops("pt_double", E)),
+                    "pt_add": (lambda: CP.pt_add(*pts, E), lambda: C.pt_add_plain(*pts, E),
+                               9 * E * 48 * n,
+                               n * point_ops("pt_add", E) + n_dbl * point_ops("pt_double", E)),
+                }
+                for name, (kern, plain, nbytes, ops) in cases.items():
+                    got = kern()
+                    torch.cuda.synchronize()
+                    err = _max_abs_err(got, plain())
+                    if err != 0:
+                        raise SystemExit(f"kernel {name}<{E}> disagrees with its plain version "
+                                         f"at {n} lanes{label}: max abs limb difference {err}")
+                    if i:
+                        log(f"kernel {name}<{E}> n={n}{label}: bit-equal to plain")
+                        continue
+                    ms = _time_ms(kern, reps)
+                    plain_ms = _wall_ms(plain, 2)
+                    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                    t_ops = ops / INT32_OPS_PER_S * 1e3
+                    row = rows[(name, E, n)] = {
+                        "name": f"{name}<{E}>", "route": "cuda",
+                        "source": CP.KERNELS[name].source, "replaces": CP.KERNELS[name].replaces,
+                        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                        "library_ms": None, "width": n,
+                    }
+                    extra = ""
+                    if name == "pt_add" and n_dbl:
+                        general = _without_pp(pts)
+                        if _max_abs_err(CP.pt_add(*general, E), C.pt_add_plain(*general, E)):
+                            raise SystemExit(f"kernel pt_add<{E}> disagrees with its plain "
+                                             f"version at {n} lanes without the P+P lane")
+                        row["ms_no_pp"] = _time_ms(lambda: CP.pt_add(*general, E), reps)
+                        extra = f" ({row['ms_no_pp'] * 1e3:.2f} us with no P+P lane)"
+                    log(f"kernel {name}<{E}> n={n}: bit-equal to plain (max_abs_err 0); "
+                        f"{ms * 1e3:.2f} us/launch{extra}, plain {plain_ms * 1e3:.1f} us, bound "
+                        f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
     torch.cuda.synchronize()
     return rows
 
@@ -377,12 +482,12 @@ def off_curve_x(sig: bytes) -> bytes:
             return bytes(body)
 
 
-def slot_steps(batches, pubkeys, datas, device, total: int) -> None:
+def first_slot_steps(batches, pubkeys, datas, device) -> list:
     """The first slot step by step, with a fresh pk-plane cache and a fresh
     H(m) cache: plane_agg.fused_slot's step hook for the dispatch, then
-    readback, emit and the device verify (H(m) miss). Each step's launches
-    from the wrapper counters and its wall time up to a synchronise. The
-    launches must add up to `total`, the first slot's count."""
+    readback, emit and the device verify (H(m) miss). [(step, launches,
+    ms)]: each step's launches from the wrapper counters and its wall time
+    up to a synchronise."""
     rows, last = [], [0.0]
 
     def mark(name: str) -> None:
@@ -407,10 +512,22 @@ def slot_steps(batches, pubkeys, datas, device, total: int) -> None:
     if not PA.pairing_finish(S, pts, PA.H2CCache(), {}, "device", device):
         raise SystemExit("step run: device verify False on valid aggregates")
     mark("device verify: hash-to-G2 of the message + pairing check")
+    return rows
+
+
+def slot_steps(batches, pubkeys, datas, device, total: int) -> None:
+    """Log the first slot's steps; their launches must add up to `total`,
+    the first slot's count."""
+    rows = first_slot_steps(batches, pubkeys, datas, device)
     for name, n, ms in rows:
         log(f"step {name}: {n} launches, {ms:.2f} ms (synchronised wall)")
     if sum(n for _, n, _ in rows) != total:
         raise SystemExit(f"steps launched {sum(n for _, n, _ in rows)}, the slot {total}")
+
+
+def _width_text(widths: dict) -> str:
+    return ", ".join(f"{name}<{E}> n={n}: {c}" for name, counts in widths.items()
+                     for (E, n), c in sorted(counts.items()))
 
 
 def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
@@ -430,6 +547,8 @@ def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
     log(f"slot warm (first: pk plane decoded, H(m) hashed on the device, device verify): "
         f"{warm_s:.3f} s, verify {impl.last_times.verify:.4f} s; launches "
         + ", ".join(f"{k}<{E}>={c}" for (k, E), c in launches.items()))
+    widths = {name: dict(CP.KERNELS[name].widths) for name in ("pt_double", "pt_add")}
+    log(f"slot warm point launches by width: {_width_text(widths)}")
 
     times, shares = [], []
     for _ in range(3):
@@ -488,7 +607,7 @@ def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
             raise SystemExit(f"bad encoding did not raise ({want_text})")
         log(f"bad encoding: ValueError({want_text!r})")
     log(f"pairing_path (pairs per rung): {impl.pairing_path}")
-    return {"launches": launches, "median_s": med, "times_s": times,
+    return {"launches": launches, "widths": widths, "median_s": med, "times_s": times,
             "pairing_share": statistics.median(shares), "tampered": tampered}
 
 
@@ -557,12 +676,13 @@ def committee_slot(pool, jobs, pubkeys) -> None:
     first = time.perf_counter() - t0
     rows_launches = sum(CP.KERNELS[k].launches[1] for k in ("fe_mul_rows", "fe_add_rows",
                                                             "fe_sub_rows"))
+    widths = {name: dict(CP.KERNELS[name].widths) for name in ("pt_double", "pt_add")}
     _aggs, ok_n = native_impl.threshold_aggregate_verify_batch(batches, pubkeys, datas)
     if not (ok and ok_n):
         raise SystemExit(f"committee slot: device verdict {ok}, native verdict {ok_n}")
     log(f"committee slot (first, {k} H(m) hashed on the device): {first:.3f} s, verify "
-        f"{impl.last_times.verify:.4f} s, {rows_launches} rows-kernel launches; "
-        f"pairing_path {impl.pairing_path}")
+        f"{impl.last_times.verify:.4f} s, {rows_launches} rows-kernel launches; point "
+        f"launches by width: {_width_text(widths)}; pairing_path {impl.pairing_path}")
     times = []
     for _ in range(3):
         _aggs, ok = impl.threshold_aggregate_verify_batch(batches, pubkeys, datas)
@@ -655,10 +775,167 @@ def profile_slot(impl: TorchImpl, batches, pubkeys, datas) -> None:
         log(f"  device {us / 1e3:9.3f} ms  {count:6d} x  {name[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# A/B of kernel builds (--ab)
+# ---------------------------------------------------------------------------
+
+AB_DIR = os.path.join(CP.BUILD_DIR, "ab")
+# (pattern, replacement) in plane_kernels.cu's level loop, per diagnostic
+_OPERATION = """            operand(x, sm, op >> 8 & 0xff, op >> 16 & 0xff, flags & 1, pt);
+            operand(y, sm, op >> 24 & 0xff, op >> 32 & 0xff, flags & 2, pt);
+            if (mul)
+                fq_mul(z, x, y);
+            else
+                fq_addsub(z, x, y, flags & 4);"""
+DIAGNOSTICS = {
+    "no-arith": [(_OPERATION, "            sload(z, sm, op >> 8 & 0xff, pt);")],
+    "no-linear": [("for (int k = rank; k < count; k += G)",
+                   "for (int k = rank; mul && k < count; k += G)")],
+    "no-products": [("                fq_mul(z, x, y);", "                fq_addsub(z, x, y, false);")],
+}
+
+
+def ab_source(src: str, constants: dict, patches=()) -> str:
+    """plane_kernels.cu's text with its `constexpr int NAME = V;` lines set
+    from constants and each (old, new) patch applied; ValueError unless each
+    occurs exactly once."""
+    for name, value in constants.items():
+        pattern = re.compile(rf"^constexpr int {re.escape(name)} = \d+;$", re.M)
+        if len(pattern.findall(src)) != 1:
+            raise ValueError(f"the kernel source has no single `constexpr int {name}`")
+        src = pattern.sub(f"constexpr int {name} = {int(value)};", src)
+    for old, new in patches:
+        if src.count(old) != 1:
+            raise ValueError(f"the kernel source has no single {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def _ab_build(name: str, src_dir: str, constants: dict, patches) -> tuple:
+    """nvcc one variant into AB_DIR; returns (name, library path, nvcc log)."""
+    with open(os.path.join(src_dir, "plane_kernels.cu")) as f:
+        src = ab_source(f.read(), constants, patches)
+    cu = os.path.join(AB_DIR, f"{name}.cu")
+    with open(cu, "w") as f:
+        f.write(src)
+    lib = os.path.join(AB_DIR, f"lib{name}.so")
+    proc = subprocess.run([CP.nvcc(), *CP.NVCC_FLAGS, "-I", os.path.abspath(src_dir), "-I", AB_DIR,
+                           "-o", lib, cu], capture_output=True, text=True, timeout=900)
+    if proc.returncode:
+        raise SystemExit(f"{name}: nvcc failed\n{proc.stderr[-3000:]}")
+    return name, lib, proc.stdout + proc.stderr
+
+
+def _quartiles(xs: list) -> str:
+    q1, q2, q3 = statistics.quantiles(xs, n=4)
+    return f"median {statistics.median(xs):.4f} (quartiles {q1:.4f}-{q3:.4f})"
+
+
+def ab_points(libs: dict, widths, reps: int) -> None:
+    rng = random.Random(4242)
+    for E in (2, 1):
+        cases = []
+        for n in widths:
+            pts = _point_cases(rng, E, n, torch.device("cuda:0"))[0][1]
+            cases.append((n, "no P+P", _without_pp(pts)) if n >= 16 else (n, "", pts))
+            if n == 4096:
+                cases.append((n, "edges", pts))
+        for n, label, pts in cases:
+            for kernel, plain in (("pt_double", C.pt_double_plain), ("pt_add", C.pt_add_plain)):
+                ins = pts if kernel == "pt_add" else pts[:3]
+                want = plain(*ins, E)
+                times = {name: [] for name in libs}
+                for name in list(libs) + list(libs)[::-1]:
+                    def fn(lib=libs[name]):
+                        return CP.call(lib, kernel, E, ins, 3)
+                    if name not in DIAGNOSTICS and _max_abs_err(fn(), want):
+                        raise SystemExit(f"{name} {kernel}<{E}> disagrees with its plain "
+                                         f"version at {n} lanes ({label})")
+                    times[name].append(_time_ms(fn, reps) * 1e3)
+                log(f"{kernel}<{E}> n={n} {label}: " + "; ".join(
+                    f"{name} {sum(t) / len(t):.2f}" for name, t in times.items()) + " us")
+
+
+def ab_slots(libs: dict, rounds: int) -> None:
+    """Rounds of the headline slot with each variant's library in turn: the
+    kernel wrappers launch from whichever library is bound last."""
+    names = [n for n in libs if n not in DIAGNOSTICS]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        batches, pubkeys, _jobs = gen_cluster(pool)
+    datas = [MSG] * N_VALIDATORS
+    dev, nat = TorchImpl(), TorchImpl(verify="native")
+    metrics = ("device slot", "native slot", "sweep + combine", "MSM")
+    got = {name: {m: [] for m in metrics} for name in names}
+    want = None
+    for r in range(-1, rounds):                 # round -1 warms both caches
+        for name in (names if r % 2 else names[::-1]):
+            CP._lib[:] = [libs[name]]
+            t = {}
+            for m, impl in (("device slot", dev), ("native slot", nat)):
+                t0 = time.perf_counter()
+                aggs, ok = impl.threshold_aggregate_verify_batch(batches, pubkeys, datas)
+                t[m] = time.perf_counter() - t0
+                want = want or [bytes(a) for a in aggs]
+                if not ok or [bytes(a) for a in aggs] != want:
+                    raise SystemExit(f"{name}: slot verdict {ok} or aggregates differ")
+            steps = {step: ms for step, _n, ms in first_slot_steps(batches, pubkeys, datas,
+                                                                    dev.device)}
+            t["sweep + combine"] = steps["Lagrange sweep + combine"] / 1e3
+            t["MSM"] = steps["combined RLC MSM + reduction trees"] / 1e3
+            if r >= 0:
+                for m in metrics:
+                    got[name][m].append(t[m])
+    CP._lib.clear()
+    for m in metrics:
+        log(f"slot A/B {m} ({rounds} rounds, s): " + "; ".join(
+            f"{name} {_quartiles(got[name][m])}" for name in names))
+        for other in names[1:]:
+            wins = sum(b < a for a, b in zip(got[names[0]][m], got[other][m]))
+            log(f"  {other} faster than {names[0]} in {wins} of {rounds} pairs; runs "
+                + "; ".join(f"{name} " + ", ".join(f"{v:.4f}" for v in got[name][m])
+                            for name in (names[0], other)))
+
+
+def ab_main(argv: list[str]) -> int:
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --ab")
+    ap.add_argument("variants", nargs="*", help="NAME=DIR[:CONST=V,...]")
+    ap.add_argument("--diagnose", action="store_true")
+    ap.add_argument("--slot-rounds", type=int, default=0)
+    ap.add_argument("--widths", default=",".join(map(str, POINT_WIDTHS)))
+    args = ap.parse_args(argv)
+    jobs = []
+    for v in args.variants:
+        name, _, rest = v.partition("=")
+        src_dir, _, consts = rest.partition(":")
+        jobs.append((name, src_dir, dict(c.split("=", 1) for c in consts.split(",") if c), ()))
+    jobs = jobs or [("new", CP.CSRC, {}, ())]
+    if args.diagnose:
+        jobs += [(name, CP.CSRC, {}, patches) for name, patches in DIAGNOSTICS.items()]
+    log(nvidia_smi_line())
+    os.makedirs(AB_DIR, exist_ok=True)
+    with open(os.path.join(AB_DIR, "point_schedule.h"), "w") as f:
+        f.write(PS.header())
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        built = list(ex.map(lambda job: _ab_build(*job), jobs))
+    libs = {}
+    for name, path, text in built:
+        for row in ptxas_summary(text):
+            if row.startswith("pt_"):
+                log(f"ptxas {name}: {row}")
+        libs[name] = CP.bind(path)
+    ab_points(libs, [int(w) for w in args.widths.split(",")], reps=50)
+    if args.slot_rounds:
+        ab_slots(libs, args.slot_rounds)
+    log(nvidia_smi_line())
+    return 0
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
         return 2
+    if argv[:1] == ["--ab"]:
+        return ab_main(argv[1:])
     device = torch.device("cuda:0")
     smi = nvidia_smi_line()
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}); torch {torch.__version__}, "
@@ -670,13 +947,21 @@ def main(argv: list[str]) -> int:
         log(f"  ptxas {row}")
 
     # the slot's widths: 12288 packed Fq (the (p-3)/4 scan) and 4096 G2
-    # partials for the field ops; 1024 pk lanes (G1) and 4096 sweep lanes
-    # (G2) for the point ops
-    widths = {("fe", 1): 12288, ("fe", 2): 4096, ("pt", 1): 1024, ("pt", 2): 4096}
-    rows = check_kernels(device, widths, reps=50)
+    # partials for the field ops
+    rows = check_kernels(device, {("fe", 1): 12288, ("fe", 2): 4096}, reps=50)
     # the combined MSM plane's width as well
-    check_kernels(device, {("fe", 1): 2048, ("fe", 2): 2048, ("pt", 1): 2048, ("pt", 2): 2048},
-                  reps=5)
+    check_kernels(device, {("fe", 1): 2048, ("fe", 2): 2048}, reps=5)
+    # the point ops at every width the main path launches them: the sweep
+    # (4096), the MSM (2048), the combine and the pk subgroup check (1024),
+    # the MSM's reduction tree (512-128), the committee cofactor clear (64)
+    # and the headline's (1); the JSON row of each is the sweep's (G2) or
+    # the subgroup check's (G1) width
+    pt_rows = check_point_kernels(device, POINT_WIDTHS, reps=50)
+    for name in ("pt_double", "pt_add"):
+        for E, main_width in ((1, 1024), (2, 4096)):
+            rows[(name, E)] = dict(pt_rows[(name, E, main_width)], by_width=[
+                {k: pt_rows[(name, E, n)][k] for k in ("width", "ms", "plain_ms", "bound_ms")}
+                for n in POINT_WIDTHS])
     # the verify's rows: one Fq12 product's 54 Fq products on 2 and 128 lanes
     check_rows_kernels(device, 108, reps=50)
     rows.update(check_rows_kernels(device, 6912, reps=50))
@@ -700,6 +985,9 @@ def main(argv: list[str]) -> int:
         profile_slot(impl, batches, pubkeys, [MSG] * N_VALIDATORS)
 
     kernels = [dict(row, launches=slot["launches"][key]) for key, row in rows.items()]
+    for (name, E), row in zip(rows, kernels):
+        for w in row.get("by_width", ()):
+            w["launches"] = slot["widths"][name].get((E, w["width"]), 0)
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
