@@ -13,10 +13,12 @@
 //   fe_sub<E>    -> _kern_sub    ((a - b) mod p per component; also -a)
 //   pt_double<E> -> _kern_double (Jacobian dbl-2009-l, a = 0)
 //   pt_add<E>    -> _kern_add    (unified add with its selects)
-//   fe_mul_rows  -> _kern_mul as launched by _mont_rows_call (rows, E = 1)
+//   fe_mul_rows<E> -> _kern_mul as launched by _mont_rows_call (rows; E = 2
+//                   the whole Karatsuba product of curve._fq2_mul_many)
 // and two more stand for XLA-op code of the reference's rows field plane
 // (charon_tpu/ops/field.py fq_add / fq_sub / fq_neg):
-//   fe_add_rows, fe_sub_rows (fq_neg(a) is fe_sub_rows(0, a))
+//   fe_add_rows (adds, then subtracts past a split), fe_sub_rows (fq_neg(a)
+//   is fe_sub_rows(0, a))
 //
 // What bounds them on an H100 (3.35 TB/s; 32-bit integer multiply-adds at
 // 132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7 T/s, from the Hopper white
@@ -31,12 +33,12 @@
 //   pt_double<2> / pt_add<2>: 6 or 9 x 96 B moved against 16 or 44 Fq
 //     products (9,216 / 25,344 multiply-adds) — operations, by 3x / 6x
 //     (pt_add counts a double's work more on a lane that needs the P+P double).
-// fe_mul_rows moves the same 144 B per product as fe_mul<1> against the same
-// 576 multiply-adds, so it is bound by bytes, by 1.25x; fe_add_rows and
-// fe_sub_rows move 144 B against ~36 integer ops, bound by bytes. At the
-// pairing's widths (108-6,912 rows: one Fq12 product's 54 Fq products on 2
-// to 128 lanes) each launch is a few dozen warps: latency- and launch-bound
-// like the rest.
+// fe_mul_rows<1> moves the same 144 B per product as fe_mul<1> against the
+// same 576 multiply-adds, so it is bound by bytes, by 1.25x, and
+// fe_mul_rows<2> like fe_mul<2> by operations; fe_add_rows and fe_sub_rows
+// move 144 B against ~36 integer ops, bound by bytes. At the pairing's widths
+// (3-2,304 Fq2 products, 108-6,912 rows) each launch is a few dozen warps:
+// latency- and launch-bound like the rest (see "Rows kernels" below).
 // The field kernels run one thread per element in blocks of 128: at the
 // slot's widths (1,024-12,288 elements, 8-96 blocks, so at 4,096 elements
 // 32 blocks on 32 of the 132 SMs) each is far below either bound, latency-
@@ -45,9 +47,9 @@
 // Fq products (~2.4 us each); they now give each point a group of G threads
 // that runs the formula as levels of independent Fq operations
 // (ops/point_schedule.py), so a thread waits through one product per level:
-// see "Point kernels" below. Later work: mul.wide/mad.cc carry chains in
-// fq_mul, and fusing the composite loops (pow scan, windowed scalar
-// multiplication, reduction tree) into single kernels.
+// see "Point kernels" below. Every kernel shares fp.cuh's carry-chain fq_mul
+// and fq_addsub. Later work: fusing the composite loops (pow scan, windowed
+// scalar multiplication, reduction tree) into single kernels.
 #include <cuda_runtime.h>
 
 #include "fp.cuh"
@@ -194,8 +196,9 @@ __device__ __forceinline__ unsigned group_mask() {
 
 __device__ __forceinline__ int sword(int s, int pt) { return s * kSlotWords + pt * FP_LIMBS; }
 
-__device__ __forceinline__ void sload(Fq& x, const uint32_t* sm, int s, int pt) {
-    const uint4* q = reinterpret_cast<const uint4*>(sm + sword(s, pt));
+// 12 limbs at p (16-byte aligned), 16 bytes at a time.
+__device__ __forceinline__ void load16(Fq& x, const uint32_t* p) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
 #pragma unroll
     for (int k = 0; k < FP_LIMBS / 4; ++k) {
         const uint4 v = q[k];
@@ -206,68 +209,19 @@ __device__ __forceinline__ void sload(Fq& x, const uint32_t* sm, int s, int pt) 
     }
 }
 
-__device__ __forceinline__ void sstore(uint32_t* sm, int s, int pt, const Fq& x) {
-    uint4* q = reinterpret_cast<uint4*>(sm + sword(s, pt));
+__device__ __forceinline__ void store16(uint32_t* p, const Fq& x) {
+    uint4* q = reinterpret_cast<uint4*>(p);
 #pragma unroll
     for (int k = 0; k < FP_LIMBS / 4; ++k)
         q[k] = make_uint4(x.v[4 * k], x.v[4 * k + 1], x.v[4 * k + 2], x.v[4 * k + 3]);
 }
 
-// PTX for limbs 0..11 of a carry chain: in-place operands %0-%11, the
-// other operand's limbs at %(off)-%(off + 11).
-#define FQ_CHAIN_LIMB(op, i, j) op " %" #i ", %" #i ", %" #j ";\n\t"
-#define FQ_CHAIN_RLIMB(op, i, j) op " %" #i ", %" #j ", %" #i ";\n\t"
-#define FQ_CHAIN(L, first, next, last, o0, o1, o2, o3, o4, o5, o6, o7, o8, o9, o10, o11) \
-    L(first, 0, o0) L(next, 1, o1) L(next, 2, o2) L(next, 3, o3) L(next, 4, o4)         \
-    L(next, 5, o5) L(next, 6, o6) L(next, 7, o7) L(next, 8, o8) L(next, 9, o9)          \
-    L(next, 10, o10) L(last, 11, o11)
-#define FQ_LIMB_OPERANDS(x) \
-    "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]), "r"(x[5]), "r"(x[6]), "r"(x[7]), \
-    "r"(x[8]), "r"(x[9]), "r"(x[10]), "r"(x[11])
-#define FQ_LIMB_INOUT(x) \
-    "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3]), "+r"(x[4]), "+r"(x[5]), "+r"(x[6]), \
-    "+r"(x[7]), "+r"(x[8]), "+r"(x[9]), "+r"(x[10]), "+r"(x[11])
+__device__ __forceinline__ void sload(Fq& x, const uint32_t* sm, int s, int pt) {
+    load16(x, sm + sword(s, pt));
+}
 
-// (a + b) mod p, or (a - b) mod p as a + (p - b), in one branch-free path,
-// so that the threads of a level that add and those that subtract do not
-// diverge: on the card on add.cc / sub.cc carry chains, each chain inside a
-// single asm statement (nvcc does not promise to keep the carry flag from one
-// statement to the next), elsewhere (a host build of this file) through fp.cuh, so a CPU
-// build does not run the chains. Canonical inputs, canonical output.
-__device__ __forceinline__ void fq_addsub(Fq& r, const Fq& a, const Fq& b, bool sub) {
-#if defined(__CUDA_ARCH__)
-    const uint32_t p[FP_LIMBS] = FP_P_INIT;
-    uint32_t t[FP_LIMBS], d[FP_LIMBS], hi;
-#pragma unroll
-    for (int i = 0; i < FP_LIMBS; ++i) t[i] = b.v[i];
-    // t = p - b (b < p: no borrow out)
-    asm(FQ_CHAIN(FQ_CHAIN_RLIMB, "sub.cc.u32", "subc.cc.u32", "subc.u32", 12, 13, 14, 15, 16,
-                 17, 18, 19, 20, 21, 22, 23)
-        : FQ_LIMB_INOUT(t)
-        : FQ_LIMB_OPERANDS(p));
-#pragma unroll
-    for (int i = 0; i < FP_LIMBS; ++i) t[i] = sub ? t[i] : b.v[i];
-    // t += a, its carry into hi
-    asm(FQ_CHAIN(FQ_CHAIN_LIMB, "add.cc.u32", "addc.cc.u32", "addc.cc.u32", 13, 14, 15, 16, 17,
-                 18, 19, 20, 21, 22, 23, 24) "addc.u32 %12, 0, 0;"
-        : FQ_LIMB_INOUT(t), "=r"(hi)
-        : FQ_LIMB_OPERANDS(a.v));
-    // t < 2p < 2^382: d = t - p, kept unless it borrows
-#pragma unroll
-    for (int i = 0; i < FP_LIMBS; ++i) d[i] = t[i];
-    asm(FQ_CHAIN(FQ_CHAIN_LIMB, "sub.cc.u32", "subc.cc.u32", "subc.cc.u32", 13, 14, 15, 16, 17,
-                 18, 19, 20, 21, 22, 23, 24) "subc.u32 %12, %12, 0;"
-        : FQ_LIMB_INOUT(d), "+r"(hi)
-        : FQ_LIMB_OPERANDS(p));
-    const bool ge = hi == 0;
-#pragma unroll
-    for (int i = 0; i < FP_LIMBS; ++i) r.v[i] = ge ? d[i] : t[i];
-#else
-    if (sub)
-        fq_sub(r, a, b);
-    else
-        fq_add(r, a, b);
-#endif
+__device__ __forceinline__ void sstore(uint32_t* sm, int s, int pt, const Fq& x) {
+    store16(sm + sword(s, pt), x);
 }
 
 // x = slot a, a + b or a - b (b = kSchedNone: a + 0).
@@ -437,32 +391,119 @@ __global__ void __launch_bounds__(G * kPoints) pt_add_kernel(const uint32_t* x1,
     store_points<E, G * kPoints>(dst, sm, off, base, n);
 }
 
-// Rows kernels: one Fq row per thread, read and written in place (E = 1).
+// ---------------------------------------------------------------------------
+// Rows kernels: (n, 12) Fq rows or (n, 2, 12) Fq2 rows, read in place, 16
+// bytes at a time (the wrappers pass 16-byte aligned bases)
+// ---------------------------------------------------------------------------
+//
 // fe_mul_rows replaces _kern_mul as _mont_rows_call launches it
 // (pallas_plane.py:969, :982), without the reference's transposes into an
-// (1, LIMBS, 8, W) tile. Bound: bytes, as fe_mul<1>.
-__global__ void __launch_bounds__(kBlock) fe_mul_rows_kernel(const uint32_t* a, const uint32_t* b,
-                                                             uint32_t* o, long long n) {
-    const long long i = element();
-    if (i >= n) return;
-    Fq x, y, r;
-    load<kRows>(x, a, n, i);
-    load<kRows>(y, b, n, i);
-    fq_mul(r, x, y);
-    store<kRows>(o, r, n, i);
+// (1, LIMBS, 8, W) tile; for E = 2 it is the whole Karatsuba Fq2 product of
+// the reference's seam curve._fq2_mul_many (charon_tpu/ops/curve.py:56),
+// which the reference computes as one product launch between XLA adds and
+// subs. Bound: bytes for E = 1 (144 B against 576 multiply-adds), operations
+// for E = 2 (288 B against 3 x 576), by 1.25x / 1.2x. At the pairing's
+// widths (3-2,304 Fq2 products, 108-6,912 rows) a launch is a few warps, so
+// what it costs is latency: the launch, the loads and the chain of dependent
+// field operations a thread waits through. E = 1 runs a thread per row.
+// E = 2 gives each product a group of kMulRowsG = 4 lanes (8 products a
+// warp): lanes 0-2 compute v0 = a0*b0, v1 = a1*b1 and s = (a0 + a1)(b0 + b1)
+// at once, then v0 and v1 are shuffled to the group and lane 0 stores
+// c0 = v0 - v1, lane 2 c1 = s - v0 - v1; complex squaring (a and b the same
+// rows) takes two products, (a0 + a1)(a0 - a1) and 2*a0*a1. A product waits
+// through one fq_mul and a few linear operations, not three fq_muls (one
+// thread per Fq2 product, timed against this group on the H100, was slower
+// at 36 and 2,304 products: PERF.md).
+constexpr int kMulRowsG = 4;
+
+__device__ __forceinline__ void pick(Fq& r, bool c, const Fq& x, const Fq& y) {
+#pragma unroll
+    for (int j = 0; j < FP_LIMBS; ++j) r.v[j] = c ? x.v[j] : y.v[j];
 }
 
-// Stands for the XLA-op field.fq_add of the reference's rows plane. Bound:
-// bytes.
-__global__ void __launch_bounds__(kBlock) fe_add_rows_kernel(const uint32_t* a, const uint32_t* b,
+__device__ __forceinline__ void shfl(Fq& r, const Fq& x, int src) {
+#pragma unroll
+    for (int j = 0; j < FP_LIMBS; ++j) r.v[j] = __shfl_sync(0xffffffffu, x.v[j], src);
+}
+
+template <int E>
+__global__ void __launch_bounds__(kBlock) fe_mul_rows_kernel(const uint32_t* a, const uint32_t* b,
                                                              uint32_t* o, long long n) {
+    if constexpr (E == 1) {
+        const long long i = element();
+        if (i >= n) return;
+        Fq x, y, r;
+        load16(x, a + i * FP_LIMBS);
+        load16(y, b + i * FP_LIMBS);
+        fq_mul(r, x, y);
+        store16(o + i * FP_LIMBS, r);
+    } else {
+        constexpr int G = kMulRowsG;
+        static_assert(E == 2 && G == 4 && kBlock % 32 == 0, "4 lanes a product, whole warps");
+        // every lane of a warp reaches the shuffles: the lanes past n work on
+        // the last product and store nothing
+        const long long i = element() / G;
+        const long long k = (i < n ? i : n - 1) * 2 * FP_LIMBS;
+        const int lane = threadIdx.x % G;
+        const bool sq = a == b;
+        Fq a0, a1, b0, b1, zero;
+        load16(a0, a + k);
+        load16(a1, a + k + FP_LIMBS);
+        load16(b0, b + k);
+        load16(b1, b + k + FP_LIMBS);
+#pragma unroll
+        for (int j = 0; j < FP_LIMBS; ++j) zero.v[j] = 0;
+        // x = xa + xb, y = ya +/- yb:
+        //   lanes 0, 1, 2-3: (a0, b0), (a1, b1), (a0 + a1, b0 + b1);
+        //   a square (b0 = a0, b1 = a1), lanes 0, 1-3: (a0 + a1, a0 - a1), (a0, a1)
+        Fq xa, xb, ya, yb, x, y, r;
+        pick(xa, lane == 1 && !sq, a1, a0);
+        pick(xb, sq ? lane == 0 : lane >= 2, a1, zero);
+        pick(ya, sq ? lane == 0 : lane != 1, b0, b1);
+        pick(yb, sq ? lane == 0 : lane >= 2, b1, zero);
+        fq_addsub(x, xa, xb, false);
+        fq_addsub(y, ya, yb, sq && lane == 0);
+        fq_mul(r, x, y);
+        Fq c;
+        bool mine;
+        int col;
+        if (sq) {                          // c0 = r (lane 0), c1 = r + r (lane 1)
+            Fq rr;
+            fq_addsub(rr, r, r, false);
+            pick(c, lane == 0, r, rr);
+            mine = lane < 2;
+            col = lane;
+        } else {                           // v0 and v1 to every lane of the group
+            const int base = (threadIdx.x % 32) / G * G;
+            Fq v0, v1, t;
+            shfl(v0, r, base);
+            shfl(v1, r, base + 1);
+            pick(t, lane == 0, v1, v0);
+            fq_addsub(t, r, t, true);      // lane 0: c0 = v0 - v1; lane 2: s - v0
+            fq_addsub(c, t, v1, true);     // lane 2: c1 = s - v0 - v1
+            pick(c, lane == 0, t, c);
+            mine = lane == 0 || lane == 2;
+            col = lane / 2;
+        }
+        if (i < n && mine) store16(o + i * 2 * FP_LIMBS + col * FP_LIMBS, c);
+    }
+}
+
+// Stands for the XLA-op field.fq_add and field.fq_sub of the reference's
+// rows plane at once: rows [0, n_add) get (a + b) mod p, rows [n_add, n) get
+// (a - b) mod p, on one branch-free path (fq_addsub), so the threads of a
+// level that mixes independent adds and subs (the ξ product's x0 + x1 and
+// x0 - x1) do not diverge and the level is one launch. Bound: bytes.
+__global__ void __launch_bounds__(kBlock) fe_add_rows_kernel(const uint32_t* a, const uint32_t* b,
+                                                             uint32_t* o, long long n,
+                                                             long long n_add) {
     const long long i = element();
     if (i >= n) return;
     Fq x, y, r;
-    load<kRows>(x, a, n, i);
-    load<kRows>(y, b, n, i);
-    fq_add(r, x, y);
-    store<kRows>(o, r, n, i);
+    load16(x, a + i * FP_LIMBS);
+    load16(y, b + i * FP_LIMBS);
+    fq_addsub(r, x, y, i >= n_add);
+    store16(o + i * FP_LIMBS, r);
 }
 
 // Stands for the XLA-op field.fq_sub (and fq_neg as 0 - a, which maps 0 to
@@ -557,15 +598,30 @@ int charon_pt_add(int E, const void* x1, const void* y1, const void* z1, const v
     return (int)cudaGetLastError();
 }
 
-int charon_fe_mul_rows(const void* a, const void* b, void* o, long long n, void* stream) {
-    if (n <= 0) return (int)cudaErrorInvalidValue;
-    fe_mul_rows_kernel<<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>((In)a, (In)b, (Out)o, n);
+inline bool aligned16(const void* a, const void* b, const void* o) {
+    return (((uintptr_t)a | (uintptr_t)b | (uintptr_t)o) & 15) == 0;
+}
+
+// Every rows launcher takes (a, b, o, n, [its own argument,] stream).
+// fe_mul_rows: E = 1, n rows (n, 12); E = 2, n Fq2 rows (n, 2, 12).
+int charon_fe_mul_rows(const void* a, const void* b, void* o, long long n, int E, void* stream) {
+    if (n <= 0 || !aligned16(a, b, o)) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (E == 1)
+        fe_mul_rows_kernel<1><<<grid_for(n), kBlock, 0, s>>>((In)a, (In)b, (Out)o, n);
+    else if (E == 2)
+        fe_mul_rows_kernel<2><<<grid_for(n * kMulRowsG), kBlock, 0, s>>>((In)a, (In)b, (Out)o, n);
+    else
+        return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
 }
 
-int charon_fe_add_rows(const void* a, const void* b, void* o, long long n, void* stream) {
-    if (n <= 0) return (int)cudaErrorInvalidValue;
-    fe_add_rows_kernel<<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>((In)a, (In)b, (Out)o, n);
+// Rows [0, n_add) add, rows [n_add, n) subtract.
+int charon_fe_add_rows(const void* a, const void* b, void* o, long long n, long long n_add,
+                       void* stream) {
+    if (n <= 0 || n_add < 0 || n_add > n || !aligned16(a, b, o)) return (int)cudaErrorInvalidValue;
+    fe_add_rows_kernel<<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>((In)a, (In)b, (Out)o, n,
+                                                                         n_add);
     return (int)cudaGetLastError();
 }
 

@@ -8,7 +8,11 @@ ops/rows.py):
     fe_mul, fe_add, fe_sub                        for E in {1, 2}, a thread per element
     pt_double, pt_add                             for E in {1, 2}, a group of threads
                                                   per point (ops/point_schedule.py)
-    fe_mul_rows, fe_add_rows, fe_sub_rows         rows (E = 1), a thread per row
+    fe_mul_rows                                   rows: E = 1 a thread per row; E = 2
+                                                  (Fq2 rows, whole Karatsuba products) a
+                                                  group of 4 lanes per product
+    fe_add_rows, fe_sub_rows                      rows, a thread per row; fe_add_rows
+                                                  adds below a split and subtracts past it
 
 Build: the point schedules' header into `build/charon_tpu_torch/`, then
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -I build/charon_tpu_torch`
@@ -100,8 +104,8 @@ _ARGS = {
     "charon_fe_sub": [ctypes.c_int, _VP, _VP, _VP, _LL, _VP],
     "charon_pt_double": [ctypes.c_int] + [_VP] * 6 + [_LL, _VP],
     "charon_pt_add": [ctypes.c_int] + [_VP] * 9 + [_LL, _VP],
-    "charon_fe_mul_rows": [_VP, _VP, _VP, _LL, _VP],
-    "charon_fe_add_rows": [_VP, _VP, _VP, _LL, _VP],
+    "charon_fe_mul_rows": [_VP, _VP, _VP, _LL, ctypes.c_int, _VP],
+    "charon_fe_add_rows": [_VP, _VP, _VP, _LL, _LL, _VP],
     "charon_fe_sub_rows": [_VP, _VP, _VP, _LL, _VP],
 }
 
@@ -166,8 +170,8 @@ def _library() -> ctypes.CDLL:
 class Kernel:
     """One CUDA kernel: where its source is, which TPU kernel (or, for the
     rows add and sub, which XLA-op function) it replaces, and how often it
-    ran, per E (the rows kernels have E = 1 only). `launches` counts CUDA
-    launches only, `widths` the plane kernels' launches by (E, width);
+    ran, per E (fe_add_rows and fe_sub_rows have E = 1 only). `launches` counts CUDA
+    launches only, `widths` the launches by (E, width) (rows: Fq or Fq2 rows);
     `plain_calls` counts CPU calls of its plain version."""
 
     def __init__(self, name: str, replaces: str, variants=(1, 2)):
@@ -181,6 +185,9 @@ class Kernel:
         self.launches = {E: 0 for E in self.variants}
         self.plain_calls = {E: 0 for E in self.variants}
         self.widths = collections.Counter()     # launches by (E, width)
+        self.splits = collections.Counter()     # fe_add_rows calls that add and subtract
+                                                # (launches, or plain calls on the CPU),
+                                                # by (width, n_add) in rows
 
 
 KERNELS = {
@@ -189,8 +196,9 @@ KERNELS = {
     "fe_sub": Kernel("fe_sub", "charon_tpu/ops/pallas_plane.py:446"),        # _kern_sub
     "pt_double": Kernel("pt_double", "charon_tpu/ops/pallas_plane.py:433"),  # _kern_double
     "pt_add": Kernel("pt_add", "charon_tpu/ops/pallas_plane.py:439"),        # _kern_add
-    # _kern_mul as _mont_rows_call launches it (its pallas_call at :982)
-    "fe_mul_rows": Kernel("fe_mul_rows", "charon_tpu/ops/pallas_plane.py:969", (1,)),
+    # _kern_mul as _mont_rows_call launches it (its pallas_call at :982);
+    # E = 2 with the adds and subs of curve._fq2_mul_many
+    "fe_mul_rows": Kernel("fe_mul_rows", "charon_tpu/ops/pallas_plane.py:969"),
     # XLA-op field.fq_add / fq_sub (and fq_neg) of the rows plane
     "fe_add_rows": Kernel("fe_add_rows", "charon_tpu/ops/field.py:134", (1,)),
     "fe_sub_rows": Kernel("fe_sub_rows", "charon_tpu/ops/field.py:138", (1,)),
@@ -243,19 +251,22 @@ def _launch(name: str, E: int, ins, n_out: int):
     return outs
 
 
-def launch_rows(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch a rows kernel on checked, contiguous CUDA rows (ops/rows.py),
-    on the current stream of the rows' device."""
+def launch_rows(name: str, a: torch.Tensor, b: torch.Tensor, E: int, args=()) -> torch.Tensor:
+    """Launch charon_<name>(a, b, out, n, *args, stream) on checked,
+    contiguous, 16-byte aligned CUDA rows (ops/rows.py), n = numel / (12 E)
+    rows, on the current stream of the rows' device; counts the launch under
+    E and its width."""
     if a.device.index != torch.cuda.current_device():
         with torch.cuda.device(a.device):
-            return launch_rows(name, a, b)
+            return launch_rows(name, a, b, E, args)
     out = torch.empty_like(a)
-    rc = getattr(_library(), "charon_" + name)(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                               a.numel() // LIMBS,
-                                               torch.cuda.current_stream().cuda_stream)
+    n = a.numel() // (E * LIMBS)
+    rc = getattr(_library(), "charon_" + name)(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+                                               *args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} did not launch: error {rc}")
-    KERNELS[name].launches[1] += 1
+        raise RuntimeError(f"CUDA kernel {name}<{E}> did not launch: error {rc}")
+    KERNELS[name].launches[E] += 1
+    KERNELS[name].widths[E, n] += 1
     return out
 
 

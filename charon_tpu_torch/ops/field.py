@@ -37,7 +37,9 @@ number of PyTorch calls small:
 
 The rows kernels (ops/rows.py) have plain versions here too:
 `rows_mul_plain` is the same digit product entered from `(..., 12)` rows,
-`rows_add_plain` / `rows_sub_plain` the same sum as fe_add / fe_sub.
+`rows_mul2_plain` the Karatsuba Fq2 product over it and the rows add and
+sub, `rows_add_plain` / `rows_sub_plain` the same sum as fe_add / fe_sub,
+and `rows_addsub_plain` both at once, split along the first axis.
 """
 
 from __future__ import annotations
@@ -358,6 +360,26 @@ def rows_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version of fe_mul_rows: a·b·R⁻¹ mod p per canonical row."""
     d = rows_to_digits(torch.stack([a, b]))
     return digits_to_rows(_reduce_once(mont_mul(d[0], d[1], shrink=False)))
+
+
+def rows_mul2_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of fe_mul_rows for E = 2: the Karatsuba product of
+    canonical Fq2 rows (..., 2, 12), (a0b0 − a1b1, (a0+a1)(b0+b1) − a0b0 −
+    a1b1), through the plain rows product, add and sub."""
+    s = rows_add_plain(torch.stack([a[..., 0, :], b[..., 0, :]]),
+                       torch.stack([a[..., 1, :], b[..., 1, :]]))
+    v = rows_mul_plain(torch.stack([a[..., 0, :], a[..., 1, :], s[0]]),
+                       torch.stack([b[..., 0, :], b[..., 1, :], s[1]]))
+    d = rows_sub_plain(torch.stack([v[0], v[2]]), torch.stack([v[1], v[0]]))  # c0, s − v0
+    return torch.stack([d[0], rows_sub_plain(d[1], v[1])], -2)
+
+
+def rows_addsub_plain(a: torch.Tensor, b: torch.Tensor, n_add: int) -> torch.Tensor:
+    """Plain version of fe_add_rows with a split: (a + b) mod p for
+    a[:n_add], (a − b) mod p for a[n_add:], canonical rows."""
+    parts = [_rows_sum(a[:n_add], b[:n_add], 1) if n_add > 0 else None,
+             _rows_sum(a[n_add:], b[n_add:], -1) if n_add < a.shape[0] else None]
+    return torch.cat([p for p in parts if p is not None])
 
 
 def rows_add_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

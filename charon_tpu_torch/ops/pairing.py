@@ -14,7 +14,9 @@ computes every addition step, selecting by the bit; here the bits of |x|
 are host constants, so Python branches on them: 63 doubling steps and 5
 addition steps, and `_expt_conj` multiplies only on set bits. The values
 are the same. Every product goes through the rows seam (ops/rows.py), so
-on the card the whole check runs on fe_mul_rows, fe_add_rows and
+on the card the whole check runs on fe_mul_rows (Fq2 products in one
+launch each), fe_add_rows (split: a level's independent adds and subs in
+one launch, as the Miller steps' ξ product and line subtractions) and
 fe_sub_rows.
 
 A check runs every pair's Miller loop on its own batch lane (padded to a
@@ -63,8 +65,8 @@ def _dbl_step(f, Tp, xp, yp):
     SZ2, YS2, B2 = T._add_many([SZ, YS, B_], [SZ, YS, B_])
     # line: l = 2YZ²·ξ·yp + (3X³ − 2Y²Z)·vw − 3X²Z·xp·v²w
     a0s, av2ws = _scale_fq_many([SZ2, WZ], [yp, xp])
-    a0 = T.fq2_mul_xi(a0s)
-    avw, av2w = T._sub_many([XW, torch.zeros_like(av2ws)], [YS2, av2ws])
+    (a0,), (avw, av2w) = T._mul_xi_sub_many([a0s], [XW, torch.zeros_like(av2ws)],
+                                            [YS2, av2ws])
     # point update (homogeneous doubling, a = 0)
     B4 = R.fq2_add(B2, B2)
     H = R.fq2_sub(WW, R.fq2_add(B4, B4))          # W² − 8B
@@ -87,8 +89,8 @@ def _add_step(f, Tp, xq, yq, xp, yp):
         [(lam, lam), (theta, theta), (theta, xq), (lam, yq)])
     # line: l = λ·ξ·yp + (θ·xq − λ·yq)·vw − θ·xp·v²w
     a0s, av2ws = _scale_fq_many([lam, theta], [yp, xp])
-    a0 = T.fq2_mul_xi(a0s)
-    avw, av2w = T._sub_many([th_xq, torch.zeros_like(av2ws)], [lam_yq, av2ws])
+    (a0,), (avw, av2w) = T._mul_xi_sub_many([a0s], [th_xq, torch.zeros_like(av2ws)],
+                                            [lam_yq, av2ws])
     lll, thZ, llA, llX = R._fq2_mul_many(
         [(ll, lam), (thth, Z), (ll, R.fq2_add(X, xqZ)), (ll, X)])
     D = R.fq2_sub(thZ, llA)

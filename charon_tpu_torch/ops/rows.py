@@ -12,23 +12,28 @@ element is `(..., 2, 12)`. Leading axes are any batch shape.
 
 Three CUDA kernels (ops/csrc/plane_kernels.cu) compute on rows in place:
 
-    fe_mul_rows   a·b·R⁻¹ mod p   (pallas_plane._mont_rows_call :969)
-    fe_add_rows   (a + b) mod p   (field.fq_add, XLA ops in the reference)
+    fe_mul_rows   E = 1: a·b·R⁻¹ mod p  (pallas_plane._mont_rows_call :969)
+                  E = 2: the whole Karatsuba Fq2 product of (..., 2, 12)
+                  rows (curve._fq2_mul_many :56: its pre-sums, three
+                  products and recombination in one launch)
+    fe_add_rows   (a + b) mod p, and (a − b) mod p past a split along the
+                  first axis (field.fq_add / fq_sub, XLA ops in the reference)
     fe_sub_rows   (a − b) mod p   (field.fq_sub; fq_neg(a) = sub(0, a))
 
-Their wrappers take same-shape contiguous int32 rows with a trailing 12.
-A CUDA tensor launches the kernel and counts a launch in
-cuda_plane.KERNELS; a CPU tensor runs the plain version — field.rows_*_plain,
-the digit arithmetic of field.fe_*_plain entered from rows — and counts a
-plain call.
+Their wrappers take same-shape contiguous int32 rows with a trailing 12
+(`(..., 2, 12)` for E = 2). A CUDA tensor launches the kernel and counts a
+launch in cuda_plane.KERNELS (it must start on a 16-byte boundary: the
+kernels read rows 16 bytes at a time, and the wrapper raises rather than
+copy); a CPU tensor runs the plain version — field.rows_*_plain, the digit
+arithmetic of field.fe_*_plain entered from rows — and counts a plain call.
 There is no fallback between the two, and no switch between field planes:
 on the card every product takes fe_mul_rows (the reference pins its "xla"
 and "pallas" planes bit-identical, so one plane is faithful to both).
 
-Batching. `_fq_mul_many` is ONE product launch over the stacked rows;
-`_fq2_mul_many` is ONE add launch for all Karatsuba pre-sums, ONE product
-launch and two sub launches. Every output is canonical, so how the adds are
-batched changes no value.
+Batching. `_fq_mul_many` is ONE product launch over the stacked rows, and
+`_fq2_mul_many` ONE E = 2 product launch (complex squaring when every pair
+squares one element). Every output is canonical, so how the work is batched
+changes no value.
 """
 
 from __future__ import annotations
@@ -46,14 +51,15 @@ LIMBS = F.LIMBS
 # ---------------------------------------------------------------------------
 
 
-def _check(a: torch.Tensor, b: torch.Tensor) -> torch.device:
+def _check(a: torch.Tensor, b: torch.Tensor, E: int = 1) -> torch.device:
     for t in (a, b):
         if t.dtype != torch.int32:
             raise TypeError(f"rows must be int32, got {t.dtype}")
     if a.shape != b.shape:
         raise ValueError(f"row shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
-    if a.dim() < 1 or a.shape[-1] != LIMBS or a.numel() == 0:
-        raise ValueError(f"expected (..., {LIMBS}) rows, got {tuple(a.shape)}")
+    tail = (2, LIMBS) if E == 2 else (LIMBS,)
+    if tuple(a.shape[-len(tail):]) != tail or a.numel() == 0:
+        raise ValueError(f"expected (..., {', '.join(map(str, tail))}) rows, got {tuple(a.shape)}")
     if a.device != b.device:
         raise ValueError("rows are on different devices")
     if not (a.is_contiguous() and b.is_contiguous()):
@@ -63,22 +69,52 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> torch.device:
     return a.device
 
 
-def _run(name: str, plain, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    if _check(a, b).type == "cpu":
-        CP.KERNELS[name].plain_calls[1] += 1
+def aligned(*ts: torch.Tensor) -> bool:
+    """Every tensor starts on a 16-byte boundary (the kernels' uint4 loads)."""
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _run(name: str, plain, a: torch.Tensor, b: torch.Tensor, E: int = 1, args=()) -> torch.Tensor:
+    """plain(a, b) on CPU rows, counted as a plain call; on CUDA rows one
+    launch of charon_<name>(a, b, out, n, *args, stream)."""
+    if _check(a, b, E).type == "cpu":
+        CP.KERNELS[name].plain_calls[E] += 1
         return plain(a, b)
-    return CP.launch_rows(name, a, b)
+    if not aligned(a, b):
+        raise ValueError("rows must start on a 16-byte boundary")
+    return CP.launch_rows(name, a, b, E, args)
 
 
 def mont_mul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery products a·b·R⁻¹ mod p over same-shape rows, canonical:
     the contract of pallas_plane.mont_mul_rows, any leading rank."""
-    return _run("fe_mul_rows", F.rows_mul_plain, a, b)
+    return _run("fe_mul_rows", F.rows_mul_plain, a, b, 1, (1,))
+
+
+def fq2_mul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fq2 products over same-shape (..., 2, 12) rows in one launch:
+    (a0b0 − a1b1, (a0+a1)(b0+b1) − a0b0 − a1b1), canonical; complex
+    squaring on the card when a and b are the same tensor (the same
+    values)."""
+    return _run("fe_mul_rows", F.rows_mul2_plain, a, b, 2, (2,))
+
+
+def addsub_rows(a: torch.Tensor, b: torch.Tensor, n_add: int) -> torch.Tensor:
+    """(a + b) mod p for a[:n_add], (a − b) mod p for a[n_add:], along the
+    first axis, in one launch."""
+    if a.dim() < 2 or not 0 <= n_add <= a.shape[0]:
+        raise ValueError(f"n_add must be in [0, {a.shape[0] if a.dim() > 1 else 0}] on the "
+                         f"first axis of (k, ..., {LIMBS}) rows, got {n_add} for {tuple(a.shape)}")
+    split = n_add * (a[0].numel() // LIMBS)                  # in rows
+    out = _run("fe_add_rows", lambda x, y: F.rows_addsub_plain(x, y, n_add), a, b, 1, (split,))
+    if 0 < n_add < a.shape[0]:
+        CP.KERNELS["fe_add_rows"].splits[a.numel() // LIMBS, split] += 1
+    return out
 
 
 def add_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a + b) mod p over same-shape rows."""
-    return _run("fe_add_rows", F.rows_add_plain, a, b)
+    return _run("fe_add_rows", F.rows_add_plain, a, b, 1, (a.numel() // LIMBS,))
 
 
 def sub_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -115,8 +151,13 @@ def _bc(*xs):
 
 
 def stack(xs, dim: int = 0) -> torch.Tensor:
-    """Stack elements of possibly broadcast shapes."""
-    return torch.stack(_bc(*xs), dim)
+    """Stack elements of possibly broadcast shapes (one copy: torch.stack
+    takes strided views as they are)."""
+    shapes = [x.shape for x in xs]
+    if shapes.count(shapes[0]) != len(shapes):
+        shape = _shape(xs)
+        xs = [x.expand(shape) for x in xs]
+    return torch.stack(list(xs), dim)
 
 
 def fq_add(a, b):
@@ -194,19 +235,18 @@ def _fq_mul_many(pairs):
 
 
 def _fq2_mul_many(pairs):
-    """k independent Fq2 Karatsuba products: one add launch (a0+a1, b0+b1 of
-    every pair), one product launch (3k wide), two sub launches."""
+    """k independent Fq2 products as ONE fe_mul_rows<2> launch over the
+    stacked rows; complex squaring when every pair squares one element."""
     k = len(pairs)
-    ab = stack([a for a, _ in pairs] + [b for _, b in pairs]).movedim(-2, 0).contiguous()
-    x0, x1 = ab[0], ab[1]                         # (2k, ..., 12): a then b
-    s = add_rows(x0, x1)
-    lhs = torch.cat([x0[:k], x1[:k], s[:k]])
-    rhs = torch.cat([x0[k:], x1[k:], s[k:]])
-    v = mont_mul_rows(lhs, rhs)
-    v0, v1, t = v[:k], v[k:2 * k], v[2 * k:]
-    d = sub_rows(torch.cat([v0, t]), torch.cat([v1, v0]))    # c0, t − v0
-    c1 = sub_rows(d[k:], v1)
-    return list(torch.stack([d[:k], c1], -2).unbind(0))
+    if all(a is b for a, b in pairs):
+        x = pairs[0][0].contiguous() if k == 1 else stack([a for a, _ in pairs])
+        out = fq2_mul_rows(x, x)
+    elif k == 1:
+        return [fq2_mul_rows(*_bc(*pairs[0]))]
+    else:
+        ab = stack([a for a, _ in pairs] + [b for _, b in pairs])
+        out = fq2_mul_rows(ab[:k], ab[k:])
+    return [out] if k == 1 else list(out.unbind(0))
 
 
 # ---------------------------------------------------------------------------

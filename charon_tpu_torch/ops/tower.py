@@ -8,8 +8,9 @@ The formulas are the reference's. What differs is only how the work is
 issued: every independent Fq2 product of a step is stacked into one
 `rows._fq2_mul_many` (one product launch), and the adds and subs around
 them are stacked into as few rows launches as their dependencies allow
-(`_add_many`, `_sub_many`, `_mul_xi_many`). Every value is canonical, so the
-outputs are the reference's limb for limb.
+(`_add_many`, `_sub_many`, and `_mul_xi_sub_many`, whose split launch adds
+and subtracts at once). Every value is canonical, so the outputs are the
+reference's limb for limb.
 """
 
 from __future__ import annotations
@@ -41,11 +42,28 @@ def _neg_many(xs):
     return list(R.fq_neg(R.stack(list(xs))).unbind(0))
 
 
+def _mul_xi_sub_many(zs, xs, ys):
+    """([z·ξ for z in zs], [x − y for x, y in zip(xs, ys)]) in ONE split add
+    launch: z·ξ = (z0 − z1) + (z0 + z1)u, so the level's Fq rows are the k
+    sums z0 + z1, then the differences z0 − z1 and x0 − y0, x1 − y1."""
+    k, m = len(zs), len(xs)
+    W = R.stack(list(zs) + list(xs))
+    Z, X = W[:k], W[k:]
+    lhs = [Z[..., 0, :], Z[..., 0, :]]
+    rhs = [Z[..., 1, :], Z[..., 1, :]]
+    if m:
+        Y = R.stack(list(ys))
+        lhs += [X[..., 0, :], X[..., 1, :]]
+        rhs += [Y[..., 0, :], Y[..., 1, :]]
+    out = R.addsub_rows(torch.cat(lhs), torch.cat(rhs), k)
+    xi = list(torch.stack([out[k:2 * k], out[:k]], -2).unbind(0))
+    d = list(torch.stack([out[2 * k:2 * k + m], out[2 * k + m:]], -2).unbind(0)) if m else []
+    return xi, d
+
+
 def _mul_xi_many(xs):
-    """[x·ξ for x in xs]: (x0 − x1) + (x0 + x1)u, one sub and one add launch."""
-    X = R.stack(list(xs))
-    x0, x1 = X[..., 0, :].contiguous(), X[..., 1, :].contiguous()
-    return list(torch.stack([R.sub_rows(x0, x1), R.add_rows(x0, x1)], -2).unbind(0))
+    """[x·ξ for x in xs]: (x0 − x1) + (x0 + x1)u, one split add launch."""
+    return _mul_xi_sub_many(xs, [], [])[0]
 
 
 def _conj_many(xs):

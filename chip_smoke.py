@@ -23,10 +23,16 @@ Phases, any failure exits non-zero:
                reduction tree, 64 and 1 cofactor clear) with the edge lanes
                P+P, P+(-P), inf+Q, P+inf, inf+inf and an all-zero lane where
                the width has room, and at 1 lane a random lane and a P+P
-               lane; the rows kernels at the verify's widths (108 and 6912
-               rows: one Fq12 product's 54 Fq products on 2 and 128 lanes)
-               with the edges 0, 1, p-1, R mod p; time per launch vs the
-               plain version and the card's bound.
+               lane; the rows kernels with the edges 0, 1, p-1, R mod p
+               (in both components of Fq2 rows): fe_mul_rows<1> at 1, 108
+               and 6912 rows, fe_add_rows and fe_sub_rows at 108 and 6912
+               rows (one Fq12 product's 54 Fq products on 2 and 128 lanes),
+               fe_add_rows also split at n_add 0, 1, n/2, n-1, and
+               fe_mul_rows<2> at 3, 18, 36 and 2304 Fq2 products, general
+               and squaring. Time per launch vs the plain version and the
+               card's bound; the rows kernels' times are taken after the
+               slot's first run, at every width (and split) it launched
+               them, and at the widths above.
   4. slot    — the fixed probe (seed 99, 1000 x 4-of-6, msg 0x42*32) with
                the default device verify: warm once with every kernel
                counter at 0 (the launches of one slot: pk-plane miss, device
@@ -37,7 +43,8 @@ Phases, any failure exits non-zero:
                gives False, bad encodings raise the reference's ValueError
                texts; the same slots with verify="native" give the same
                verdicts; the launches of one first and one steady device
-               verify by kernel.
+               verify by kernel and E (a steady one at most 6,200), and the
+               PyTorch ops the host dispatches in a steady one.
   5. verify  — the committee slot (64 messages, validator v signs message
                v % 64; 65 pairs, a 64-message device hash-to-G2 batch):
                True, tampered False, each verdict the native rung's, all 64
@@ -56,21 +63,27 @@ checkout's ops/csrc. It then times the point kernels of every variant in
 turns (forward, then backward; device us per launch, the mean of the two)
 at each width on the main path's inputs (the edge lanes with the P+P lane
 made general, and at 4,096 lanes also with it), each variant held bit for
-bit against the plain versions. --diagnose adds three builds of this
+bit against the plain versions, then the rows kernels (fe_mul_rows<1>,
+fe_add_rows, fe_sub_rows at 108 and 6,912 rows; fe_mul_rows<2> at 36 and
+2,304 Fq2 products). Every variant must have this checkout's C interface;
+to compare with a tree whose interface differs, run that tree's own
+chip_smoke.py in turns with this one. --diagnose adds three builds of this
 checkout's source with part of the level loop's work taken out, to show
 where a launch's time goes: no-arith (each operation only copies a slot),
 no-linear (the linear levels run no operation) and no-products (each
 product is an add); their outputs are wrong by design and not checked.
 --slot-rounds N then runs N rounds of the 1000 x 4-of-6 slot with each
 variant's library in turn, the order alternating by round: per variant a
-steady device-verified slot, a steady native-verified slot and a first slot
-step by step; each side's median and quartiles and the pairs each variant
-wins. Variants of one call are comparable; calls are not.
+steady device-verified slot (and its verify phase), a steady native-verified
+slot and a first slot step by step; each side's median and quartiles and the
+pairs each variant wins.
+Variants of one call are comparable; calls are not.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import random
@@ -228,6 +241,12 @@ def _wall_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def _bound(nbytes: float, ops: float) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _max_abs_err(got, want) -> int:
     errs = [((g.to(torch.int64) & 0xFFFFFFFF) - (w.to(torch.int64) & 0xFFFFFFFF)).abs().max().item()
             for g, w in zip(got, want)]
@@ -260,16 +279,12 @@ def check_kernels(device, widths: dict, reps: int) -> dict:
                                  f"max abs limb difference {err}")
             ms = _time_ms(kern, reps)
             plain_ms = _wall_ms(plain, 2)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / INT32_OPS_PER_S * 1e3
+            bound_ms, by = _bound(nbytes, ops)
             rows[(name, E)] = {
                 "name": f"{name}<{E}>", "route": "cuda",
                 "source": CP.KERNELS[name].source, "replaces": CP.KERNELS[name].replaces,
                 "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None,
-                "width": n,
+                "bound_ms": bound_ms, "bound_by": by, "library_ms": None, "width": n,
             }
             log(f"kernel {name}<{E}> n={rows[(name, E)]['width']}: bit-equal to plain "
                 f"(max_abs_err 0); {ms * 1e3:.2f} us/launch, plain {plain_ms * 1e3:.1f} us, "
@@ -331,15 +346,12 @@ def check_point_kernels(device, widths, reps: int) -> dict:
                         continue
                     ms = _time_ms(kern, reps)
                     plain_ms = _wall_ms(plain, 2)
-                    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                    t_ops = ops / INT32_OPS_PER_S * 1e3
+                    bound_ms, by = _bound(nbytes, ops)
                     row = rows[(name, E, n)] = {
                         "name": f"{name}<{E}>", "route": "cuda",
                         "source": CP.KERNELS[name].source, "replaces": CP.KERNELS[name].replaces,
                         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": max(t_bytes, t_ops),
-                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                        "library_ms": None, "width": n,
+                        "bound_ms": bound_ms, "bound_by": by, "library_ms": None, "width": n,
                     }
                     extra = ""
                     if name == "pt_add" and n_dbl:
@@ -356,51 +368,125 @@ def check_point_kernels(device, widths, reps: int) -> dict:
     return rows
 
 
-def check_rows_kernels(device, n: int, reps: int) -> dict:
-    """The three rows kernels against their plain versions on (n, 12) rows
-    (edge rows 0, 1, p-1, R mod p first); returns per-kernel rows."""
-    rng = random.Random(4321 + n)
-    a = _rand_plane(rng, 1, n, device)[0].t().contiguous()
-    b = _rand_plane(rng, 1, n, device)[0].t().contiguous()
+# the rows kernels' gate before the slot: 108 and 6,912 rows (one Fq12
+# product's 54 Fq products on 2 and 128 lanes), one row (pow_rows), the
+# splits n_add 0, 1, n/2, n-1 (n_add = n is the plain add), and Fq2
+# products at 3, 18, 36 and 2,304 (the committee slot's widest)
+ROWS_WIDTHS = (108, 6912)
+FQ2_WIDTHS = (3, 18, 36, 2304)
+FQ2_TIMED = (36, 2304)
+ROWS_GATE = {
+    ("fe_mul_rows", 1): (1, *ROWS_WIDTHS),
+    ("fe_add_rows", 1): (*ROWS_WIDTHS, *((n, k) for n in ROWS_WIDTHS for k in (0, 1, n // 2, n - 1))),
+    ("fe_sub_rows", 1): ROWS_WIDTHS,
+    ("fe_mul_rows", 2): FQ2_WIDTHS,
+}
+
+
+def _rand_rows(rng: random.Random, n: int, device, E: int = 1) -> torch.Tensor:
+    """(n, 12) or (n, 2, 12) seeded Montgomery rows; the edges 0, 1, p-1,
+    R mod p in the first rows (for E = 2 in both components, reversed in
+    the second; below 4 rows the first n of them)."""
+    plane = _rand_plane(rng, E, max(n, 4), device)[..., :n]  # (E, 12, n)
+    return plane.permute(2, 0, 1).contiguous() if E == 2 else plane[0].t().contiguous()
+
+
+def _hold(label: str, got, want) -> int:
+    err = _max_abs_err(got, want)
+    if err != 0:
+        raise SystemExit(f"kernel {label} disagrees with its plain version: "
+                         f"max abs limb difference {err}")
+    return err
+
+
+def _rows_case(name: str, E: int, key, device):
+    """One rows case on seeded rows, edges first: (label, width, kernel fn,
+    plain fn, bytes, operations); key is a width (Fq2 rows for E = 2) or,
+    for fe_add_rows, (width, n_add). The squaring of fe_mul_rows<2> and
+    the negation of fe_sub_rows are held here too."""
+    n, n_add = key if isinstance(key, tuple) else (key, None)
+    rng = random.Random(f"{name}<{E}> {n} {n_add}")
+    a, b = _rand_rows(rng, n, device, E), _rand_rows(rng, n, device, E)
     b[:4] = a[:4].flip(0)
-    nbytes = 3 * 48 * n
-    cases = {
-        "fe_mul_rows": (lambda: (RW.mont_mul_rows(a, b),), lambda: (F.rows_mul_plain(a, b),),
-                        n * OPS_PER_FQ_PRODUCT),
-        "fe_add_rows": (lambda: (RW.add_rows(a, b),), lambda: (F.rows_add_plain(a, b),),
-                        n * OPS_PER_FQ_ADD),
-        "fe_sub_rows": (lambda: (RW.sub_rows(a, b),), lambda: (F.rows_sub_plain(a, b),),
-                        n * OPS_PER_FQ_ADD),
-    }
+    label = f"{name}<{E}>" if name == "fe_mul_rows" else name
+    label += f" n={n}" + (f" n_add={n_add}" if n_add is not None else "")
+    if name == "fe_mul_rows" and E == 2:
+        _hold(f"{label} (square)", (RW.fq2_mul_rows(a, a),), (F.rows_mul2_plain(a, a),))
+        return (label, n, lambda: (RW.fq2_mul_rows(a, b),), lambda: (F.rows_mul2_plain(a, b),),
+                6 * 48 * n, n * (3 * OPS_PER_FQ_PRODUCT + 5 * OPS_PER_FQ_ADD))
+    if name == "fe_mul_rows":
+        return (label, n, lambda: (RW.mont_mul_rows(a, b),), lambda: (F.rows_mul_plain(a, b),),
+                3 * 48 * n, n * OPS_PER_FQ_PRODUCT)
+    if name == "fe_sub_rows":
+        neg = RW.fq_neg(a)
+        _hold(f"{label} (negation)", (neg,), (F.rows_sub_plain(torch.zeros_like(a), a),))
+        if bool((neg[0] != 0).any()):
+            raise SystemExit("fe_sub_rows negation of 0 is not 0")
+        return (label, n, lambda: (RW.sub_rows(a, b),), lambda: (F.rows_sub_plain(a, b),),
+                3 * 48 * n, n * OPS_PER_FQ_ADD)
+    if n_add is None:
+        return (label, n, lambda: (RW.add_rows(a, b),), lambda: (F.rows_add_plain(a, b),),
+                3 * 48 * n, n * OPS_PER_FQ_ADD)
+    return (label, n, lambda: (RW.addsub_rows(a, b, n_add),),
+            lambda: (F.rows_addsub_plain(a, b, n_add),), 3 * 48 * n, n * OPS_PER_FQ_ADD)
+
+
+def check_rows_kernels(device, cases: dict, reps: int = 0) -> dict:
+    """Each rows kernel against its plain version: cases maps (name, E) to
+    {key: launches}, key as in _rows_case. With reps, each case is also
+    timed (device us per launch; the plain version's synchronised wall),
+    and the result holds per (name, E) the JSON row of its most launched
+    key, with every key in by_width."""
     rows = {}
-    for name, (kern, plain, ops) in cases.items():
-        got = kern()
-        torch.cuda.synchronize()
-        err = _max_abs_err(got, plain())
-        if err != 0:
-            raise SystemExit(f"kernel {name} disagrees with its plain version at {n} rows: "
-                             f"max abs limb difference {err}")
-        ms = _time_ms(kern, reps)
-        plain_ms = _wall_ms(plain, 2)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / INT32_OPS_PER_S * 1e3
-        rows[(name, 1)] = {
-            "name": name, "route": "cuda", "source": CP.KERNELS[name].source,
-            "replaces": CP.KERNELS[name].replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
-            "width": n,
-        }
-        log(f"kernel {name} n={n}: bit-equal to plain (max_abs_err 0); {ms * 1e3:.2f} us/launch, "
-            f"plain {plain_ms * 1e3:.1f} us, bound {rows[(name, 1)]['bound_ms'] * 1e3:.3f} us "
-            f"({rows[(name, 1)]['bound_by']})")
-    # fq_neg is sub(0, a): 0 -> 0
-    z = torch.zeros_like(a)
-    neg = RW.fq_neg(a)
-    if _max_abs_err((neg,), (F.rows_sub_plain(z, a),)) != 0 or bool((neg[0] != 0).any()):
-        raise SystemExit("fe_sub_rows negation disagrees with its plain version")
+    for (name, E), keys in cases.items():
+        timed = []
+        for key, launches in sorted(keys.items(), key=lambda kv: -kv[1]):
+            label, n, kern, plain, nbytes, ops = _rows_case(name, E, key, device)
+            err = _hold(label, kern(), plain())
+            if not reps:
+                continue
+            bound_ms, by = _bound(nbytes, ops)
+            row = {"width": n, "launches": launches, "ms": _time_ms(kern, reps),
+                   "plain_ms": _wall_ms(plain, 2), "bound_ms": bound_ms, "bound_by": by,
+                   "max_abs_err": err}
+            if isinstance(key, tuple):
+                row["n_add"] = key[1]
+            timed.append(row)
+            log(f"kernel {label}: bit-equal to plain (max_abs_err 0); {launches} launches on "
+                f"the main path; {row['ms'] * 1e3:.2f} us/launch, plain "
+                f"{row['plain_ms'] * 1e3:.1f} us, bound {bound_ms * 1e3:.4f} us ({by})")
+        if not reps:
+            log(f"kernel {name}<{E}>: bit-equal to plain at " + ", ".join(map(str, keys)))
+            continue
+        top = timed[0]
+        rows[(name, E)] = {
+            "name": f"{name}<{E}>" if name == "fe_mul_rows" else name, "route": "cuda",
+            "source": CP.KERNELS[name].source, "replaces": CP.KERNELS[name].replaces,
+            "launches": 0, "library_ms": None,
+            **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "width") + (("n_add",) if "n_add" in top else ())},
+            "by_width": [{k: v for k, v in r.items() if k not in ("bound_by", "max_abs_err")}
+                         for r in timed]}
     torch.cuda.synchronize()
     return rows
+
+
+def path_rows_cases(slot: dict) -> dict:
+    """The rows cases of the main path's run (its launches by width; a
+    split fe_add_rows launch by (width, n_add)), and the gate's widths
+    without splits at 0 launches, so that they are timed as well."""
+    cases = {}
+    for (name, E), gate in ROWS_GATE.items():
+        keys = {w: 0 for w in gate if not isinstance(w, tuple)}
+        for (e, n), c in slot["widths"][name].items():
+            if e == E:
+                keys[n] = keys.get(n, 0) + c
+        if name == "fe_add_rows":
+            for (n, n_add), c in slot["splits"].items():
+                keys[n] -= c
+                keys[(n, n_add)] = c
+        cases[(name, E)] = {k: c for k, c in keys.items() if c or k in gate}
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -420,24 +506,18 @@ def shamir_split(secret: int, total: int, threshold: int, rng: random.Random) ->
 
 
 def _pubkey(sk: int) -> bytes:
-    import ctypes
-
     out = (ctypes.c_uint8 * 48)()
     native.load_library().ct_pubkey(sk.to_bytes(32, "big"), out)
     return bytes(out)
 
 
 def _sign(sk: int, msg: bytes) -> bytes:
-    import ctypes
-
     out = (ctypes.c_uint8 * 96)()
     native.load_library().ct_sign(sk.to_bytes(32, "big"), msg, len(msg), out)
     return bytes(out)
 
 
 def _lincomb(sigs: list[bytes], lams: list[int]) -> bytes:
-    import ctypes
-
     out = (ctypes.c_uint8 * 96)()
     rc = native.load_library().ct_lincomb_g2(b"".join(sigs), b"".join(l.to_bytes(32, "big") for l in lams),
                                              len(sigs), out)
@@ -547,8 +627,10 @@ def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
     log(f"slot warm (first: pk plane decoded, H(m) hashed on the device, device verify): "
         f"{warm_s:.3f} s, verify {impl.last_times.verify:.4f} s; launches "
         + ", ".join(f"{k}<{E}>={c}" for (k, E), c in launches.items()))
-    widths = {name: dict(CP.KERNELS[name].widths) for name in ("pt_double", "pt_add")}
-    log(f"slot warm point launches by width: {_width_text(widths)}")
+    widths = {name: dict(k.widths) for name, k in CP.KERNELS.items()}
+    splits = dict(CP.KERNELS["fe_add_rows"].splits)
+    log(f"slot warm point launches by width: "
+        f"{_width_text({k: widths[k] for k in ('pt_double', 'pt_add')})}")
 
     times, shares = [], []
     for _ in range(3):
@@ -607,8 +689,8 @@ def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
             raise SystemExit(f"bad encoding did not raise ({want_text})")
         log(f"bad encoding: ValueError({want_text!r})")
     log(f"pairing_path (pairs per rung): {impl.pairing_path}")
-    return {"launches": launches, "widths": widths, "median_s": med, "times_s": times,
-            "pairing_share": statistics.median(shares), "tampered": tampered}
+    return {"launches": launches, "widths": widths, "splits": splits, "median_s": med,
+            "times_s": times, "pairing_share": statistics.median(shares), "tampered": tampered}
 
 
 def native_twin(batches, pubkeys, datas, tampered) -> None:
@@ -642,8 +724,14 @@ def slot_pairs(impl: TorchImpl, batches, pubkeys, datas):
     return S, live
 
 
+# a steady 2-pair device verify's rows launches (ops/pairing.py: 6,069, of
+# which fe_mul_rows<1> 555, fe_mul_rows<2> 699, fe_add_rows 3,345 (969 of
+# them split) and fe_sub_rows 1,470), with a margin
+STEADY_VERIFY_MAX_LAUNCHES = 6200
+
+
 def verify_launches(impl: TorchImpl, S, live, label: str) -> dict:
-    """Launches and synchronised wall of one device verify by kernel."""
+    """Launches and synchronised wall of one device verify by kernel and E."""
     CP.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -655,8 +743,25 @@ def verify_launches(impl: TorchImpl, S, live, label: str) -> dict:
     if not ok:
         raise SystemExit(f"{label} device verify False on valid aggregates")
     log(f"{label} device verify: {dt:.4f} s, {sum(counts.values())} launches: "
-        + ", ".join(f"{k}={c}" for k, c in counts.items()))
+        + ", ".join(f"{k}={c}" for k, c in counts.items())
+        + f" (fe_add_rows split: {sum(CP.KERNELS['fe_add_rows'].splits.values())})")
     return counts
+
+
+def verify_host_ops(impl: TorchImpl, S, live) -> None:
+    """The PyTorch ops the host dispatches in one more steady device verify,
+    by name (top-level CPU events of torch.profiler; the kernel launches go
+    through ctypes and are counted by the wrappers). Untimed."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        PA.pairing_finish(S, live, impl.h2c, {}, "device", impl.device)
+        torch.cuda.synchronize()
+    ops = collections.Counter(e.name for e in prof.events() if e.cpu_parent is None)
+    log(f"steady device verify host ops: {sum(ops.values())} PyTorch ops, "
+        + ", ".join(f"{k} {v}" for k, v in ops.most_common(8)))
 
 
 def committee_slot(pool, jobs, pubkeys) -> None:
@@ -674,8 +779,8 @@ def committee_slot(pool, jobs, pubkeys) -> None:
     t0 = time.perf_counter()
     _aggs, ok = impl.threshold_aggregate_verify_batch(batches, pubkeys, datas)
     first = time.perf_counter() - t0
-    rows_launches = sum(CP.KERNELS[k].launches[1] for k in ("fe_mul_rows", "fe_add_rows",
-                                                            "fe_sub_rows"))
+    rows_launches = sum(sum(CP.KERNELS[k].launches.values())
+                        for k in ("fe_mul_rows", "fe_add_rows", "fe_sub_rows"))
     widths = {name: dict(CP.KERNELS[name].widths) for name in ("pt_double", "pt_add")}
     _aggs, ok_n = native_impl.threshold_aggregate_verify_batch(batches, pubkeys, datas)
     if not (ok and ok_n):
@@ -826,6 +931,35 @@ def _ab_build(name: str, src_dir: str, constants: dict, patches) -> tuple:
     return name, lib, proc.stdout + proc.stderr
 
 
+def ab_rows(libs: dict, reps: int, dev) -> None:
+    """Rows kernels of every variant in turns, each held against its plain
+    version: fe_mul_rows<1>, fe_add_rows and fe_sub_rows at ROWS_WIDTHS
+    rows, fe_mul_rows<2> at FQ2_TIMED products (launched through each
+    library's C interface, which leaves the launch counters alone)."""
+    rng = random.Random(2468)
+    names = [n for n in libs if n not in DIAGNOSTICS]
+    cases = [(kernel, n, E, plain, args) for n in ROWS_WIDTHS
+             for kernel, E, plain, args in (("fe_mul_rows", 1, F.rows_mul_plain, (1,)),
+                                            ("fe_add_rows", 1, F.rows_add_plain, (n,)),
+                                            ("fe_sub_rows", 1, F.rows_sub_plain, ()))]
+    cases += [("fe_mul_rows", k, 2, F.rows_mul2_plain, (2,)) for k in FQ2_TIMED]
+    for kernel, n, E, plain, args in cases:
+        a, b = _rand_rows(rng, n, dev, E), _rand_rows(rng, n, dev, E)
+        want, out = plain(a, b), torch.empty_like(a)
+        times = {name: [] for name in names}
+        for name in names + names[::-1]:
+            def fn(fn=getattr(libs[name], "charon_" + kernel)):
+                if fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, *args,
+                      torch.cuda.current_stream().cuda_stream):
+                    raise SystemExit(f"{name} {kernel}<{E}> did not launch")
+            fn()
+            _hold(f"{name} {kernel}<{E}> n={n}", (out,), (want,))
+            times[name].append(_time_ms(fn, reps) * 1e3)
+        label = f"{kernel}<{E}>" if kernel == "fe_mul_rows" else kernel
+        log(f"rows A/B {label} n={n}: " + "; ".join(
+            f"{name} {sum(t) / len(t):.2f}" for name, t in times.items()) + " us")
+
+
 def _quartiles(xs: list) -> str:
     q1, q2, q3 = statistics.quantiles(xs, n=4)
     return f"median {statistics.median(xs):.4f} (quartiles {q1:.4f}-{q3:.4f})"
@@ -864,7 +998,7 @@ def ab_slots(libs: dict, rounds: int) -> None:
         batches, pubkeys, _jobs = gen_cluster(pool)
     datas = [MSG] * N_VALIDATORS
     dev, nat = TorchImpl(), TorchImpl(verify="native")
-    metrics = ("device slot", "native slot", "sweep + combine", "MSM")
+    metrics = ("device slot", "device verify", "native slot", "sweep + combine", "MSM")
     got = {name: {m: [] for m in metrics} for name in names}
     want = None
     for r in range(-1, rounds):                 # round -1 warms both caches
@@ -875,6 +1009,8 @@ def ab_slots(libs: dict, rounds: int) -> None:
                 t0 = time.perf_counter()
                 aggs, ok = impl.threshold_aggregate_verify_batch(batches, pubkeys, datas)
                 t[m] = time.perf_counter() - t0
+                if impl is dev:
+                    t["device verify"] = dev.last_times.verify
                 want = want or [bytes(a) for a in aggs]
                 if not ok or [bytes(a) for a in aggs] != want:
                     raise SystemExit(f"{name}: slot verdict {ok} or aggregates differ")
@@ -920,10 +1056,10 @@ def ab_main(argv: list[str]) -> int:
     libs = {}
     for name, path, text in built:
         for row in ptxas_summary(text):
-            if row.startswith("pt_"):
-                log(f"ptxas {name}: {row}")
+            log(f"ptxas {name}: {row}")
         libs[name] = CP.bind(path)
     ab_points(libs, [int(w) for w in args.widths.split(",")], reps=50)
+    ab_rows(libs, 50, torch.device("cuda:0"))
     if args.slot_rounds:
         ab_slots(libs, args.slot_rounds)
     log(nvidia_smi_line())
@@ -962,9 +1098,8 @@ def main(argv: list[str]) -> int:
             rows[(name, E)] = dict(pt_rows[(name, E, main_width)], by_width=[
                 {k: pt_rows[(name, E, n)][k] for k in ("width", "ms", "plain_ms", "bound_ms")}
                 for n in POINT_WIDTHS])
-    # the verify's rows: one Fq12 product's 54 Fq products on 2 and 128 lanes
-    check_rows_kernels(device, 108, reps=50)
-    rows.update(check_rows_kernels(device, 6912, reps=50))
+    # the rows kernels' gate; they are timed at the main path's widths below
+    check_rows_kernels(device, {key: dict.fromkeys(keys, 0) for key, keys in ROWS_GATE.items()})
 
     with ThreadPoolExecutor(max_workers=8) as pool:
         t0 = time.perf_counter()
@@ -974,10 +1109,15 @@ def main(argv: list[str]) -> int:
         impl = TorchImpl()
         datas = [MSG] * N_VALIDATORS
         slot = run_slot(impl, batches, pubkeys, datas, pool)
+        rows.update(check_rows_kernels(device, path_rows_cases(slot), reps=50))
         native_twin(batches, pubkeys, datas, slot["tampered"])
         S, live = slot_pairs(impl, batches, pubkeys, datas)
         verify_launches(TorchImpl(), S, live, "first (H(m) miss)")
-        verify_launches(impl, S, live, "steady (H(m) cached)")
+        steady = verify_launches(impl, S, live, "steady (H(m) cached)")
+        verify_host_ops(impl, S, live)
+        if sum(steady.values()) > STEADY_VERIFY_MAX_LAUNCHES:
+            raise SystemExit(f"a steady device verify launched {sum(steady.values())} kernels, "
+                             f"more than {STEADY_VERIFY_MAX_LAUNCHES}")
         committee_slot(pool, jobs, pubkeys)
     rfc_vector(device)
     torch.cuda.synchronize()
@@ -987,7 +1127,7 @@ def main(argv: list[str]) -> int:
     kernels = [dict(row, launches=slot["launches"][key]) for key, row in rows.items()]
     for (name, E), row in zip(rows, kernels):
         for w in row.get("by_width", ()):
-            w["launches"] = slot["widths"][name].get((E, w["width"]), 0)
+            w.setdefault("launches", slot["widths"][name].get((E, w["width"]), 0))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -146,7 +146,16 @@ def test_pairing_check_matches_native(n, tampered, pair_sets):
     got = _port(g1, g2)
     assert got is (not tampered)
     assert got == _native(g1, g2)
-    assert CP.KERNELS["fe_mul_rows"].plain_calls[1] > 0
+    if n == 2:
+        # one steady 2-pair device verify: 6,069 rows calls, each a launch on
+        # the card (an Fq2 product is one fe_mul_rows<2>; a level's
+        # independent adds and subs, as the ξ products, one split fe_add_rows)
+        assert {k: dict(CP.KERNELS[k].plain_calls)
+                for k in ("fe_mul_rows", "fe_add_rows", "fe_sub_rows")} == {
+            "fe_mul_rows": {1: 555, 2: 699}, "fe_add_rows": {1: 3345},
+            "fe_sub_rows": {1: 1470}}
+        assert sum(CP.KERNELS["fe_add_rows"].splits.values()) == 969
+    assert CP.KERNELS["fe_mul_rows"].plain_calls[2] > 0
 
 
 @pytest.mark.parametrize("tampered", [False, True])

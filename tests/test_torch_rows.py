@@ -1,14 +1,18 @@
 """Port rows field plane vs the JAX package: the plain versions of the
-fe_mul_rows, fe_add_rows and fe_sub_rows kernels (ops/rows.py on CPU
-tensors) against charon_tpu.ops.field's fq_mont_mul / fq_add / fq_sub /
-fq_neg, and the port's seam (_fq_mul_many, _fq2_mul_many) against
-charon_tpu.ops.curve's, on the same seeded inputs through ops/convert.py,
-with exact equality; plus the wrappers' input checks and the windowed power.
+fe_mul_rows (E = 1 and the whole Fq2 product, E = 2), fe_add_rows (with its
+add/sub split) and fe_sub_rows kernels (ops/rows.py on CPU tensors) against
+charon_tpu.ops.field's fq_mont_mul / fq_add / fq_sub / fq_neg and
+charon_tpu.ops.curve's _fq2_mul_many, and the port's seam (_fq_mul_many,
+_fq2_mul_many) against charon_tpu.ops.curve's, on the same seeded inputs
+through ops/convert.py, with exact equality; plus the wrappers' input checks
+and the windowed power.
 
 The reference's field primitives are run under jax.jit (each compiled once
 per shape): they are the same functions, and called eagerly their scans
 would recompile on every call."""
 
+import importlib.util
+import os
 import random
 
 import jax
@@ -79,8 +83,9 @@ def test_rows_ops_match_the_jax_package(op, jit_field):
     assert got.shape == a.shape and got.dtype == torch.int32
     assert np.array_equal(CV.rows_to_jax(got), np.asarray(want))
     name = {"mul": "fe_mul_rows", "add": "fe_add_rows"}.get(op, "fe_sub_rows")
-    assert CP.KERNELS[name].plain_calls == {1: 1}
-    assert CP.KERNELS[name].launches == {1: 0}
+    variants = CP.KERNELS[name].variants
+    assert CP.KERNELS[name].plain_calls == {E: int(E == 1) for E in variants}
+    assert CP.KERNELS[name].launches == {E: 0 for E in variants}
 
 
 def test_seam_matches_the_jax_package(jit_field):
@@ -96,11 +101,46 @@ def test_seam_matches_the_jax_package(jit_field):
     assert CP.KERNELS["fe_mul_rows"].plain_calls[1] == 1          # one product launch
     CP.reset_counts()
     got2 = R._fq2_mul_many([(t["a2"], t["b2"]), (t["c2"], t["c2"]), (t["d2"], t["a2"])])
-    # one add launch for the Karatsuba sums, one product launch, two subs
-    assert {k: CP.KERNELS[k].plain_calls[1] for k in ("fe_add_rows", "fe_mul_rows", "fe_sub_rows")} \
-        == {"fe_add_rows": 1, "fe_mul_rows": 1, "fe_sub_rows": 2}
+    # the whole Karatsuba product of every pair in one fe_mul_rows<2> launch
+    assert {k: dict(CP.KERNELS[k].plain_calls) for k in ("fe_add_rows", "fe_mul_rows",
+                                                         "fe_sub_rows")} \
+        == {"fe_add_rows": {1: 0}, "fe_mul_rows": {1: 0, 2: 1}, "fe_sub_rows": {1: 0}}
     for g, w in zip(got1 + got2, want1 + want2):
         assert np.array_equal(CV.rows_to_jax(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("square", [False, True])
+def test_fq2_products_match_the_jax_package(square, jit_field):
+    """fe_mul_rows<2>'s plain version and its wrapper on (2, 3, 4, 2, 12)
+    rows, the edges 0, 1, p−1, R mod p in both components, against the
+    reference's Fq2 seam; a == b is the complex-square case of the kernel."""
+    a_np, b_np = _pair(35, (2, 3, 4, 2))
+    if square:
+        b_np = a_np
+    want = RC._fq2_mul_many([(jnp.asarray(a_np), jnp.asarray(b_np))])[0]
+    a = CV.rows_from_jax(a_np)
+    b = a if square else CV.rows_from_jax(b_np)
+    assert np.array_equal(CV.rows_to_jax(F.rows_mul2_plain(a, b)), np.asarray(want))
+    CP.reset_counts()
+    got = R.fq2_mul_rows(a, b)
+    assert got.shape == a.shape and np.array_equal(CV.rows_to_jax(got), np.asarray(want))
+    assert CP.KERNELS["fe_mul_rows"].plain_calls == {1: 0, 2: 1}
+
+
+@pytest.mark.parametrize("n_add", [0, 1, 3, 5, 6])
+def test_addsub_rows_matches_the_jax_package(n_add, jit_field):
+    """The split add on (6, 4, 12) rows: a[:n_add] + b[:n_add], then
+    a[n_add:] − b[n_add:], against the reference's fq_add and fq_sub."""
+    a_np, b_np = _pair(36, (6, 4))
+    ja, jb = jnp.asarray(a_np), jnp.asarray(b_np)
+    want = np.concatenate([np.asarray(RF.fq_add(ja[:n_add], jb[:n_add])),
+                           np.asarray(RF.fq_sub(ja[n_add:], jb[n_add:]))])
+    CP.reset_counts()
+    got = R.addsub_rows(CV.rows_from_jax(a_np), CV.rows_from_jax(b_np), n_add)
+    assert np.array_equal(CV.rows_to_jax(got), want)
+    k = CP.KERNELS["fe_add_rows"]
+    assert k.plain_calls == {1: 1} and k.launches == {1: 0}
+    assert dict(k.splits) == ({(24, 4 * n_add): 1} if 0 < n_add < 6 else {})
 
 
 def test_pow_rows_matches_host_powers():
@@ -129,3 +169,46 @@ def test_row_wrappers_reject_what_the_kernels_do_not_take():
         R.add_rows(meta, meta)
     with pytest.raises(ValueError):
         R.add_rows(torch.zeros(0, 12, dtype=torch.int32), torch.zeros(0, 12, dtype=torch.int32))
+    # the Fq2 product takes (..., 2, 12) rows only
+    with pytest.raises(ValueError, match="2, 12"):
+        R.fq2_mul_rows(a, a)
+    fq2 = torch.zeros(4, 4, 12, dtype=torch.int32)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        R.fq2_mul_rows(fq2, fq2)
+    # the split lies on the first axis, within it
+    for bad in (-1, 5):
+        with pytest.raises(ValueError, match="n_add"):
+            R.addsub_rows(a, a, bad)
+    with pytest.raises(ValueError, match="n_add"):
+        R.addsub_rows(a[0], a[0], 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        R.addsub_rows(strided, strided, 2)
+    # the kernels read rows 16 bytes at a time: a base 4 bytes in is refused
+    flat = torch.zeros(52, dtype=torch.int32)
+    assert R.aligned(flat[:48]) and not R.aligned(flat[1:49])
+
+
+def test_chip_smoke_times_the_rows_kernels_where_the_main_path_launches_them():
+    """chip_smoke.py times each rows kernel at every width (and split) the
+    main path's run launched it, beside the gate's widths at 0 launches; a
+    split fe_add_rows launch is its own case, not one of its width's adds."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                   "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    slot = {"widths": {"fe_mul_rows": {(1, 1): 485, (1, 8): 68, (2, 18): 351},
+                       "fe_add_rows": {(1, 12): 830 + 351, (1, 2): 353},
+                       "fe_sub_rows": {(1, 18): 702}},
+            "splits": {(12, 6): 351, (2, 1): 353}}
+    cases = chip_smoke.path_rows_cases(slot)
+    assert cases == {
+        ("fe_mul_rows", 1): {1: 485, 108: 0, 6912: 0, 8: 68},
+        ("fe_add_rows", 1): {108: 0, 6912: 0, 12: 830, (12, 6): 351, (2, 1): 353},
+        ("fe_sub_rows", 1): {108: 0, 6912: 0, 18: 702},
+        ("fe_mul_rows", 2): {3: 0, 18: 351, 36: 0, 2304: 0},
+    }
+    # every launch of the run is one case's
+    for name in ("fe_mul_rows", "fe_add_rows", "fe_sub_rows"):
+        assert sum(c for (n, E), keys in cases.items() if n == name for c in keys.values()) \
+            == sum(slot["widths"][name].values())
