@@ -114,6 +114,26 @@ FP_HD void fq_addsub(Fq& r, const Fq& a, const Fq& b, bool sub) {
 FP_HD void fq_add(Fq& r, const Fq& a, const Fq& b) { fq_addsub(r, a, b, false); }
 FP_HD void fq_sub(Fq& r, const Fq& a, const Fq& b) { fq_addsub(r, a, b, true); }
 
+// r = T + U + c (limbs 0..11, c a carry of 0 or 1 at limb 0) reduced once:
+// the value is below 2p, so T + U + c - p is kept unless it borrows.
+FP_HD void fq_mont_finish(Fq& r, uint32_t* T, const uint32_t* U, uint32_t c) {
+    const uint32_t p[FP_LIMBS] = FP_P_INIT;
+    asm(FQ_CARRY_IN("%24")
+        FQ_CHAIN(FQ_CHAIN_LIMB, "addc.cc.u32", "addc.cc.u32", "addc.u32", 12, 13, 14, 15, 16, 17,
+                 18, 19, 20, 21, 22, 23) "}"
+        : FQ_LIMB_INOUT(T, 0)
+        : FQ_LIMB_OPERANDS(U), "r"(c));
+    uint32_t d[FP_LIMBS], borrow;
+#pragma unroll
+    for (int j = 0; j < FP_LIMBS; ++j) d[j] = T[j];
+    asm(FQ_CHAIN(FQ_CHAIN_LIMB, "sub.cc.u32", "subc.cc.u32", "subc.cc.u32", 13, 14, 15, 16, 17,
+                 18, 19, 20, 21, 22, 23, 24) "subc.u32 %12, 0, 0;"
+        : FQ_LIMB_INOUT(d, 0), "=r"(borrow)
+        : FQ_LIMB_OPERANDS(p));
+#pragma unroll
+    for (int j = 0; j < FP_LIMBS; ++j) r.v[j] = borrow ? T[j] : d[j];
+}
+
 // CIOS Montgomery product a*b*R^-1 mod p on carry chains, with the running
 // value split in two 13-limb accumulators, T for the low halves of the limb
 // products and U for the high halves (value T + U + c, c a carry of 0 or 1 at
@@ -159,21 +179,128 @@ FP_HD void fq_mul(Fq& r, const Fq& a, const Fq& b) {
         }
         T[FP_LIMBS] = U[FP_LIMBS] = 0;
     }
-    // T = T + U + c < 2p, then d = T - p, kept unless it borrows
+    fq_mont_finish(r, T, U, c);
+}
+
+// Squaring a*a*R^-1 mod p, bit-equal to fq_mul(r, a, a), in two passes
+// (SOS) with 78 distinct limb products instead of 144 for the square:
+//   1. X = a^2 in 24 limbs: the 66 cross products a_i*a_j (i < j), low
+//      halves into T at limb i+j and high halves into U at limb i+j+1, one
+//      row a_i*(a_{i+1}..a_11) per pair of chains; then X = 2(T + U) plus
+//      the diagonal a_i^2 at limbs 2i, 2i+1.
+//   2. Montgomery reduction of the low half as fq_mul's reduction steps
+//      (W the low-half accumulator, V the high-half one, c the carry at
+//      limb 0), 144 limb products, then + the high half of X: the value is
+//      (Xlo + m p)/R + Xhi < (p + 1) + p/8 < 2p, reduced once.
+// A row's chain binds a fixed window of 12 accumulator limbs and 12 limbs
+// of the zero-padded operand ap[i..i+11], so that one template serves each
+// row length L: limb k of the window gets a_i * a_{i+1+k} for k < L, and
+// the carry lands in limb L (= i + 12 of the accumulator, still zero).
+#define FQ_SQR_MAD(op, d, x, y) op " %" #d ", %" #x ", %" #y ", %" #d ";\n\t"
+#define FQ_SQR1(o) FQ_SQR_MAD("mad." o ".cc.u32", 0, 12, 13)
+#define FQ_SQR2(o) FQ_SQR1(o) FQ_SQR_MAD("madc." o ".cc.u32", 1, 12, 14)
+#define FQ_SQR3(o) FQ_SQR2(o) FQ_SQR_MAD("madc." o ".cc.u32", 2, 12, 15)
+#define FQ_SQR4(o) FQ_SQR3(o) FQ_SQR_MAD("madc." o ".cc.u32", 3, 12, 16)
+#define FQ_SQR5(o) FQ_SQR4(o) FQ_SQR_MAD("madc." o ".cc.u32", 4, 12, 17)
+#define FQ_SQR6(o) FQ_SQR5(o) FQ_SQR_MAD("madc." o ".cc.u32", 5, 12, 18)
+#define FQ_SQR7(o) FQ_SQR6(o) FQ_SQR_MAD("madc." o ".cc.u32", 6, 12, 19)
+#define FQ_SQR8(o) FQ_SQR7(o) FQ_SQR_MAD("madc." o ".cc.u32", 7, 12, 20)
+#define FQ_SQR9(o) FQ_SQR8(o) FQ_SQR_MAD("madc." o ".cc.u32", 8, 12, 21)
+#define FQ_SQR10(o) FQ_SQR9(o) FQ_SQR_MAD("madc." o ".cc.u32", 9, 12, 22)
+#define FQ_SQR11(o) FQ_SQR10(o) FQ_SQR_MAD("madc." o ".cc.u32", 10, 12, 23)
+#define FQ_SQR_ROW(i, L)                                                                  \
+    asm(FQ_SQR##L("lo") "addc.u32 %" #L ", %" #L ", 0;"                                   \
+        : FQ_LIMB_INOUT(T, 2 * i + 1)                                                     \
+        : FQ_LIMB_OPERANDS((ap + i)));                                                    \
+    asm(FQ_SQR##L("hi") "addc.u32 %" #L ", %" #L ", 0;"                                   \
+        : FQ_LIMB_INOUT(U, 2 * i + 2)                                                     \
+        : FQ_LIMB_OPERANDS((ap + i)));
+
+FP_HD void fq_sqr(Fq& r, const Fq& a) {
+    const uint32_t p[FP_LIMBS] = FP_P_INIT;
+    // T[k], U[k]: limb k of the cross-product sum's low / high halves; limbs
+    // past 23 only pad the rows' windows and stay 0
+    uint32_t T[2 * FP_LIMBS + 9], U[2 * FP_LIMBS + 10], ap[2 * FP_LIMBS - 2], c;
+#pragma unroll
+    for (int k = 0; k < 2 * FP_LIMBS + 10; ++k) {
+        if (k < 2 * FP_LIMBS + 9) T[k] = 0;
+        U[k] = 0;
+    }
+#pragma unroll
+    for (int k = 0; k < 2 * FP_LIMBS - 2; ++k) ap[k] = k < FP_LIMBS ? a.v[k] : 0;
+    FQ_SQR_ROW(0, 11) FQ_SQR_ROW(1, 10) FQ_SQR_ROW(2, 9) FQ_SQR_ROW(3, 8) FQ_SQR_ROW(4, 7)
+    FQ_SQR_ROW(5, 6) FQ_SQR_ROW(6, 5) FQ_SQR_ROW(7, 4) FQ_SQR_ROW(8, 3) FQ_SQR_ROW(9, 2)
+    FQ_SQR_ROW(10, 1)
+    // T += U over 24 limbs (< 2^761), in two chains joined by c
+    asm(FQ_CHAIN(FQ_CHAIN_LIMB, "add.cc.u32", "addc.cc.u32", "addc.cc.u32", 13, 14, 15, 16, 17,
+                 18, 19, 20, 21, 22, 23, 24) "addc.u32 %12, 0, 0;"
+        : FQ_LIMB_INOUT(T, 0), "=r"(c)
+        : FQ_LIMB_OPERANDS(U));
     asm(FQ_CARRY_IN("%24")
         FQ_CHAIN(FQ_CHAIN_LIMB, "addc.cc.u32", "addc.cc.u32", "addc.u32", 12, 13, 14, 15, 16, 17,
                  18, 19, 20, 21, 22, 23) "}"
-        : FQ_LIMB_INOUT(T, 0)
-        : FQ_LIMB_OPERANDS(U), "r"(c));
-    uint32_t d[FP_LIMBS], borrow;
+        : FQ_LIMB_INOUT(T, FP_LIMBS)
+        : FQ_LIMB_OPERANDS((U + FP_LIMBS)), "r"(c));
+    // doubled: independent shifts, no chain
 #pragma unroll
-    for (int j = 0; j < FP_LIMBS; ++j) d[j] = T[j];
-    asm(FQ_CHAIN(FQ_CHAIN_LIMB, "sub.cc.u32", "subc.cc.u32", "subc.cc.u32", 13, 14, 15, 16, 17,
-                 18, 19, 20, 21, 22, 23, 24) "subc.u32 %12, 0, 0;"
-        : FQ_LIMB_INOUT(d, 0), "=r"(borrow)
-        : FQ_LIMB_OPERANDS(p));
+    for (int k = 2 * FP_LIMBS - 1; k > 0; --k) T[k] = (T[k] << 1) | (T[k - 1] >> 31);
+    T[0] <<= 1;
+    // + a_i^2 at limbs 2i, 2i+1, in two chains joined by c
+    asm(FQ_SQR_MAD("mad.lo.cc.u32", 0, 13, 13) FQ_SQR_MAD("madc.hi.cc.u32", 1, 13, 13)
+        FQ_SQR_MAD("madc.lo.cc.u32", 2, 14, 14) FQ_SQR_MAD("madc.hi.cc.u32", 3, 14, 14)
+        FQ_SQR_MAD("madc.lo.cc.u32", 4, 15, 15) FQ_SQR_MAD("madc.hi.cc.u32", 5, 15, 15)
+        FQ_SQR_MAD("madc.lo.cc.u32", 6, 16, 16) FQ_SQR_MAD("madc.hi.cc.u32", 7, 16, 16)
+        FQ_SQR_MAD("madc.lo.cc.u32", 8, 17, 17) FQ_SQR_MAD("madc.hi.cc.u32", 9, 17, 17)
+        FQ_SQR_MAD("madc.lo.cc.u32", 10, 18, 18) FQ_SQR_MAD("madc.hi.cc.u32", 11, 18, 18)
+        "addc.u32 %12, 0, 0;"
+        : FQ_LIMB_INOUT(T, 0), "=r"(c)
+        : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]));
+    asm(FQ_CARRY_IN("%18")
+        FQ_SQR_MAD("madc.lo.cc.u32", 0, 12, 12) FQ_SQR_MAD("madc.hi.cc.u32", 1, 12, 12)
+        FQ_SQR_MAD("madc.lo.cc.u32", 2, 13, 13) FQ_SQR_MAD("madc.hi.cc.u32", 3, 13, 13)
+        FQ_SQR_MAD("madc.lo.cc.u32", 4, 14, 14) FQ_SQR_MAD("madc.hi.cc.u32", 5, 14, 14)
+        FQ_SQR_MAD("madc.lo.cc.u32", 6, 15, 15) FQ_SQR_MAD("madc.hi.cc.u32", 7, 15, 15)
+        FQ_SQR_MAD("madc.lo.cc.u32", 8, 16, 16) FQ_SQR_MAD("madc.hi.cc.u32", 9, 16, 16)
+        FQ_SQR_MAD("madc.lo.cc.u32", 10, 17, 17) FQ_SQR_MAD("madc.hi.u32", 11, 17, 17) "}"
+        : FQ_LIMB_INOUT(T, FP_LIMBS)
+        : "r"(a.v[6]), "r"(a.v[7]), "r"(a.v[8]), "r"(a.v[9]), "r"(a.v[10]), "r"(a.v[11]),
+          "r"(c));
+    // reduction of the low half: step i adds m*p (with the carry c at limb 0)
+    // and shifts the accumulators down a limb
+    uint32_t W[FP_LIMBS + 1], V[FP_LIMBS + 1];
 #pragma unroll
-    for (int j = 0; j < FP_LIMBS; ++j) r.v[j] = borrow ? T[j] : d[j];
+    for (int j = 0; j < FP_LIMBS; ++j) {
+        W[j] = T[j];
+        V[j] = 0;
+    }
+    W[FP_LIMBS] = V[FP_LIMBS] = 0;
+    c = 0;
+#pragma unroll
+    for (int i = 0; i < FP_LIMBS; ++i) {
+        const uint32_t m = (W[0] + V[0] + c) * FP_N0;
+        asm(FQ_CARRY_IN("%26")
+            FQ_CHAIN(FQ_MAD13, "madc.lo.cc.u32", "madc.lo.cc.u32", "madc.lo.cc.u32", 14, 15, 16,
+                     17, 18, 19, 20, 21, 22, 23, 24, 25) "addc.u32 %12, %12, 0;\n\t}"
+            : FQ_LIMB_INOUT(W, 0), "+r"(W[12])
+            : "r"(m), FQ_LIMB_OPERANDS(p), "r"(c));
+        asm(FQ_CHAIN(FQ_MAD12, "mad.hi.cc.u32", "madc.hi.cc.u32", "madc.hi.u32", 13, 14, 15, 16,
+                     17, 18, 19, 20, 21, 22, 23, 24)
+            : FQ_LIMB_INOUT(V, 1)
+            : "r"(m), FQ_LIMB_OPERANDS(p));
+        c = V[0] != 0;
+#pragma unroll
+        for (int j = 0; j < FP_LIMBS; ++j) {
+            W[j] = W[j + 1];
+            V[j] = V[j + 1];
+        }
+        W[FP_LIMBS] = V[FP_LIMBS] = 0;
+    }
+    // V += the high half of X (W + V + c <= p, so no carry out), then finish
+    asm(FQ_CHAIN(FQ_CHAIN_LIMB, "add.cc.u32", "addc.cc.u32", "addc.u32", 12, 13, 14, 15, 16, 17,
+                 18, 19, 20, 21, 22, 23)
+        : FQ_LIMB_INOUT(V, 0)
+        : FQ_LIMB_OPERANDS((T + FP_LIMBS)));
+    fq_mont_finish(r, W, V, c);
 }
 
 #else  // host build: the same functions in C
@@ -267,6 +394,8 @@ FP_HD void fq_mul(Fq& r, const Fq& a, const Fq& b) {
     // t < 2p < 2^382: one conditional subtraction makes it canonical
     fq_reduce_once(r, t, t[FP_LIMBS]);
 }
+
+FP_HD void fq_sqr(Fq& r, const Fq& a) { fq_mul(r, a, a); }
 
 #endif  // __CUDA_ARCH__
 

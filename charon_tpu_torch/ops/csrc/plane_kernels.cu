@@ -5,7 +5,7 @@
 //     of one limb row;
 //   rows: (n, 12), element i limb j at [i*12 + j] — the layout of the
 //     pairing, tower and hash-to-curve code (ops/rows.py), read in place
-//     with no transpose.
+//     with no transpose, 16 bytes at a time.
 //
 // Each kernel replaces one Pallas body of charon_tpu/ops/pallas_plane.py:
 //   fe_mul<E>    -> _kern_mul    (Montgomery product; E=2 Karatsuba)
@@ -15,10 +15,13 @@
 //   pt_add<E>    -> _kern_add    (unified add with its selects)
 //   fe_mul_rows<E> -> _kern_mul as launched by _mont_rows_call (rows; E = 2
 //                   the whole Karatsuba product of curve._fq2_mul_many)
-// and two more stand for XLA-op code of the reference's rows field plane
+//   fe_pow<L>    -> _pow_scan    (the fixed-exponent power scan over
+//                   _mul_call, whole, in one launch; on rows also the scans
+//                   of tower.fq_inv and h2c._fq_pow_scan)
+// and one more stands for XLA-op code of the reference's rows field plane
 // (charon_tpu/ops/field.py fq_add / fq_sub / fq_neg):
-//   fe_add_rows (adds, then subtracts past a split), fe_sub_rows (fq_neg(a)
-//   is fe_sub_rows(0, a))
+//   fe_add_rows (adds, then subtracts past a split; at n_add = 0 a
+//   subtraction, and fq_neg(a) is 0 - a)
 //
 // What bounds them on an H100 (3.35 TB/s; 32-bit integer multiply-adds at
 // 132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7 T/s, from the Hopper white
@@ -33,12 +36,15 @@
 //   pt_double<2> / pt_add<2>: 6 or 9 x 96 B moved against 16 or 44 Fq
 //     products (9,216 / 25,344 multiply-adds) — operations, by 3x / 6x
 //     (pt_add counts a double's work more on a lane that needs the P+P double).
+//   fe_pow: 96 B moved against ~485 Fq operations (376-380 squarings, 105
+//     products for a 381-bit exponent: ~229,000 multiply-adds) —
+//     operations, by ~3,000x.
 // fe_mul_rows<1> moves the same 144 B per product as fe_mul<1> against the
 // same 576 multiply-adds, so it is bound by bytes, by 1.25x, and
-// fe_mul_rows<2> like fe_mul<2> by operations; fe_add_rows and fe_sub_rows
-// move 144 B against ~36 integer ops, bound by bytes. At the pairing's widths
-// (3-2,304 Fq2 products, 108-6,912 rows) each launch is a few dozen warps:
-// latency- and launch-bound like the rest (see "Rows kernels" below).
+// fe_mul_rows<2> like fe_mul<2> by operations; fe_add_rows moves 144 B
+// against ~36 integer ops, bound by bytes. At the pairing's widths (3-2,304
+// Fq2 products, 108-6,912 rows) each launch is a few dozen warps: latency-
+// and launch-bound like the rest (see "Rows kernels" below).
 // The field kernels run one thread per element in blocks of 128: at the
 // slot's widths (1,024-12,288 elements, 8-96 blocks, so at 4,096 elements
 // 32 blocks on 32 of the 132 SMs) each is far below either bound, latency-
@@ -47,9 +53,12 @@
 // Fq products (~2.4 us each); they now give each point a group of G threads
 // that runs the formula as levels of independent Fq operations
 // (ops/point_schedule.py), so a thread waits through one product per level:
-// see "Point kernels" below. Every kernel shares fp.cuh's carry-chain fq_mul
-// and fq_addsub. Later work: fusing the composite loops (pow scan, windowed
-// scalar multiplication, reduction tree) into single kernels.
+// see "Point kernels" below. fe_pow keeps a whole power scan in one thread's
+// registers (see "fe_pow" below). Every kernel shares fp.cuh's carry-chain
+// fq_mul, fq_sqr and fq_addsub. Later work: fusing the other composite
+// loops (windowed scalar multiplication with the MSM reduction, reduction
+// tree, shared-scalar multiplication, the cofactor clear) into single
+// kernels.
 #include <cuda_runtime.h>
 
 #include "fp.cuh"
@@ -72,16 +81,36 @@ struct FieldOf<2> {
 
 enum Layout { kPlane, kRows };
 
-// Word index of limb j of element i (component 0) in an n-element array.
-template <Layout L>
-__device__ __forceinline__ long long word(long long n, long long i, int j) {
-    return L == kPlane ? (long long)j * n + i : i * FP_LIMBS + j;
+// 12 limbs at p (16-byte aligned), 16 bytes at a time.
+__device__ __forceinline__ void load16(Fq& x, const uint32_t* p) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int k = 0; k < FP_LIMBS / 4; ++k) {
+        const uint4 v = q[k];
+        x.v[4 * k] = v.x;
+        x.v[4 * k + 1] = v.y;
+        x.v[4 * k + 2] = v.z;
+        x.v[4 * k + 3] = v.w;
+    }
 }
 
+__device__ __forceinline__ void store16(uint32_t* p, const Fq& x) {
+    uint4* q = reinterpret_cast<uint4*>(p);
+#pragma unroll
+    for (int k = 0; k < FP_LIMBS / 4; ++k)
+        q[k] = make_uint4(x.v[4 * k], x.v[4 * k + 1], x.v[4 * k + 2], x.v[4 * k + 3]);
+}
+
+// Element i of an n-element array: limb j at [j * n + i] in a plane, the
+// row at [i * 12] (16-byte aligned) in rows.
 template <Layout L = kPlane>
 __device__ __forceinline__ void load(Fq& x, const uint32_t* b, long long n, long long i) {
+    if (L == kRows) {
+        load16(x, b + i * FP_LIMBS);
+        return;
+    }
 #pragma unroll
-    for (int j = 0; j < FP_LIMBS; ++j) x.v[j] = b[word<L>(n, i, j)];
+    for (int j = 0; j < FP_LIMBS; ++j) x.v[j] = b[(long long)j * n + i];
 }
 
 __device__ __forceinline__ void load(Fq2& x, const uint32_t* b, long long n, long long i) {
@@ -91,8 +120,12 @@ __device__ __forceinline__ void load(Fq2& x, const uint32_t* b, long long n, lon
 
 template <Layout L = kPlane>
 __device__ __forceinline__ void store(uint32_t* b, const Fq& x, long long n, long long i) {
+    if (L == kRows) {
+        store16(b + i * FP_LIMBS, x);
+        return;
+    }
 #pragma unroll
-    for (int j = 0; j < FP_LIMBS; ++j) b[word<L>(n, i, j)] = x.v[j];
+    for (int j = 0; j < FP_LIMBS; ++j) b[(long long)j * n + i] = x.v[j];
 }
 
 __device__ __forceinline__ void store(uint32_t* b, const Fq2& x, long long n, long long i) {
@@ -195,26 +228,6 @@ __device__ __forceinline__ unsigned group_mask() {
 }
 
 __device__ __forceinline__ int sword(int s, int pt) { return s * kSlotWords + pt * FP_LIMBS; }
-
-// 12 limbs at p (16-byte aligned), 16 bytes at a time.
-__device__ __forceinline__ void load16(Fq& x, const uint32_t* p) {
-    const uint4* q = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-    for (int k = 0; k < FP_LIMBS / 4; ++k) {
-        const uint4 v = q[k];
-        x.v[4 * k] = v.x;
-        x.v[4 * k + 1] = v.y;
-        x.v[4 * k + 2] = v.z;
-        x.v[4 * k + 3] = v.w;
-    }
-}
-
-__device__ __forceinline__ void store16(uint32_t* p, const Fq& x) {
-    uint4* q = reinterpret_cast<uint4*>(p);
-#pragma unroll
-    for (int k = 0; k < FP_LIMBS / 4; ++k)
-        q[k] = make_uint4(x.v[4 * k], x.v[4 * k + 1], x.v[4 * k + 2], x.v[4 * k + 3]);
-}
 
 __device__ __forceinline__ void sload(Fq& x, const uint32_t* sm, int s, int pt) {
     load16(x, sm + sword(s, pt));
@@ -506,17 +519,87 @@ __global__ void __launch_bounds__(kBlock) fe_add_rows_kernel(const uint32_t* a, 
     store16(o + i * FP_LIMBS, r);
 }
 
-// Stands for the XLA-op field.fq_sub (and fq_neg as 0 - a, which maps 0 to
-// 0). Bound: bytes.
-__global__ void __launch_bounds__(kBlock) fe_sub_rows_kernel(const uint32_t* a, const uint32_t* b,
-                                                             uint32_t* o, long long n) {
+// ---------------------------------------------------------------------------
+// fe_pow: a fixed-exponent power scan in one launch, planes or rows
+// ---------------------------------------------------------------------------
+//
+// Replaces the reference's _pow_scan (pallas_plane.py:593: a lax.scan over
+// _mul_call, one product launch per step) and, on rows, the square-and-
+// multiply scans of tower.fq_inv and h2c._fq_pow_scan: o = a^e mod p in
+// Montgomery form, canonical, for an exponent known on the host. A thread
+// runs one element's whole chain: its accumulator stays in registers through
+// every squaring and table product, and only a and a^e touch global memory.
+// The exponent arrives by value in the parameter space as MSB-first 4-bit
+// windows, leading zeros stripped (d[0] != 0): every thread reads the same
+// digit at the same step, a uniform broadcast with no memory traffic, and a
+// zero window costs its four squarings and no product. The power table
+// a^1..a^15 lives in shared memory entry-major, [15][12][blockDim], so that
+// neighbouring threads read neighbouring words (no bank conflicts); at
+// kPowBlock = 128 threads it is 15 x 48 B x 128 = 92,160 B a block, more
+// than the 48 KB a launch gets without opting in, so the launcher opts in.
+//
+// What bounds it: latency. A scan is ~485 dependent Fq operations (~380 of
+// them squarings, fq_sqr); at the main path's widths (1 to 12,288 lanes, at
+// most 96 blocks of 128 on 132 SMs) each SM sub-partition runs one warp or
+// none, so nothing hides a product's chain of dependent carry operations,
+// and the time is one thread's chain (PERF.md, "fe_pow"). The code is kept
+// small (one inlined fq_sqr and two fq_mul; the squaring loop is not
+// unrolled): the unrolled loop, four inlined copies of fq_sqr, was 22%
+// slower with every SM running it, though no slower on one.
+//
+// Threads a block (128 was never slower than 64 on the H100, and faster at
+// 1,024 lanes); `chip_smoke.py --ab` times other values.
+constexpr int kPowBlock = 128;
+constexpr int kPowMaxDigits = 96;  // 384 / 4
+constexpr int kPowTable = 15;      // a^1 .. a^15
+
+struct PowDigits {
+    uint8_t d[kPowMaxDigits];
+    int n;
+};
+
+// entry k (a^(k+1)) of this thread's table column
+__device__ __forceinline__ void tab_put(uint32_t* tab, int k, const Fq& x) {
+#pragma unroll
+    for (int j = 0; j < FP_LIMBS; ++j) tab[(k * FP_LIMBS + j) * blockDim.x + threadIdx.x] = x.v[j];
+}
+
+__device__ __forceinline__ void tab_get(Fq& x, const uint32_t* tab, int k) {
+#pragma unroll
+    for (int j = 0; j < FP_LIMBS; ++j) x.v[j] = tab[(k * FP_LIMBS + j) * blockDim.x + threadIdx.x];
+}
+
+// Each thread touches only its own table column, so the block never syncs.
+// The digits are read in place in the parameter space (__grid_constant__:
+// indexed at run time, a by-value struct would be copied to a local stack).
+template <Layout L>
+__global__ void __launch_bounds__(kPowBlock) fe_pow_kernel(const uint32_t* a, uint32_t* o,
+                                                           long long n,
+                                                           const __grid_constant__ PowDigits e) {
+    extern __shared__ uint32_t tab[];
     const long long i = element();
     if (i >= n) return;
-    Fq x, y, r;
-    load<kRows>(x, a, n, i);
-    load<kRows>(y, b, n, i);
-    fq_sub(r, x, y);
-    store<kRows>(o, r, n, i);
+    Fq x, acc, y;
+    load<L>(x, a, n, i);
+    tab_put(tab, 0, x);
+    acc = x;
+#pragma unroll 1
+    for (int k = 2; k <= kPowTable; ++k) {  // a^k = a^(k-1) * a
+        fq_mul(acc, acc, x);
+        tab_put(tab, k - 1, acc);
+    }
+    tab_get(acc, tab, e.d[0] - 1);
+#pragma unroll 1
+    for (int s = 1; s < e.n; ++s) {
+#pragma unroll 1
+        for (int q = 0; q < 4; ++q) fq_sqr(acc, acc);
+        const int d = e.d[s];
+        if (d) {
+            tab_get(y, tab, d - 1);
+            fq_mul(acc, acc, y);
+        }
+    }
+    store<L>(o, acc, n, i);
 }
 
 inline unsigned grid_for(long long n) { return (unsigned)((n + kBlock - 1) / kBlock); }
@@ -524,6 +607,20 @@ inline unsigned point_blocks(long long n) { return (unsigned)((n + kPoints - 1) 
 
 typedef const uint32_t* In;
 typedef uint32_t* Out;
+
+// The table's shared memory is past the 48 KB a launch gets by default: the
+// opt-in belongs to the kernel on the current device, so it is set at every
+// launch (a cheap call).
+template <Layout L>
+int pow_launch(const void* a, void* o, long long n, const PowDigits& e, cudaStream_t s) {
+    const int smem = kPowTable * FP_LIMBS * (int)sizeof(uint32_t) * kPowBlock;
+    const cudaError_t err =
+        cudaFuncSetAttribute(fe_pow_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    fe_pow_kernel<L><<<(unsigned)((n + kPowBlock - 1) / kPowBlock), kPowBlock, smem, s>>>(
+        (In)a, (Out)o, n, e);
+    return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -625,10 +722,22 @@ int charon_fe_add_rows(const void* a, const void* b, void* o, long long n, long 
     return (int)cudaGetLastError();
 }
 
-int charon_fe_sub_rows(const void* a, const void* b, void* o, long long n, void* stream) {
-    if (n <= 0) return (int)cudaErrorInvalidValue;
-    fe_sub_rows_kernel<<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>((In)a, (In)b, (Out)o, n);
-    return (int)cudaGetLastError();
+// o = a^e for n Fq elements: layout 0 an (1, 12, n) plane, 1 (n, 12) rows
+// (16-byte aligned); e as n_digits MSB-first 4-bit windows, digits[0] != 0.
+int charon_fe_pow(int layout, const void* a, void* o, long long n, const uint8_t* digits,
+                  int n_digits, void* stream) {
+    if (n <= 0 || n_digits < 1 || n_digits > kPowMaxDigits || digits[0] == 0 ||
+        (layout == kRows && !aligned16(a, a, o)))
+        return (int)cudaErrorInvalidValue;
+    PowDigits e;
+    e.n = n_digits;
+    for (int k = 0; k < kPowMaxDigits; ++k) {
+        if (k < n_digits && digits[k] > kPowTable) return (int)cudaErrorInvalidValue;
+        e.d[k] = k < n_digits ? digits[k] : 0;
+    }
+    if (layout == kPlane) return pow_launch<kPlane>(a, o, n, e, (cudaStream_t)stream);
+    if (layout == kRows) return pow_launch<kRows>(a, o, n, e, (cudaStream_t)stream);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -11,8 +11,12 @@ ops/rows.py):
     fe_mul_rows                                   rows: E = 1 a thread per row; E = 2
                                                   (Fq2 rows, whole Karatsuba products) a
                                                   group of 4 lanes per product
-    fe_add_rows, fe_sub_rows                      rows, a thread per row; fe_add_rows
-                                                  adds below a split and subtracts past it
+    fe_add_rows                                   rows, a thread per row: adds below a
+                                                  split and subtracts past it (n_add = 0:
+                                                  a subtraction, also −a as 0 − a)
+    fe_pow                                        a fixed-exponent power scan in one
+                                                  launch, a thread per element, over a
+                                                  (1, 12, n) plane or (n, 12) rows
 
 Build: the point schedules' header into `build/charon_tpu_torch/`, then
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -I build/charon_tpu_torch`
@@ -25,11 +29,11 @@ else. A CPU tensor runs the kernel's plain version (ops/field.py,
 ops/curve.py) and counts a plain call; a CUDA tensor launches the kernel on
 the current stream and counts a launch — or raises: there is no fallback.
 
-Composites are Python loops that launch one kernel per step, like the XLA
-loops of the reference they replace: `pow_scan` (_pow_scan :593),
-`scalar_mul_windowed` (_scalar_mul_windowed :677), `reduce_tree`
-(_reduce_tree_jit :763), `shared_mul` (_shared_mul_call :625, unrolled) and
-`host_fold` (_host_fold :778). Bucket sizes (`pad_batch`), the 4-bit windows
+Composites: `pow_scan` (_pow_scan :593) is one fe_pow launch; the others are
+Python loops that launch one kernel per step, like the XLA loops of the
+reference they replace: `scalar_mul_windowed` (_scalar_mul_windowed :677),
+`reduce_tree` (_reduce_tree_jit :763), `shared_mul` (_shared_mul_call :625,
+unrolled) and `host_fold` (_host_fold :778). Bucket sizes (`pad_batch`), the 4-bit windows
 and the MSB-first digit order are the reference's: they decide the outputs'
 shapes.
 """
@@ -106,7 +110,7 @@ _ARGS = {
     "charon_pt_add": [ctypes.c_int] + [_VP] * 9 + [_LL, _VP],
     "charon_fe_mul_rows": [_VP, _VP, _VP, _LL, ctypes.c_int, _VP],
     "charon_fe_add_rows": [_VP, _VP, _VP, _LL, _LL, _VP],
-    "charon_fe_sub_rows": [_VP, _VP, _VP, _LL, _VP],
+    "charon_fe_pow": [ctypes.c_int, _VP, _VP, _LL, ctypes.c_char_p, ctypes.c_int, _VP],
 }
 
 
@@ -169,25 +173,31 @@ def _library() -> ctypes.CDLL:
 
 class Kernel:
     """One CUDA kernel: where its source is, which TPU kernel (or, for the
-    rows add and sub, which XLA-op function) it replaces, and how often it
-    ran, per E (fe_add_rows and fe_sub_rows have E = 1 only). `launches` counts CUDA
-    launches only, `widths` the launches by (E, width) (rows: Fq or Fq2 rows);
-    `plain_calls` counts CPU calls of its plain version."""
+    rows add, which XLA-op function) it replaces, and how often it ran, per
+    variant: E for most (fe_add_rows has E = 1 only), the layout ("plane",
+    "rows") for fe_pow. `launches` counts CUDA launches only, `widths` the
+    launches by (variant, width) (rows: Fq or Fq2 rows); `plain_calls` counts
+    CPU calls of its plain version. `replaces` is a site, or one per variant."""
 
-    def __init__(self, name: str, replaces: str, variants=(1, 2)):
+    def __init__(self, name: str, replaces, variants=(1, 2)):
         self.name = name
         self.replaces = replaces
         self.source = "charon_tpu_torch/ops/csrc/plane_kernels.cu"
         self.variants = tuple(variants)
         self.reset()
 
+    def site(self, variant) -> str:
+        """The replaced kernel's file:line for one variant."""
+        return self.replaces[variant] if isinstance(self.replaces, dict) else self.replaces
+
     def reset(self) -> None:
         self.launches = {E: 0 for E in self.variants}
         self.plain_calls = {E: 0 for E in self.variants}
         self.widths = collections.Counter()     # launches by (E, width)
-        self.splits = collections.Counter()     # fe_add_rows calls that add and subtract
-                                                # (launches, or plain calls on the CPU),
-                                                # by (width, n_add) in rows
+        self.splits = collections.Counter()     # fe_add_rows calls that subtract (a
+                                                # split, or n_add = 0; launches, or plain
+                                                # calls on the CPU), by (width, n_add) in rows
+        self.exponents = collections.Counter()  # fe_pow calls by (layout, width, digits)
 
 
 KERNELS = {
@@ -201,7 +211,10 @@ KERNELS = {
     "fe_mul_rows": Kernel("fe_mul_rows", "charon_tpu/ops/pallas_plane.py:969"),
     # XLA-op field.fq_add / fq_sub (and fq_neg) of the rows plane
     "fe_add_rows": Kernel("fe_add_rows", "charon_tpu/ops/field.py:134", (1,)),
-    "fe_sub_rows": Kernel("fe_sub_rows", "charon_tpu/ops/field.py:138", (1,)),
+    # the power scans: _pow_scan over _mul_call on planes; on rows the scans
+    # of tower.fq_inv (:105) and h2c._fq_pow_scan (:91) over the rows product
+    "fe_pow": Kernel("fe_pow", {"plane": "charon_tpu/ops/pallas_plane.py:593",
+                                "rows": "charon_tpu/ops/tower.py:105"}, ("plane", "rows")),
 }
 
 
@@ -316,8 +329,10 @@ def pt_add(X1, Y1, Z1, X2, Y2, Z2, E: int):
 
 
 # ---------------------------------------------------------------------------
-# Composites: one kernel launch per step
+# Fixed-exponent powers: one fe_pow launch
 # ---------------------------------------------------------------------------
+
+POW_LAYOUTS = {"plane": 0, "rows": 1}      # charon_fe_pow's layout argument
 
 
 def exp_digits(e: int, nbits: int = 384) -> list[int]:
@@ -328,27 +343,64 @@ def exp_digits(e: int, nbits: int = 384) -> list[int]:
     return [(e >> (w * (nw - 1 - i))) & mask for i in range(nw)]
 
 
-def mont_one(shape, device) -> torch.Tensor:
-    """Montgomery 1 broadcast over an (E, 12, n) shape, contiguous."""
-    col = torch.tensor(F.fq_from_int(1), dtype=torch.int32, device=device)
-    return col.view(1, LIMBS, 1).expand(*shape).contiguous()
+def pow_digits(digits) -> list[int]:
+    """MSB-first window digits as fe_pow takes them: leading zeros stripped,
+    so digits[0] != 0 (a zero window further on costs its squarings and no
+    product). ValueError for the exponent 0 or a digit past the window."""
+    digits = [int(d) for d in digits]
+    if any(not 0 <= d < 1 << POW_WINDOW for d in digits):
+        raise ValueError(f"window digits must be in [0, {1 << POW_WINDOW})")
+    for k, d in enumerate(digits):
+        if d:
+            return digits[k:]
+    raise ValueError("exponent must be >= 1")
 
 
-def pow_scan(A: torch.Tensor, digits: list[int]) -> torch.Tensor:
+def pow_call(layout: str, a: torch.Tensor, digits: list[int], plain_mul) -> torch.Tensor:
+    """fe_pow over checked, contiguous elements of one layout: on a CPU
+    tensor its plain version (field.pow_plain over `plain_mul`, the layout's
+    plain product), counted as one plain call; on a CUDA tensor one launch.
+    Either way counted by (layout, width, digits) in `exponents`."""
+    k = KERNELS["fe_pow"]
+    k.exponents[layout, a.numel() // LIMBS, tuple(digits)] += 1
+    if a.device.type == "cpu":
+        k.plain_calls[layout] += 1
+        return F.pow_plain(a, digits, plain_mul)
+    return launch_pow(layout, a, digits)
+
+
+def launch_pow(layout: str, a: torch.Tensor, digits: list[int]) -> torch.Tensor:
+    """One charon_fe_pow launch over a contiguous CUDA plane or rows (rows
+    16-byte aligned), on the current stream of its device; counts the
+    launch under the layout and its width."""
+    if a.device.index != torch.cuda.current_device():
+        with torch.cuda.device(a.device):
+            return launch_pow(layout, a, digits)
+    out = torch.empty_like(a)
+    n = a.numel() // LIMBS
+    rc = _library().charon_fe_pow(POW_LAYOUTS[layout], a.data_ptr(), out.data_ptr(), n,
+                                  bytes(digits), len(digits),
+                                  torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel fe_pow<{layout}> did not launch: error {rc}")
+    KERNELS["fe_pow"].launches[layout] += 1
+    KERNELS["fe_pow"].widths[layout, n] += 1
+    return out
+
+
+def pow_scan(A: torch.Tensor, digits) -> torch.Tensor:
     """A^e for a (1, 12, n) Fq plane and one shared exponent given as
-    MSB-first 4-bit window digits: a 16-entry power table (14 products),
-    then per digit 4 squarings and one table product (the digit selects a
-    table entry; entry 0 is one). Leading zero digits are harmless."""
-    one = mont_one(A.shape, A.device)
-    tab = [one, A]
-    for _ in range(2, 1 << POW_WINDOW):
-        tab.append(fe_mul(tab[-1], A, 1))
-    acc = one
-    for d in digits:
-        for _ in range(POW_WINDOW):
-            acc = fe_mul(acc, acc, 1)
-        acc = fe_mul(acc, tab[d], 1)
-    return acc
+    MSB-first 4-bit window digits (leading zeros are stripped; e >= 1): one
+    fe_pow launch on the card; on the CPU its plain version, the same scan
+    over the plain product."""
+    digits = pow_digits(digits)
+    _check((A,), 1)
+    return pow_call("plane", A, digits, lambda x, y: F.fe_mul_plain(x, y, 1))
+
+
+# ---------------------------------------------------------------------------
+# Composites: one kernel launch per step
+# ---------------------------------------------------------------------------
 
 
 def scalars_to_digitplanes(scalars, B: int, nbits: int = 256) -> np.ndarray:

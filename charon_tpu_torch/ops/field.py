@@ -39,7 +39,9 @@ The rows kernels (ops/rows.py) have plain versions here too:
 `rows_mul_plain` is the same digit product entered from `(..., 12)` rows,
 `rows_mul2_plain` the Karatsuba Fq2 product over it and the rows add and
 sub, `rows_add_plain` / `rows_sub_plain` the same sum as fe_add / fe_sub,
-and `rows_addsub_plain` both at once, split along the first axis.
+and `rows_addsub_plain` both at once, split along the first axis (all three
+are fe_add_rows). `pow_plain` is the fe_pow kernel's power scan over either
+layout's plain product.
 """
 
 from __future__ import annotations
@@ -388,5 +390,25 @@ def rows_add_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rows_sub_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain version of fe_sub_rows: (a − b) mod p per canonical row."""
+    """Plain version of fe_add_rows with n_add = 0: (a − b) mod p per
+    canonical row."""
     return _rows_sum(a, b, -1)
+
+
+def pow_plain(a: torch.Tensor, digits, mul) -> torch.Tensor:
+    """Plain version of the fe_pow kernel: a^e over a plain product `mul` of
+    canonical elements (planes' or rows'), e given as MSB-first 4-bit window
+    digits with digits[0] != 0. The kernel's schedule: the table a^1..a^15
+    (a^k = a^(k−1)·a), then from entry digits[0], per further digit four
+    squarings and, where the digit is not 0, one table product. Every value
+    is canonical, so any schedule gives these limbs."""
+    tab = [None, a]
+    for _ in range(2, 16):
+        tab.append(mul(tab[-1], a))
+    acc = tab[digits[0]]
+    for d in digits[1:]:
+        for _ in range(4):
+            acc = mul(acc, acc)
+        if d:
+            acc = mul(acc, tab[d])
+    return acc

@@ -15,9 +15,9 @@ are host constants, so Python branches on them: 63 doubling steps and 5
 addition steps, and `_expt_conj` multiplies only on set bits. The values
 are the same. Every product goes through the rows seam (ops/rows.py), so
 on the card the whole check runs on fe_mul_rows (Fq2 products in one
-launch each), fe_add_rows (split: a level's independent adds and subs in
-one launch, as the Miller steps' ξ product and line subtractions) and
-fe_sub_rows.
+launch each), fe_add_rows (split: a level's independent adds, ξ products
+and subs in one launch; n_add = 0 a subtraction) and fe_pow (the final
+exponentiation's Fq inversion).
 
 A check runs every pair's Miller loop on its own batch lane (padded to a
 power of two with masked repeats of lane 0), tree-folds the lanes into one
@@ -56,27 +56,28 @@ def _scale_fq_many(xs, ss):
 
 
 def _dbl_step(f, Tp, xp, yp):
-    """Doubling step: line through T, T evaluated at P; T <- 2T."""
+    """Doubling step: line through T, T evaluated at P; T <- 2T. The
+    reference's values, with fewer dependent levels of sums: 2S is formed
+    beside 2X², so that 8S³ = (2S)²·2S and 4Y²S² = (2YS)² come from the
+    products."""
     X, Y, Z = Tp
     XX, S, XY = R._fq2_mul_many([(X, X), (Y, Z), (X, Y)])
-    W = R.fq2_add(R.fq2_add(XX, XX), XX)          # 3X²
-    SZ, XW, WZ, B_, WW, SS, YS = R._fq2_mul_many(
-        [(S, Z), (X, W), (W, Z), (XY, S), (W, W), (S, S), (Y, S)])
+    XX2, S2 = T._add_many([XX, S], [XX, S])
+    W = R.fq2_add(XX2, XX)                        # 3X²
+    SZ, XW, WZ, B_, WW, S2S2, YS = R._fq2_mul_many(
+        [(S, Z), (X, W), (W, Z), (XY, S), (W, W), (S2, S2), (Y, S)])
     SZ2, YS2, B2 = T._add_many([SZ, YS, B_], [SZ, YS, B_])
     # line: l = 2YZ²·ξ·yp + (3X³ − 2Y²Z)·vw − 3X²Z·xp·v²w
     a0s, av2ws = _scale_fq_many([SZ2, WZ], [yp, xp])
-    (a0,), (avw, av2w) = T._mul_xi_sub_many([a0s], [XW, torch.zeros_like(av2ws)],
-                                            [YS2, av2ws])
-    # point update (homogeneous doubling, a = 0)
-    B4 = R.fq2_add(B2, B2)
-    H = R.fq2_sub(WW, R.fq2_add(B4, B4))          # W² − 8B
-    HS, WBH, Y2S2, S3 = R._fq2_mul_many(
-        [(H, S), (W, R.fq2_sub(B4, H)), (YS, YS), (SS, S)])
-    X3, y2, s2 = T._add_many([HS, Y2S2, S3], [HS, Y2S2, S3])
-    y4, s4 = T._add_many([y2, s2], [y2, s2])
-    y8, Z3 = T._add_many([y4, s4], [y4, s4])     # 8Y²S², 8S³
-    Y3 = R.fq2_sub(WBH, y8)
-    f = T.fq12_mul_sparse(f, a0, avw, av2w)
+    (B4,), (a0,), (avw, av2w) = T._level(adds=[(B2, B2)], xis=[a0s],
+                                         subs=[(XW, YS2), (torch.zeros_like(av2ws), av2ws)])
+    # point update (homogeneous doubling, a = 0): H = W² − 8B and
+    # B4 − H = 8B − (W² − 4B)
+    (B8,), _, (T1,) = T._level(adds=[(B4, B4)], subs=[(WW, B4)])
+    H, G = T._sub_many([T1, B8], [B4, T1])
+    HS, WBH, y4, Z3 = R._fq2_mul_many([(H, S), (W, G), (YS2, YS2), (S2S2, S2)])
+    X3, y8 = T._add_many([HS, y4], [HS, y4])      # 2HS, 8Y²S²; Z3 = 8S³
+    f, (Y3,) = T.mul_sparse_sub(f, a0, avw, av2w, [(WBH, y8)])
     return f, (X3, Y3, Z3)
 
 
@@ -84,20 +85,19 @@ def _add_step(f, Tp, xq, yq, xp, yp):
     """Mixed addition step: line through T and Q at P; T <- T + Q."""
     X, Y, Z = Tp
     yqZ, xqZ = R._fq2_mul_many([(yq, Z), (xq, Z)])
-    theta, lam = T._sub_many([Y, X], [yqZ, xqZ])
+    (XxqZ,), _, (theta, lam) = T._level(adds=[(X, xqZ)], subs=[(Y, yqZ), (X, xqZ)])
     ll, thth, th_xq, lam_yq = R._fq2_mul_many(
         [(lam, lam), (theta, theta), (theta, xq), (lam, yq)])
     # line: l = λ·ξ·yp + (θ·xq − λ·yq)·vw − θ·xp·v²w
     a0s, av2ws = _scale_fq_many([lam, theta], [yp, xp])
-    (a0,), (avw, av2w) = T._mul_xi_sub_many([a0s], [th_xq, torch.zeros_like(av2ws)],
-                                            [lam_yq, av2ws])
+    _, (a0,), (avw, av2w) = T._level(xis=[a0s], subs=[(th_xq, lam_yq),
+                                                      (torch.zeros_like(av2ws), av2ws)])
     lll, thZ, llA, llX = R._fq2_mul_many(
-        [(ll, lam), (thth, Z), (ll, R.fq2_add(X, xqZ)), (ll, X)])
+        [(ll, lam), (thth, Z), (ll, XxqZ), (ll, X)])
     D = R.fq2_sub(thZ, llA)
     X3, thT, Ylll, Z3 = R._fq2_mul_many(
         [(lam, D), (theta, R.fq2_sub(llX, D)), (Y, lll), (lll, Z)])
-    Y3 = R.fq2_sub(thT, Ylll)
-    f = T.fq12_mul_sparse(f, a0, avw, av2w)
+    f, (Y3,) = T.mul_sparse_sub(f, a0, avw, av2w, [(thT, Ylll)])
     return f, (X3, Y3, Z3)
 
 

@@ -17,8 +17,10 @@ Three CUDA kernels (ops/csrc/plane_kernels.cu) compute on rows in place:
                   rows (curve._fq2_mul_many :56: its pre-sums, three
                   products and recombination in one launch)
     fe_add_rows   (a + b) mod p, and (a − b) mod p past a split along the
-                  first axis (field.fq_add / fq_sub, XLA ops in the reference)
-    fe_sub_rows   (a − b) mod p   (field.fq_sub; fq_neg(a) = sub(0, a))
+                  first axis (field.fq_add / fq_sub, XLA ops in the
+                  reference); at n_add = 0 a subtraction (fq_neg(a) = 0 − a)
+    fe_pow        a^e for a host-known exponent in one launch (the scans of
+                  tower.fq_inv :105 and h2c._fq_pow_scan :91)
 
 Their wrappers take same-shape contiguous int32 rows with a trailing 12
 (`(..., 2, 12)` for E = 2). A CUDA tensor launches the kernel and counts a
@@ -99,6 +101,17 @@ def fq2_mul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _run("fe_mul_rows", F.rows_mul2_plain, a, b, 2, (2,))
 
 
+def _addsub(a: torch.Tensor, b: torch.Tensor, split: int, plain) -> torch.Tensor:
+    """One fe_add_rows call: rows [0, split) add, the rest subtract; a call
+    that subtracts is counted in KERNELS["fe_add_rows"].splits by (rows,
+    split)."""
+    out = _run("fe_add_rows", plain, a, b, 1, (split,))
+    n = a.numel() // LIMBS
+    if split < n:
+        CP.KERNELS["fe_add_rows"].splits[n, split] += 1
+    return out
+
+
 def addsub_rows(a: torch.Tensor, b: torch.Tensor, n_add: int) -> torch.Tensor:
     """(a + b) mod p for a[:n_add], (a − b) mod p for a[n_add:], along the
     first axis, in one launch."""
@@ -106,20 +119,17 @@ def addsub_rows(a: torch.Tensor, b: torch.Tensor, n_add: int) -> torch.Tensor:
         raise ValueError(f"n_add must be in [0, {a.shape[0] if a.dim() > 1 else 0}] on the "
                          f"first axis of (k, ..., {LIMBS}) rows, got {n_add} for {tuple(a.shape)}")
     split = n_add * (a[0].numel() // LIMBS)                  # in rows
-    out = _run("fe_add_rows", lambda x, y: F.rows_addsub_plain(x, y, n_add), a, b, 1, (split,))
-    if 0 < n_add < a.shape[0]:
-        CP.KERNELS["fe_add_rows"].splits[a.numel() // LIMBS, split] += 1
-    return out
+    return _addsub(a, b, split, lambda x, y: F.rows_addsub_plain(x, y, n_add))
 
 
 def add_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a + b) mod p over same-shape rows."""
-    return _run("fe_add_rows", F.rows_add_plain, a, b, 1, (a.numel() // LIMBS,))
+    return _addsub(a, b, a.numel() // LIMBS, F.rows_add_plain)
 
 
 def sub_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(a − b) mod p over same-shape rows."""
-    return _run("fe_sub_rows", F.rows_sub_plain, a, b)
+    """(a − b) mod p over same-shape rows: fe_add_rows with n_add = 0."""
+    return _addsub(a, b, 0, F.rows_sub_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -255,24 +265,15 @@ def _fq2_mul_many(pairs):
 
 
 def pow_rows(a: torch.Tensor, e: int) -> torch.Tensor:
-    """a^e for a host-known exponent e >= 1 over Fq rows: a 16-entry table
-    (14 products), then per MSB-first 4-bit window 4 squarings and one table
-    product, skipped where the window is 0 (the exponent is known on the
-    host, so no lane needs it). The value is the reference's square-and-
-    multiply scan's (canonical either way)."""
+    """a^e for a host-known exponent e >= 1 over Fq rows, canonical: one
+    fe_pow launch on the card (the exponent's MSB-first 4-bit windows,
+    leading zeros stripped, a zero window costing no product); on the CPU
+    its plain version, the same scan over the plain rows product. The value
+    is the reference's square-and-multiply scan's."""
     if e < 1:
         raise ValueError("exponent must be >= 1")
-    digits = CP.exp_digits(e)
-    while digits[0] == 0:
-        digits = digits[1:]
+    digits = CP.pow_digits(CP.exp_digits(e))
     a = a.contiguous()
-    tab = [None, a]
-    for _ in range(2, 1 << CP.POW_WINDOW):
-        tab.append(mont_mul_rows(tab[-1], a))
-    acc = tab[digits[0]]
-    for d in digits[1:]:
-        for _ in range(CP.POW_WINDOW):
-            acc = mont_mul_rows(acc, acc)
-        if d:
-            acc = mont_mul_rows(acc, tab[d])
-    return acc
+    if _check(a, a).type == "cuda" and not aligned(a):
+        raise ValueError("rows must start on a 16-byte boundary")
+    return CP.pow_call("rows", a, digits, F.rows_mul_plain)

@@ -8,9 +8,9 @@ The formulas are the reference's. What differs is only how the work is
 issued: every independent Fq2 product of a step is stacked into one
 `rows._fq2_mul_many` (one product launch), and the adds and subs around
 them are stacked into as few rows launches as their dependencies allow
-(`_add_many`, `_sub_many`, and `_mul_xi_sub_many`, whose split launch adds
-and subtracts at once). Every value is canonical, so the outputs are the
-reference's limb for limb.
+(`_add_many`, `_sub_many`, and `_level`, whose split launch runs a level's
+adds, ξ products and subs at once). Every value is canonical, so the
+outputs are the reference's limb for limb, however the sums are grouped.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ import torch
 from ..crypto import fields as PF
 from . import field as F
 from . import rows as R
+
+LIMBS = F.LIMBS
 
 # -- batched Fq2 adds, subs and ξ products ------------------------------------
 
@@ -42,28 +44,63 @@ def _neg_many(xs):
     return list(R.fq_neg(R.stack(list(xs))).unbind(0))
 
 
-def _mul_xi_sub_many(zs, xs, ys):
-    """([z·ξ for z in zs], [x − y for x, y in zip(xs, ys)]) in ONE split add
-    launch: z·ξ = (z0 − z1) + (z0 + z1)u, so the level's Fq rows are the k
-    sums z0 + z1, then the differences z0 − z1 and x0 − y0, x1 − y1."""
-    k, m = len(zs), len(xs)
-    W = R.stack(list(zs) + list(xs))
-    Z, X = W[:k], W[k:]
-    lhs = [Z[..., 0, :], Z[..., 0, :]]
-    rhs = [Z[..., 1, :], Z[..., 1, :]]
-    if m:
-        Y = R.stack(list(ys))
-        lhs += [X[..., 0, :], X[..., 1, :]]
-        rhs += [Y[..., 0, :], Y[..., 1, :]]
-    out = R.addsub_rows(torch.cat(lhs), torch.cat(rhs), k)
-    xi = list(torch.stack([out[k:2 * k], out[:k]], -2).unbind(0))
-    d = list(torch.stack([out[2 * k:2 * k + m], out[2 * k + m:]], -2).unbind(0)) if m else []
-    return xi, d
+_LEVEL_INDEX: dict = {}
+
+
+def _level_index(na: int, nz: int, ns: int, m: int, device):
+    """The gathers of a `_level` of m-lane Fq2 elements, cached per shape:
+    (rows of the stacked inputs that form a then b, rows of the launch's
+    output in Fq2 order or None, n_add). Input element e's lane i,
+    component c is row (e·m + i)·2 + c of the stack [adds' x, subs' x, xis,
+    adds' y, subs' y]; the launch adds adds' x + y and z0 + z1 (ξ's c1),
+    then subtracts z0 − z1 (ξ's c0) and subs' x − y."""
+    key = (na, nz, ns, m, device)
+    if key not in _LEVEL_INDEX:
+        def rows(e, comps=(0, 1)):
+            return [(e * m + i) * 2 + c for i in range(m) for c in comps]
+
+        zs = [na + ns + j for j in range(nz)]
+        y0 = na + ns + nz
+        z0 = [r for e in zs for r in rows(e, (0,))]
+        z1 = [r for e in zs for r in rows(e, (1,))]
+        a = [r for e in range(na) for r in rows(e)] + z0 + z0 + \
+            [r for e in range(na, na + ns) for r in rows(e)]
+        b = [r for e in range(na) for r in rows(y0 + e)] + z1 + z1 + \
+            [r for e in range(ns) for r in rows(y0 + na + e)]
+        order = None
+        if nz:
+            c1, c0, n2 = 2 * na * m, (2 * na + nz) * m, (2 * na + 2 * nz) * m
+            order = list(range(c1)) + [r for k in range(nz * m) for r in (c0 + k, c1 + k)] + \
+                list(range(n2, n2 + 2 * ns * m))
+            order = torch.tensor(order, dtype=torch.int64, device=device)
+        _LEVEL_INDEX[key] = (torch.tensor(a + b, dtype=torch.int64, device=device), order,
+                             2 * na * m + nz * m)
+    return _LEVEL_INDEX[key]
+
+
+def _level(adds=(), xis=(), subs=()):
+    """One level of independent Fq2 adds, ξ products and subs in ONE split
+    add launch: ([x + y for x, y in adds], [z·ξ for z in xis], [x − y for
+    x, y in subs]), z·ξ = (z0 − z1) + (z0 + z1)u. The inputs are stacked
+    once and gathered into the launch's rows by cached indices, so a level
+    costs the host the same few ops whatever it holds."""
+    na, nz, ns = len(adds), len(xis), len(subs)
+    W = R.stack([x for x, _ in adds] + [x for x, _ in subs] + list(xis)
+                + [y for _, y in adds] + [y for _, y in subs])
+    shape = W.shape[1:]
+    src, order, n_add = _level_index(na, nz, ns, W[0].numel() // (2 * LIMBS), W.device)
+    ab = W.view(-1, LIMBS).index_select(0, src)
+    n = ab.shape[0] // 2
+    out = R.addsub_rows(ab[:n], ab[n:], n_add)
+    if order is not None:
+        out = out.index_select(0, order)
+    res = out.view(na + nz + ns, *shape).unbind(0)
+    return list(res[:na]), list(res[na:na + nz]), list(res[na + nz:])
 
 
 def _mul_xi_many(xs):
     """[x·ξ for x in xs]: (x0 − x1) + (x0 + x1)u, one split add launch."""
-    return _mul_xi_sub_many(xs, [], [])[0]
+    return _level(xis=xs)[1]
 
 
 def _conj_many(xs):
@@ -185,10 +222,12 @@ def fq12_mul(a, b):
     s = _add_many(list(a0) + list(b0), list(a1) + list(b1))
     # the 3 Karatsuba Fq6 products are independent: one 18-wide Fq2 stack
     t0, t1, st = fq6_mul_many([(a0, b0), (a1, b1), (tuple(s[:3]), tuple(s[3:]))])
-    r = _add_many(list(t0) + list(t0), [fq2_mul_xi(t1[2]), t1[0], t1[1]] + list(t1))
-    c0 = tuple(r[:3])                               # t0 + v·t1
-    c1 = tuple(_sub_many(st, r[3:]))                # s − (t0 + t1)
-    return (c0, c1)
+    # c0 = t0 + v·t1 = (t0_0 + ξ·t1_2, t0_1 + t1_0, t0_2 + t1_1) and
+    # c1 = s − (t0 + t1), in two split launches
+    r, (xt,), _ = _level(adds=[(t0[1], t1[0]), (t0[2], t1[1]), (t0[0], t1[0]),
+                               (t0[1], t1[1]), (t0[2], t1[2])], xis=[t1[2]])
+    (c00,), _, c1 = _level(adds=[(t0[0], xt)], subs=list(zip(st, r[2:])))
+    return ((c00, r[0], r[1]), tuple(c1))
 
 
 def fq12_sqr(a):
@@ -213,17 +252,25 @@ def fq12_mul_sparse(f, a, b, c):
       c0' = a f0 + ξ(b f4 + c f3)      c3' = a f3 + ξ(b f2 + c f1)
       c1' = a f1 + ξ(b f5 + c f4)      c4' = a f4 + b f0 + ξ c f2
       c2' = a f2 + b f3 + ξ c f5       c5' = a f5 + b f1 + c f0
-    All 18 Fq2 products in one stack."""
+    All 18 Fq2 products in one stack, then three launches of sums."""
+    return mul_sparse_sub(f, a, b, c)[0]
+
+
+def mul_sparse_sub(f, a, b, c, subs=()):
+    """(fq12_mul_sparse(f, a, b, c), [x − y for x, y in subs]): the subs,
+    of values already computed, ride in the first launch of sums."""
     (f0, f1, f2), (f3, f4, f5) = f
     coeffs = (f0, f1, f2, f3, f4, f5)
     rs = R._fq2_mul_many([(a, x) for x in coeffs] + [(b, x) for x in coeffs]
                          + [(c, x) for x in coeffs])
     af, bf, cf = rs[0:6], rs[6:12], rs[12:18]
-    g0, g1, g3, g5 = _add_many([bf[4], bf[5], bf[2], bf[1]], [cf[3], cf[4], cf[1], cf[0]])
-    x0, x1, x3, xc5, xc2 = _mul_xi_many([g0, g1, g3, cf[5], cf[2]])
-    h2, h4 = _add_many([bf[3], bf[0]], [xc5, xc2])
-    o = _add_many(af, [x0, x1, h2, x3, h4, g5])
-    return ((o[0], o[1], o[2]), (o[3], o[4], o[5]))
+    (g0, g1, g3, g5, h2, h4), _, d = _level(
+        adds=[(bf[4], cf[3]), (bf[5], cf[4]), (bf[2], cf[1]), (bf[1], cf[0]),
+              (af[2], bf[3]), (af[4], bf[0])], subs=subs)
+    (o5,), (x0, x1, x3, xc5, xc2), _ = _level(adds=[(af[5], g5)],
+                                              xis=[g0, g1, g3, cf[5], cf[2]])
+    o = _add_many([af[0], af[1], h2, af[3], h4], [x0, x1, xc5, x3, xc2])
+    return ((o[0], o[1], o[2]), (o[3], o[4], o5)), d
 
 
 # -- Frobenius with host-computed γ constants -----------------------------------

@@ -25,14 +25,17 @@ Phases, any failure exits non-zero:
                the width has room, and at 1 lane a random lane and a P+P
                lane; the rows kernels with the edges 0, 1, p-1, R mod p
                (in both components of Fq2 rows): fe_mul_rows<1> at 1, 108
-               and 6912 rows, fe_add_rows and fe_sub_rows at 108 and 6912
-               rows (one Fq12 product's 54 Fq products on 2 and 128 lanes),
-               fe_add_rows also split at n_add 0, 1, n/2, n-1, and
-               fe_mul_rows<2> at 3, 18, 36 and 2304 Fq2 products, general
-               and squaring. Time per launch vs the plain version and the
-               card's bound; the rows kernels' times are taken after the
-               slot's first run, at every width (and split) it launched
-               them, and at the widths above.
+               and 6912 rows, fe_add_rows at 108 and 6912 rows (one Fq12
+               product's 54 Fq products on 2 and 128 lanes), also split at
+               n_add 1, n/2, n-1 and at n_add 0 (the subtraction, and the
+               negation 0 - a), and fe_mul_rows<2> at 3, 18, 36 and 2304
+               Fq2 products, general and squaring; fe_pow on a 4096-lane
+               plane and on 1 row. Time per launch vs the plain version and
+               the card's bound; the rows kernels' and fe_pow's times are
+               taken after the slot's first run, at every width (split, or
+               exponent) it launched them, and at the widths above; fe_pow
+               also against the per-step loop it replaces (fe_mul<1> or
+               fe_mul_rows<1> launches, built here), device and host time.
   4. slot    — the fixed probe (seed 99, 1000 x 4-of-6, msg 0x42*32) with
                the default device verify: warm once with every kernel
                counter at 0 (the launches of one slot: pk-plane miss, device
@@ -42,17 +45,23 @@ Phases, any failure exits non-zero:
                plane_agg.fused_slot (its step hook), a tampered partial
                gives False, bad encodings raise the reference's ValueError
                texts; the same slots with verify="native" give the same
-               verdicts; the launches of one first and one steady device
-               verify by kernel and E (a steady one at most 6,200), and the
-               PyTorch ops the host dispatches in a steady one.
+               verdicts; the steps of a first and a steady slot (launches,
+               synchronised wall) on both rungs; the launches of one first
+               and one steady device verify by kernel and E (a steady one
+               at most 4,800), and the PyTorch ops the host dispatches in a
+               steady one.
   5. verify  — the committee slot (64 messages, validator v signs message
                v % 64; 65 pairs, a 64-message device hash-to-G2 batch):
                True, tampered False, each verdict the native rung's, all 64
                device H(m) byte-identical to native ct_hash_to_g2; the
                1,040-pair chunked check (its 65 pairs x 16: two 1,024-lane
                chunks) True, and False with a pair of the last chunk
-               tampered; the RFC 9380 J.10.1 vector through the device
-               hash-to-G2.
+               tampered; then every rows and fe_pow case (width, split or
+               exponent) that this phase launched and the headline slot did
+               not (hash-to-G2's scans at 64 messages, the pairing at 65 and
+               1,040 pairs) held against its plain version and timed, in the
+               kernels JSON as committee_by_width; the RFC 9380 J.10.1
+               vector through the device hash-to-G2.
 The last two lines are the kernels JSON and the device JSON.
 
 --ab builds each variant NAME=DIR (the plane_kernels.cu and fp.cuh in DIR,
@@ -64,8 +73,12 @@ turns (forward, then backward; device us per launch, the mean of the two)
 at each width on the main path's inputs (the edge lanes with the P+P lane
 made general, and at 4,096 lanes also with it), each variant held bit for
 bit against the plain versions, then the rows kernels (fe_mul_rows<1>,
-fe_add_rows, fe_sub_rows at 108 and 6,912 rows; fe_mul_rows<2> at 36 and
-2,304 Fq2 products). Every variant must have this checkout's C interface;
+fe_add_rows, at n_add 0 too, at 108 and 6,912 rows; fe_mul_rows<2> at 36 and
+2,304 Fq2 products), then fe_pow (the (p-3)/4 scan on planes of 12,288,
+4,096 and 1,024 lanes, p-2 on 1 and 8 rows; `kPowBlock=64` sets another
+block size). --kernels
+points,rows,pow picks the groups timed (all by default). Every variant must
+have this checkout's C interface;
 to compare with a tree whose interface differs, run that tree's own
 chip_smoke.py in turns with this one. --diagnose adds three builds of this
 checkout's source with part of the level loop's work taken out, to show
@@ -171,11 +184,16 @@ def ptxas_summary(text: str) -> list[str]:
         if m and name:
             k = re.search(r"((?:fe_mul|fe_add|fe_sub|pt_double|pt_add)(?:_rows)?_kernel)"
                           r"(?:ILi(\d)E(?:Li(\d+)E)?E)?", name)
+            pw = re.search(r"fe_pow_kernelIL\w*?LayoutE(\d)EE", name)
             short = name
             if k:
                 short = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
                          + (f" (G={k.group(3)})" if k.group(3) else ""))
-            rows.append(f"{short}: {m.group(1)} registers, {props}")
+            elif pw:
+                short = f"fe_pow_kernel<{('plane', 'rows')[int(pw.group(1))]}>"
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append(f"{short}: {m.group(1)} registers, {props}, static shared "
+                        f"{smem.group(1) if smem else 0} B")
             name, props = None, ""
     return rows
 
@@ -216,17 +234,30 @@ def _point_inputs(rng, E, n, device):
 def _time_ms(fn, reps: int) -> float:
     """Device milliseconds per call of a launch-only fn: a sleep kernel keeps
     the card busy while the host enqueues the timed launches, so the events
-    bracket back-to-back kernel execution and not the host's launch cost."""
+    bracket back-to-back kernel execution and not the host's launch cost.
+    The sleep is timed too and lengthened until it outlasts the enqueue; fn
+    must not synchronise, and reps calls of it must fit in the launch queue
+    (past ~1,000 pending launches the host blocks on the sleep itself)."""
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    cycles = 200_000_000
+    while True:
+        slept, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        slept.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms < slept.elapsed_time(start):
+            return start.elapsed_time(end) / reps
+        if cycles > 4_000_000_000:
+            raise SystemExit(f"timing: the host's enqueue ({host_ms:.1f} ms) outlasts a "
+                             f"{slept.elapsed_time(start):.1f} ms sleep")
+        cycles *= 4
 
 
 def _wall_ms(fn, reps: int) -> float:
@@ -369,8 +400,8 @@ def check_point_kernels(device, widths, reps: int) -> dict:
 
 
 # the rows kernels' gate before the slot: 108 and 6,912 rows (one Fq12
-# product's 54 Fq products on 2 and 128 lanes), one row (pow_rows), the
-# splits n_add 0, 1, n/2, n-1 (n_add = n is the plain add), and Fq2
+# product's 54 Fq products on 2 and 128 lanes), one row, the splits n_add 0
+# (the subtraction), 1, n/2, n-1 (n_add = n is the plain add), and Fq2
 # products at 3, 18, 36 and 2,304 (the committee slot's widest)
 ROWS_WIDTHS = (108, 6912)
 FQ2_WIDTHS = (3, 18, 36, 2304)
@@ -378,7 +409,6 @@ FQ2_TIMED = (36, 2304)
 ROWS_GATE = {
     ("fe_mul_rows", 1): (1, *ROWS_WIDTHS),
     ("fe_add_rows", 1): (*ROWS_WIDTHS, *((n, k) for n in ROWS_WIDTHS for k in (0, 1, n // 2, n - 1))),
-    ("fe_sub_rows", 1): ROWS_WIDTHS,
     ("fe_mul_rows", 2): FQ2_WIDTHS,
 }
 
@@ -402,8 +432,8 @@ def _hold(label: str, got, want) -> int:
 def _rows_case(name: str, E: int, key, device):
     """One rows case on seeded rows, edges first: (label, width, kernel fn,
     plain fn, bytes, operations); key is a width (Fq2 rows for E = 2) or,
-    for fe_add_rows, (width, n_add). The squaring of fe_mul_rows<2> and
-    the negation of fe_sub_rows are held here too."""
+    for fe_add_rows, (width, n_add). The squaring of fe_mul_rows<2> and,
+    at n_add = 0, the negation 0 - a are held here too."""
     n, n_add = key if isinstance(key, tuple) else (key, None)
     rng = random.Random(f"{name}<{E}> {n} {n_add}")
     a, b = _rand_rows(rng, n, device, E), _rand_rows(rng, n, device, E)
@@ -417,11 +447,11 @@ def _rows_case(name: str, E: int, key, device):
     if name == "fe_mul_rows":
         return (label, n, lambda: (RW.mont_mul_rows(a, b),), lambda: (F.rows_mul_plain(a, b),),
                 3 * 48 * n, n * OPS_PER_FQ_PRODUCT)
-    if name == "fe_sub_rows":
+    if n_add == 0:
         neg = RW.fq_neg(a)
         _hold(f"{label} (negation)", (neg,), (F.rows_sub_plain(torch.zeros_like(a), a),))
         if bool((neg[0] != 0).any()):
-            raise SystemExit("fe_sub_rows negation of 0 is not 0")
+            raise SystemExit("fe_add_rows negation of 0 is not 0")
         return (label, n, lambda: (RW.sub_rows(a, b),), lambda: (F.rows_sub_plain(a, b),),
                 3 * 48 * n, n * OPS_PER_FQ_ADD)
     if n_add is None:
@@ -471,10 +501,31 @@ def check_rows_kernels(device, cases: dict, reps: int = 0) -> dict:
     return rows
 
 
+def path_counts() -> dict:
+    """What the counters hold since their last reset: every kernel's
+    launches by width, fe_add_rows' subtracting launches by (width, n_add)
+    and fe_pow's by (layout, width, digits)."""
+    return {"widths": {name: dict(k.widths) for name, k in CP.KERNELS.items()},
+            "splits": dict(CP.KERNELS["fe_add_rows"].splits),
+            "exponents": dict(CP.KERNELS["fe_pow"].exponents)}
+
+
+def other_cases(run: dict, slot: dict) -> tuple[dict, dict]:
+    """The rows and fe_pow cases that `run` launched and the headline
+    slot's run did not: (rows cases as path_rows_cases gives them, fe_pow
+    cases as check_pow takes them), each at the run's launches."""
+    seen = path_rows_cases(slot)
+    rows = {key: {k: c for k, c in keys.items() if c and k not in seen[key]}
+            for key, keys in path_rows_cases(run).items()}
+    return ({key: keys for key, keys in rows.items() if keys},
+            {k: c for k, c in run["exponents"].items() if k not in slot["exponents"]})
+
+
 def path_rows_cases(slot: dict) -> dict:
-    """The rows cases of the main path's run (its launches by width; a
-    split fe_add_rows launch by (width, n_add)), and the gate's widths
-    without splits at 0 launches, so that they are timed as well."""
+    """The rows cases of the main path's run (its launches by width; an
+    fe_add_rows launch that subtracts, split or at n_add = 0, by (width,
+    n_add)), and the gate's widths without splits at 0 launches, so that
+    they are timed as well."""
     cases = {}
     for (name, E), gate in ROWS_GATE.items():
         keys = {w: 0 for w in gate if not isinstance(w, tuple)}
@@ -487,6 +538,178 @@ def path_rows_cases(slot: dict) -> dict:
                 keys[(n, n_add)] = c
         cases[(name, E)] = {k: c for k, c in keys.items() if c or k in gate}
     return cases
+
+
+# ---------------------------------------------------------------------------
+# fe_pow: one launch per power scan
+# ---------------------------------------------------------------------------
+
+# the exponents of the main path's scans: Fq sqrt (G1 decompression, the G2
+# root's norm, hash-to-G2), the G2 root's (p-3)/4, inversion, Euler's test
+POW_EXPS = {"sqrt": (PF.P + 1) // 4, "e34": (PF.P - 3) // 4, "inv": PF.P - 2,
+            "euler": (PF.P - 1) // 2}
+# the gate before the slot: (layout, width, exponent)
+POW_GATE = (("plane", 4096, "e34"), ("rows", 1, "inv"))
+
+
+def pow_case(layout: str, n: int, name: str) -> tuple:
+    return (layout, n, tuple(CP.pow_digits(CP.exp_digits(POW_EXPS[name]))))
+
+
+def _exponent(digits) -> int:
+    e = 0
+    for d in digits:
+        e = (e << CP.POW_WINDOW) | d
+    return e
+
+
+def _pow_ops(digits) -> int:
+    """32-bit multiply-adds of one scan per element, as fe_pow runs it: the
+    table (14 products), then 4 squarings per further window and a product
+    per nonzero one."""
+    squares = CP.POW_WINDOW * (len(digits) - 1)
+    products = 14 + sum(1 for d in digits[1:] if d)
+    return squares * OPS_PER_FQ_SQUARE + products * OPS_PER_FQ_PRODUCT
+
+
+def _pow_input(layout: str, n: int, device, seed: str) -> torch.Tensor:
+    """n seeded Fq elements, the edges 0, 1, p-1, R mod p first: a
+    (1, 12, n) plane or (n, 12) rows."""
+    plane = _rand_plane(random.Random(seed), 1, max(n, 4), device)[..., :n].contiguous()
+    return plane if layout == "plane" else plane[0].t().contiguous()
+
+
+def mont_one_plane(a: torch.Tensor) -> torch.Tensor:
+    """Montgomery 1 in every lane of a's (1, 12, n) shape."""
+    one = torch.tensor(F.fq_from_int(1), dtype=torch.int32, device=a.device)
+    return one.view(1, F.LIMBS, 1).expand(*a.shape).contiguous()
+
+
+def pow_loop(lib, layout: str, a: torch.Tensor, e: int, one) -> torch.Tensor:
+    """The per-step loop that fe_pow replaces, launched from `lib` outside
+    the counters. Planes: cuda_plane.pow_scan as it was, a 16-entry table
+    from one (14 fe_mul<1> products), then for each of the exponent's 96
+    windows 4 squarings and one table product (494 launches). Rows:
+    rows.pow_rows as it was, the table, then from the first nonzero window
+    4 squarings and, where the window is not 0, one product, on
+    fe_mul_rows<1>. `one` is mont_one_plane(a) for planes (made outside a
+    timed region: its host-to-device copy would wait for the card), None
+    for rows."""
+    if layout == "plane":
+        def mul(x, y):
+            return CP.call(lib, "fe_mul", 1, (x, y), 1)[0]
+
+        tab = [one, a]
+        for _ in range(2, 16):
+            tab.append(mul(tab[-1], a))
+        acc = one
+        for d in CP.exp_digits(e):
+            for _ in range(CP.POW_WINDOW):
+                acc = mul(acc, acc)
+            acc = mul(acc, tab[d])
+        return acc
+
+    def mul(x, y):
+        out = torch.empty_like(x)
+        if lib.charon_fe_mul_rows(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.shape[0], 1,
+                                  torch.cuda.current_stream().cuda_stream):
+            raise SystemExit("fe_mul_rows<1> did not launch")
+        return out
+
+    digits = CP.pow_digits(CP.exp_digits(e))
+    tab = [None, a]
+    for _ in range(2, 16):
+        tab.append(mul(tab[-1], a))
+    acc = tab[digits[0]]
+    for d in digits[1:]:
+        for _ in range(CP.POW_WINDOW):
+            acc = mul(acc, acc)
+        if d:
+            acc = mul(acc, tab[d])
+    return acc
+
+
+def check_pow(device, cases: dict, reps: int = 0) -> dict:
+    """fe_pow in both layouts against its plain version (field.pow_plain
+    over the layout's plain product) on seeded elements, edges first, and
+    the edges against host pow(): cases maps (layout, width, digits) to the
+    main path's launches. With reps each case is also timed, beside the
+    per-step loop it replaces (device us back to back, and the loop's
+    synchronised host wall); returns per layout the JSON row of its most
+    launched case, with every case in by_width."""
+    names = {_exponent(pow_case("plane", 1, k)[2]): k for k in POW_EXPS}
+    rows = {}
+    for layout in ("plane", "rows"):
+        timed = []
+        for (lay, n, digits), launches in sorted(cases.items(), key=lambda kv: -kv[1]):
+            if lay != layout:
+                continue
+            e = _exponent(digits)
+            label = f"fe_pow<{layout}> n={n} e={names.get(e, hex(e))}"
+            a = _pow_input(layout, n, device, label)
+            if layout == "plane":
+                def kern(a=a, digits=digits):
+                    return (CP.pow_scan(a, digits),)
+
+                def plain(a=a, digits=digits):
+                    return (F.pow_plain(a, list(digits), lambda x, y: F.fe_mul_plain(x, y, 1)),)
+            else:
+                def kern(a=a, e=e):
+                    return (RW.pow_rows(a, e),)
+
+                def plain(a=a, digits=digits):
+                    return (F.pow_plain(a, list(digits), F.rows_mul_plain),)
+            got = kern()
+            err = _hold(label, got, plain())
+            flat = got[0].reshape(-1, F.LIMBS) if layout == "rows" else got[0][0].t()
+            vals = [0, 1, PF.P - 1, (1 << 384) % PF.P][:n]
+            if F.fq_ints(flat[:len(vals)].cpu().numpy()) != [pow(v, e, PF.P) for v in vals]:
+                raise SystemExit(f"kernel {label} misses host pow() on the edges")
+            if not reps:
+                log(f"kernel {label}: bit-equal to plain, edges equal to host pow()")
+                continue
+            lib = CP._library()
+
+            one = mont_one_plane(a) if layout == "plane" else None
+
+            def loop(a=a, e=e, lib=lib, one=one):
+                return (pow_loop(lib, layout, a, e, one),)
+
+            _hold(f"{label} (the per-step loop)", loop(), plain())
+            bound_ms, by = _bound(2 * 48 * n, n * _pow_ops(digits))
+            row = {"width": n, "exponent": names.get(e, hex(e)), "launches": launches,
+                   "ms": _time_ms(kern, reps), "loop_ms": _time_ms(loop, 1),
+                   "wall_ms": _wall_ms(kern, reps), "loop_wall_ms": _wall_ms(loop, 3),
+                   "plain_ms": _wall_ms(plain, 1), "bound_ms": bound_ms, "bound_by": by,
+                   "max_abs_err": err}
+            timed.append(row)
+            log(f"kernel {label}: bit-equal to plain (max_abs_err 0); {launches} launches on the "
+                f"main path; {row['ms'] * 1e3:.1f} us/launch (host wall {row['wall_ms'] * 1e3:.1f}"
+                f" us) against the per-step loop's {row['loop_ms'] * 1e3:.1f} us of device time "
+                f"(host wall {row['loop_wall_ms'] * 1e3:.1f} us); plain {row['plain_ms']:.1f} ms; "
+                f"bound {bound_ms * 1e3:.2f} us ({by})")
+        if not timed:
+            continue
+        top = timed[0]
+        rows[("fe_pow", layout)] = {
+            "name": f"fe_pow<{layout}>", "route": "cuda", "source": CP.KERNELS["fe_pow"].source,
+            "replaces": CP.KERNELS["fe_pow"].site(layout), "launches": 0, "library_ms": None,
+            **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "width", "exponent", "loop_ms", "loop_wall_ms")},
+            "by_width": [{k: v for k, v in r.items() if k not in ("bound_by", "max_abs_err")}
+                         for r in timed]}
+    torch.cuda.synchronize()
+    return rows
+
+
+def pow_shape() -> str:
+    """fe_pow's launch shape, from the constants of the kernel source."""
+    with open(CP.SOURCES[0]) as f:
+        src = f.read()
+    block, table = (int(re.search(rf"^constexpr int {name} = (\d+);", src, re.M).group(1))
+                    for name in ("kPowBlock", "kPowTable"))
+    return (f"fe_pow: {block} threads a block, a table of {table} entries: "
+            f"{table * 48 * block} B of dynamic shared memory a block")
 
 
 # ---------------------------------------------------------------------------
@@ -562,12 +785,16 @@ def off_curve_x(sig: bytes) -> bytes:
             return bytes(body)
 
 
-def first_slot_steps(batches, pubkeys, datas, device) -> list:
-    """The first slot step by step, with a fresh pk-plane cache and a fresh
-    H(m) cache: plane_agg.fused_slot's step hook for the dispatch, then
-    readback, emit and the device verify (H(m) miss). [(step, launches,
-    ms)]: each step's launches from the wrapper counters and its wall time
-    up to a synchronise."""
+def first_slot_steps(batches, pubkeys, datas, device, pk_cache=None, h2c=None,
+                     verify: str = "device") -> list:
+    """One slot step by step: plane_agg.fused_slot's step hook for the
+    dispatch, then readback, emit and the verify on the given rung. Fresh
+    caches (the default) make it a first slot (pk-plane miss, H(m) hashed);
+    caches a slot has filled, a steady one. [(step, launches, ms)]: each
+    step's launches from the wrapper counters and its wall time up to a
+    synchronise."""
+    pk_cache = PA.PkPlaneCache() if pk_cache is None else pk_cache
+    h2c = PA.H2CCache() if h2c is None else h2c
     rows, last = [], [0.0]
 
     def mark(name: str) -> None:
@@ -582,27 +809,33 @@ def first_slot_steps(batches, pubkeys, datas, device) -> list:
     last[0] = time.perf_counter()
     layout = PA.layout_slots(batches)
     mark("slot layout (host)")
-    state = PA.fused_slot(layout, pubkeys, datas, device, PA.PkPlaneCache(), mark=mark)
+    state = PA.fused_slot(layout, pubkeys, datas, device, pk_cache, mark=mark)
     if state[0] != "pending":
         raise SystemExit(f"step run: the slot ended as {state[0]!r}")
     hstate = PA.readback(state)
     mark("readback")
     _out, S, pts = PA.host_emit(hstate, device)
     mark("emit: bytes + host folds")
-    if not PA.pairing_finish(S, pts, PA.H2CCache(), {}, "device", device):
-        raise SystemExit("step run: device verify False on valid aggregates")
-    mark("device verify: hash-to-G2 of the message + pairing check")
+    misses = h2c.misses
+    if not PA.pairing_finish(S, pts, h2c, {}, verify, device):
+        raise SystemExit(f"step run: {verify} verify False on valid aggregates")
+    mark(f"{verify} verify (H(m) {'hashed' if h2c.misses > misses else 'cached'})")
     return rows
 
 
 def slot_steps(batches, pubkeys, datas, device, total: int) -> None:
-    """Log the first slot's steps; their launches must add up to `total`,
-    the first slot's count."""
-    rows = first_slot_steps(batches, pubkeys, datas, device)
-    for name, n, ms in rows:
-        log(f"step {name}: {n} launches, {ms:.2f} ms (synchronised wall)")
-    if sum(n for _, n, _ in rows) != total:
-        raise SystemExit(f"steps launched {sum(n for _, n, _ in rows)}, the slot {total}")
+    """Log the steps of a first and a steady slot on each verify rung; the
+    first device-verified slot's launches must add up to `total`, the first
+    slot's count."""
+    for verify in ("device", "native"):
+        pk_cache, h2c = PA.PkPlaneCache(), PA.H2CCache()
+        for kind in ("first", "steady"):
+            rows = first_slot_steps(batches, pubkeys, datas, device, pk_cache, h2c, verify)
+            for name, n, ms in rows:
+                log(f"step ({kind} slot, verify={verify}) {name}: {n} launches, {ms:.2f} ms "
+                    f"(synchronised wall)")
+            if (verify, kind) == ("device", "first") and sum(n for _, n, _ in rows) != total:
+                raise SystemExit(f"steps launched {sum(n for _, n, _ in rows)}, the slot {total}")
 
 
 def _width_text(widths: dict) -> str:
@@ -627,8 +860,8 @@ def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
     log(f"slot warm (first: pk plane decoded, H(m) hashed on the device, device verify): "
         f"{warm_s:.3f} s, verify {impl.last_times.verify:.4f} s; launches "
         + ", ".join(f"{k}<{E}>={c}" for (k, E), c in launches.items()))
-    widths = {name: dict(k.widths) for name, k in CP.KERNELS.items()}
-    splits = dict(CP.KERNELS["fe_add_rows"].splits)
+    counts = path_counts()
+    widths = counts["widths"]
     log(f"slot warm point launches by width: "
         f"{_width_text({k: widths[k] for k in ('pt_double', 'pt_add')})}")
 
@@ -689,7 +922,8 @@ def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
             raise SystemExit(f"bad encoding did not raise ({want_text})")
         log(f"bad encoding: ValueError({want_text!r})")
     log(f"pairing_path (pairs per rung): {impl.pairing_path}")
-    return {"launches": launches, "widths": widths, "splits": splits, "median_s": med,
+    return {"launches": launches, **counts,
+            "median_s": med,
             "times_s": times, "pairing_share": statistics.median(shares), "tampered": tampered}
 
 
@@ -724,10 +958,10 @@ def slot_pairs(impl: TorchImpl, batches, pubkeys, datas):
     return S, live
 
 
-# a steady 2-pair device verify's rows launches (ops/pairing.py: 6,069, of
-# which fe_mul_rows<1> 555, fe_mul_rows<2> 699, fe_add_rows 3,345 (969 of
-# them split) and fe_sub_rows 1,470), with a margin
-STEADY_VERIFY_MAX_LAUNCHES = 6200
+# a steady 2-pair device verify's rows launches (ops/pairing.py: 4,778, of
+# which fe_mul_rows<1> 70, fe_mul_rows<2> 699, fe_add_rows 4,008 (1,519 of
+# them split, 920 at n_add = 0) and fe_pow<rows> 1), with a margin
+STEADY_VERIFY_MAX_LAUNCHES = 4800
 
 
 def verify_launches(impl: TorchImpl, S, live, label: str) -> dict:
@@ -742,9 +976,11 @@ def verify_launches(impl: TorchImpl, S, live, label: str) -> dict:
               for k, v in CP.KERNELS.items() for E in v.variants if v.launches[E]}
     if not ok:
         raise SystemExit(f"{label} device verify False on valid aggregates")
+    splits = CP.KERNELS["fe_add_rows"].splits
     log(f"{label} device verify: {dt:.4f} s, {sum(counts.values())} launches: "
         + ", ".join(f"{k}={c}" for k, c in counts.items())
-        + f" (fe_add_rows split: {sum(CP.KERNELS['fe_add_rows'].splits.values())})")
+        + f" (fe_add_rows split: {sum(c for (_n, k), c in splits.items() if k)}, at n_add 0: "
+        f"{sum(c for (_n, k), c in splits.items() if not k)})")
     return counts
 
 
@@ -764,10 +1000,12 @@ def verify_host_ops(impl: TorchImpl, S, live) -> None:
         + ", ".join(f"{k} {v}" for k, v in ops.most_common(8)))
 
 
-def committee_slot(pool, jobs, pubkeys) -> None:
+def committee_slot(pool, jobs, pubkeys) -> dict:
     """1000 x 4-of-6 over 64 committee roots: device verify against the
     native rung, the 64 device H(m) against ct_hash_to_g2, then the chunked
-    1,040-pair check built from this slot's 65 pairs."""
+    1,040-pair check built from this slot's 65 pairs. Returns what the
+    counters hold of all of it (path_counts), so that every case it
+    launched is held against its plain version."""
     k = len(COMMITTEE_MSGS)
     datas = [COMMITTEE_MSGS[v % k] for v in range(N_VALIDATORS)]
     t0 = time.perf_counter()
@@ -779,8 +1017,9 @@ def committee_slot(pool, jobs, pubkeys) -> None:
     t0 = time.perf_counter()
     _aggs, ok = impl.threshold_aggregate_verify_batch(batches, pubkeys, datas)
     first = time.perf_counter() - t0
-    rows_launches = sum(sum(CP.KERNELS[k].launches.values())
-                        for k in ("fe_mul_rows", "fe_add_rows", "fe_sub_rows"))
+    rows_launches = (sum(sum(CP.KERNELS[k].launches.values())
+                         for k in ("fe_mul_rows", "fe_add_rows"))
+                     + CP.KERNELS["fe_pow"].launches["rows"])
     widths = {name: dict(CP.KERNELS[name].widths) for name in ("pt_double", "pt_add")}
     _aggs, ok_n = native_impl.threshold_aggregate_verify_batch(batches, pubkeys, datas)
     if not (ok and ok_n):
@@ -831,6 +1070,7 @@ def committee_slot(pool, jobs, pubkeys) -> None:
     spans = [hi - lo for lo, hi in PR.buckets.chunk_spans(n, PR.MAX_PAIR_TILE)]
     log(f"chunked check {n} pairs (chunks {spans}): True in {dt:.3f} s; pair {last} of the "
         "last chunk tampered gives False")
+    return path_counts()
 
 
 def rfc_vector(device) -> None:
@@ -933,15 +1173,16 @@ def _ab_build(name: str, src_dir: str, constants: dict, patches) -> tuple:
 
 def ab_rows(libs: dict, reps: int, dev) -> None:
     """Rows kernels of every variant in turns, each held against its plain
-    version: fe_mul_rows<1>, fe_add_rows and fe_sub_rows at ROWS_WIDTHS
-    rows, fe_mul_rows<2> at FQ2_TIMED products (launched through each
-    library's C interface, which leaves the launch counters alone)."""
+    version: fe_mul_rows<1> and fe_add_rows (also at n_add = 0) at
+    ROWS_WIDTHS rows, fe_mul_rows<2> at FQ2_TIMED products (launched
+    through each library's C interface, which leaves the launch counters
+    alone)."""
     rng = random.Random(2468)
     names = [n for n in libs if n not in DIAGNOSTICS]
     cases = [(kernel, n, E, plain, args) for n in ROWS_WIDTHS
              for kernel, E, plain, args in (("fe_mul_rows", 1, F.rows_mul_plain, (1,)),
                                             ("fe_add_rows", 1, F.rows_add_plain, (n,)),
-                                            ("fe_sub_rows", 1, F.rows_sub_plain, ()))]
+                                            ("fe_add_rows", 1, F.rows_sub_plain, (0,)))]
     cases += [("fe_mul_rows", k, 2, F.rows_mul2_plain, (2,)) for k in FQ2_TIMED]
     for kernel, n, E, plain, args in cases:
         a, b = _rand_rows(rng, n, dev, E), _rand_rows(rng, n, dev, E)
@@ -955,9 +1196,36 @@ def ab_rows(libs: dict, reps: int, dev) -> None:
             fn()
             _hold(f"{name} {kernel}<{E}> n={n}", (out,), (want,))
             times[name].append(_time_ms(fn, reps) * 1e3)
-        label = f"{kernel}<{E}>" if kernel == "fe_mul_rows" else kernel
+        label = f"{kernel}<{E}>" if kernel == "fe_mul_rows" else f"{kernel} n_add={args[0]}"
         log(f"rows A/B {label} n={n}: " + "; ".join(
             f"{name} {sum(t) / len(t):.2f}" for name, t in times.items()) + " us")
+
+
+# fe_pow's A/B cases: (layout, width, exponent)
+POW_AB = (("plane", 12288, "e34"), ("plane", 4096, "e34"), ("plane", 1024, "e34"),
+          ("rows", 1, "inv"), ("rows", 8, "inv"))
+
+
+def ab_pow(libs: dict, reps: int, dev) -> None:
+    """fe_pow of every variant in turns at POW_AB, each held bit for bit
+    against its plain version (through each library's C interface)."""
+    names = [n for n in libs if n not in DIAGNOSTICS]
+    for layout, n, ename in POW_AB:
+        _lay, _n, digits = pow_case(layout, n, ename)
+        a = _pow_input(layout, n, dev, f"ab {layout} {n}")
+        mul = (lambda x, y: F.fe_mul_plain(x, y, 1)) if layout == "plane" else F.rows_mul_plain
+        want, out = F.pow_plain(a, list(digits), mul), torch.empty_like(a)
+        times = {name: [] for name in names}
+        for name in names + names[::-1]:
+            def fn(fn=libs[name].charon_fe_pow):
+                if fn(CP.POW_LAYOUTS[layout], a.data_ptr(), out.data_ptr(), n, bytes(digits),
+                      len(digits), torch.cuda.current_stream().cuda_stream):
+                    raise SystemExit(f"{name} fe_pow<{layout}> did not launch")
+            fn()
+            _hold(f"{name} fe_pow<{layout}> n={n}", (out,), (want,))
+            times[name].append(_time_ms(fn, reps) * 1e3)
+        log(f"fe_pow A/B <{layout}> n={n} e={ename}: " + "; ".join(
+            f"{name} {sum(t) / len(t):.1f}" for name, t in times.items()) + " us")
 
 
 def _quartiles(xs: list) -> str:
@@ -1038,7 +1306,9 @@ def ab_main(argv: list[str]) -> int:
     ap.add_argument("--diagnose", action="store_true")
     ap.add_argument("--slot-rounds", type=int, default=0)
     ap.add_argument("--widths", default=",".join(map(str, POINT_WIDTHS)))
+    ap.add_argument("--kernels", default="points,rows,pow")
     args = ap.parse_args(argv)
+    groups = set(args.kernels.split(","))
     jobs = []
     for v in args.variants:
         name, _, rest = v.partition("=")
@@ -1058,8 +1328,12 @@ def ab_main(argv: list[str]) -> int:
         for row in ptxas_summary(text):
             log(f"ptxas {name}: {row}")
         libs[name] = CP.bind(path)
-    ab_points(libs, [int(w) for w in args.widths.split(",")], reps=50)
-    ab_rows(libs, 50, torch.device("cuda:0"))
+    if "points" in groups:
+        ab_points(libs, [int(w) for w in args.widths.split(",")], reps=50)
+    if "rows" in groups:
+        ab_rows(libs, 50, torch.device("cuda:0"))
+    if "pow" in groups:
+        ab_pow(libs, 10, torch.device("cuda:0"))
     if args.slot_rounds:
         ab_slots(libs, args.slot_rounds)
     log(nvidia_smi_line())
@@ -1098,8 +1372,11 @@ def main(argv: list[str]) -> int:
             rows[(name, E)] = dict(pt_rows[(name, E, main_width)], by_width=[
                 {k: pt_rows[(name, E, n)][k] for k in ("width", "ms", "plain_ms", "bound_ms")}
                 for n in POINT_WIDTHS])
-    # the rows kernels' gate; they are timed at the main path's widths below
+    # the rows kernels' and fe_pow's gates; they are timed at the main
+    # path's widths below
     check_rows_kernels(device, {key: dict.fromkeys(keys, 0) for key, keys in ROWS_GATE.items()})
+    log(pow_shape())
+    check_pow(device, {pow_case(*c): 0 for c in POW_GATE})
 
     with ThreadPoolExecutor(max_workers=8) as pool:
         t0 = time.perf_counter()
@@ -1110,6 +1387,8 @@ def main(argv: list[str]) -> int:
         datas = [MSG] * N_VALIDATORS
         slot = run_slot(impl, batches, pubkeys, datas, pool)
         rows.update(check_rows_kernels(device, path_rows_cases(slot), reps=50))
+        rows.update(check_pow(device, {**{pow_case(*c): 0 for c in POW_GATE},
+                                       **slot["exponents"]}, reps=20))
         native_twin(batches, pubkeys, datas, slot["tampered"])
         S, live = slot_pairs(impl, batches, pubkeys, datas)
         verify_launches(TorchImpl(), S, live, "first (H(m) miss)")
@@ -1118,7 +1397,13 @@ def main(argv: list[str]) -> int:
         if sum(steady.values()) > STEADY_VERIFY_MAX_LAUNCHES:
             raise SystemExit(f"a steady device verify launched {sum(steady.values())} kernels, "
                              f"more than {STEADY_VERIFY_MAX_LAUNCHES}")
-        committee_slot(pool, jobs, pubkeys)
+        # the cases the committee slot and the chunked check launched that
+        # the headline slot did not (h2c's scans and the tower at 64
+        # messages, the pairing at 65 and 1,040 pairs), held and timed too
+        more_rows, more_pow = other_cases(committee_slot(pool, jobs, pubkeys), slot)
+        for key, row in {**check_rows_kernels(device, more_rows, reps=50),
+                         **check_pow(device, more_pow, reps=20)}.items():
+            rows[key]["committee_by_width"] = row["by_width"]
     rfc_vector(device)
     torch.cuda.synchronize()
     if "--profile" in argv:

@@ -96,6 +96,25 @@ def test_plain_unified_add_matches_the_jax_package(E):
     assert CV.ints_from_port(got[2])[9] in (0, (0, 0))
 
 
+@pytest.mark.parametrize("e", [(RPF.P + 1) // 4, (RPF.P - 3) // 4, RPF.P - 2, (RPF.P - 1) // 2],
+                         ids=["sqrt", "e34", "inv", "euler"])
+def test_pow_scan_matches_the_jax_package(e):
+    """fe_pow's plane plain version (cuda_plane.pow_scan on a CPU plane) on 8
+    lanes, the edges 0, 1, p−1, R mod p first, against the reference's
+    _pow_scan over the same window digits (its CPU path); exact. One
+    fe_pow<plane> call, no per-step fe_mul call."""
+    rng = random.Random(8)
+    vals = [0, 1, RPF.P - 1, (1 << 384) % RPF.P] + [rng.randrange(RPF.P) for _ in range(4)]
+    ref = PP.to_plane(np.stack([RF.fq_from_int(v) for v in vals]), 1)
+    want = np.asarray(PP._pow_scan(jnp.asarray(ref), jnp.asarray(PP.exp_digits(e))))
+    CP.reset_counts()
+    got = CP.pow_scan(CV.planes_from_jax(ref), CP.exp_digits(e))
+    assert torch.equal(got, CV.planes_from_jax(want))
+    assert CV.ints_from_port(got)[:len(vals)] == [pow(v, e, RPF.P) for v in vals]
+    assert CP.KERNELS["fe_pow"].plain_calls == {"plane": 1, "rows": 0}
+    assert CP.KERNELS["fe_mul"].plain_calls == {1: 0, 2: 0}
+
+
 def test_pow_scan_is_a_fixed_exponent_power():
     rng = random.Random(7)
     vals = [0, 1, RPF.P - 1] + [rng.randrange(RPF.P) for _ in range(5)]

@@ -86,6 +86,8 @@ def test_rfc9380_vector_through_the_device_map(mapped):
     assert calls["pt_double"][2] == 635
     assert calls["pt_add"][2] == 1 + 304
     assert calls["fe_mul_rows"][1] > 0
+    # its six power scans (five p-sized, the affine inversion) one fe_pow each
+    assert calls["fe_pow"] == {"plane": 0, "rows": 6}
 
 
 def test_device_map_matches_host_and_native(mapped):

@@ -147,14 +147,17 @@ def test_pairing_check_matches_native(n, tampered, pair_sets):
     assert got is (not tampered)
     assert got == _native(g1, g2)
     if n == 2:
-        # one steady 2-pair device verify: 6,069 rows calls, each a launch on
+        # one steady 2-pair device verify: 4,778 rows calls, each a launch on
         # the card (an Fq2 product is one fe_mul_rows<2>; a level's
-        # independent adds and subs, as the ξ products, one split fe_add_rows)
+        # independent adds, ξ products and subs one split fe_add_rows, a
+        # subtraction fe_add_rows at n_add = 0; the Fq inversion one fe_pow)
         assert {k: dict(CP.KERNELS[k].plain_calls)
-                for k in ("fe_mul_rows", "fe_add_rows", "fe_sub_rows")} == {
-            "fe_mul_rows": {1: 555, 2: 699}, "fe_add_rows": {1: 3345},
-            "fe_sub_rows": {1: 1470}}
-        assert sum(CP.KERNELS["fe_add_rows"].splits.values()) == 969
+                for k in ("fe_mul_rows", "fe_add_rows", "fe_pow")} == {
+            "fe_mul_rows": {1: 70, 2: 699}, "fe_add_rows": {1: 4008},
+            "fe_pow": {"plane": 0, "rows": 1}}
+        splits = CP.KERNELS["fe_add_rows"].splits
+        assert sum(c for (_n, k), c in splits.items() if k > 0) == 1519
+        assert sum(c for (_n, k), c in splits.items() if k == 0) == 920
     assert CP.KERNELS["fe_mul_rows"].plain_calls[2] > 0
 
 

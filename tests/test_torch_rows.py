@@ -1,11 +1,13 @@
 """Port rows field plane vs the JAX package: the plain versions of the
-fe_mul_rows (E = 1 and the whole Fq2 product, E = 2), fe_add_rows (with its
-add/sub split) and fe_sub_rows kernels (ops/rows.py on CPU tensors) against
-charon_tpu.ops.field's fq_mont_mul / fq_add / fq_sub / fq_neg and
-charon_tpu.ops.curve's _fq2_mul_many, and the port's seam (_fq_mul_many,
-_fq2_mul_many) against charon_tpu.ops.curve's, on the same seeded inputs
-through ops/convert.py, with exact equality; plus the wrappers' input checks
-and the windowed power.
+fe_mul_rows (E = 1 and the whole Fq2 product, E = 2) and fe_add_rows (with
+its add/sub split; at n_add = 0 the subtraction and negation) kernels
+(ops/rows.py on CPU tensors) against charon_tpu.ops.field's fq_mont_mul /
+fq_add / fq_sub / fq_neg and charon_tpu.ops.curve's _fq2_mul_many, the
+port's seam (_fq_mul_many, _fq2_mul_many) against charon_tpu.ops.curve's,
+and fe_pow's rows plain version (rows.pow_rows) against the reference's
+tower.fq_inv and h2c._fq_pow_scan, on the same seeded inputs through
+ops/convert.py, with exact equality; plus the wrappers' input checks and
+the power scan's host digits.
 
 The reference's field primitives are run under jax.jit (each compiled once
 per shape): they are the same functions, and called eagerly their scans
@@ -23,6 +25,8 @@ import torch
 import jax.numpy as jnp
 from charon_tpu.ops import curve as RC
 from charon_tpu.ops import field as RF
+from charon_tpu.ops import h2c as RH
+from charon_tpu.ops import tower as RT
 from charon_tpu_torch.ops import convert as CV
 from charon_tpu_torch.ops import cuda_plane as CP
 from charon_tpu_torch.ops import field as F
@@ -82,7 +86,7 @@ def test_rows_ops_match_the_jax_package(op, jit_field):
         got, want = R.fq_neg(a), RF.fq_neg(ja)
     assert got.shape == a.shape and got.dtype == torch.int32
     assert np.array_equal(CV.rows_to_jax(got), np.asarray(want))
-    name = {"mul": "fe_mul_rows", "add": "fe_add_rows"}.get(op, "fe_sub_rows")
+    name = "fe_mul_rows" if op == "mul" else "fe_add_rows"
     variants = CP.KERNELS[name].variants
     assert CP.KERNELS[name].plain_calls == {E: int(E == 1) for E in variants}
     assert CP.KERNELS[name].launches == {E: 0 for E in variants}
@@ -102,9 +106,8 @@ def test_seam_matches_the_jax_package(jit_field):
     CP.reset_counts()
     got2 = R._fq2_mul_many([(t["a2"], t["b2"]), (t["c2"], t["c2"]), (t["d2"], t["a2"])])
     # the whole Karatsuba product of every pair in one fe_mul_rows<2> launch
-    assert {k: dict(CP.KERNELS[k].plain_calls) for k in ("fe_add_rows", "fe_mul_rows",
-                                                         "fe_sub_rows")} \
-        == {"fe_add_rows": {1: 0}, "fe_mul_rows": {1: 0, 2: 1}, "fe_sub_rows": {1: 0}}
+    assert {k: dict(CP.KERNELS[k].plain_calls) for k in ("fe_add_rows", "fe_mul_rows")} \
+        == {"fe_add_rows": {1: 0}, "fe_mul_rows": {1: 0, 2: 1}}
     for g, w in zip(got1 + got2, want1 + want2):
         assert np.array_equal(CV.rows_to_jax(g), np.asarray(w))
 
@@ -140,7 +143,8 @@ def test_addsub_rows_matches_the_jax_package(n_add, jit_field):
     assert np.array_equal(CV.rows_to_jax(got), want)
     k = CP.KERNELS["fe_add_rows"]
     assert k.plain_calls == {1: 1} and k.launches == {1: 0}
-    assert dict(k.splits) == ({(24, 4 * n_add): 1} if 0 < n_add < 6 else {})
+    # every call that subtracts is counted by (width, n_add) in rows
+    assert dict(k.splits) == ({(24, 4 * n_add): 1} if n_add < 6 else {})
 
 
 def test_pow_rows_matches_host_powers():
@@ -151,6 +155,57 @@ def test_pow_rows_matches_host_powers():
         assert F.fq_ints(R.pow_rows(a, e).numpy()) == [pow(v, e, P) for v in vals]
     with pytest.raises(ValueError):
         R.pow_rows(a, 0)
+
+
+# the exponents of the port's power scans: Fq sqrt, the G2 root's (p−3)/4,
+# the inversion's p−2, and Euler's criterion
+POW_EXPONENTS = {"sqrt": (P + 1) // 4, "e34": (P - 3) // 4, "inv": P - 2, "euler": (P - 1) // 2}
+
+
+@pytest.mark.parametrize("name", sorted(POW_EXPONENTS))
+def test_pow_rows_matches_the_jax_package(name):
+    """fe_pow's rows plain version on 8 rows, the edges 0, 1, p−1, R mod p
+    first, against the reference's scans: tower.fq_inv for p−2 and
+    h2c._fq_pow_scan over the exponent's bits for the others; exact. One
+    fe_pow<rows> call, no per-step product call."""
+    e = POW_EXPONENTS[name]
+    rng = random.Random(37)
+    vals = EDGES + [rng.randrange(P) for _ in range(4)]
+    a_np = _ref_rows(vals, (8,))
+    ja = jnp.asarray(a_np)
+    want = jax.jit(RT.fq_inv)(ja) if name == "inv" else \
+        jax.jit(RH._fq_pow_scan)(ja, RH._bits_arr(e))
+    CP.reset_counts()
+    got = R.pow_rows(CV.rows_from_jax(a_np), e)
+    assert np.array_equal(CV.rows_to_jax(got), np.asarray(want))
+    assert F.fq_ints(got.numpy()) == [pow(v, e, P) for v in vals]
+    assert CP.KERNELS["fe_pow"].plain_calls == {"plane": 0, "rows": 1}
+    assert CP.KERNELS["fe_mul_rows"].plain_calls == {1: 0, 2: 0}
+
+
+def test_pow_digits_strip_leading_zeros_and_skip_zero_windows():
+    """fe_pow's host digits start at the exponent's first nonzero window;
+    its plain version squares four times per further window and multiplies
+    only where the window is not 0 (after the 14 table products)."""
+    for e in (P - 2, (P + 1) // 4, 0x10, 0x1000F, 3):
+        full = CP.exp_digits(e)
+        digits = CP.pow_digits(full)
+        lead = next(k for k, d in enumerate(full) if d)
+        assert digits == full[lead:] and digits[0] != 0
+        calls = []
+
+        def mul(x, y, calls=calls):
+            calls.append(1)
+            return F.rows_mul_plain(x, y)
+
+        a = torch.as_tensor(F.fq_rows([5, 7]))
+        got = F.pow_plain(a, digits, mul)
+        assert F.fq_ints(got.numpy()) == [pow(5, e, P), pow(7, e, P)]
+        assert len(calls) == 14 + 4 * (len(digits) - 1) + sum(1 for d in digits[1:] if d)
+    assert CP.pow_digits(CP.exp_digits(0x10)) == [1, 0]
+    for bad in ([0] * 96, [16], [-1]):
+        with pytest.raises(ValueError):
+            CP.pow_digits(bad)
 
 
 def test_row_wrappers_reject_what_the_kernels_do_not_take():
@@ -197,18 +252,43 @@ def test_chip_smoke_times_the_rows_kernels_where_the_main_path_launches_them():
                                    "chip_smoke.py"))
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
-    slot = {"widths": {"fe_mul_rows": {(1, 1): 485, (1, 8): 68, (2, 18): 351},
-                       "fe_add_rows": {(1, 12): 830 + 351, (1, 2): 353},
-                       "fe_sub_rows": {(1, 18): 702}},
-            "splits": {(12, 6): 351, (2, 1): 353}}
+    slot = {"widths": {"fe_mul_rows": {(1, 1): 11, (1, 8): 59, (2, 18): 351},
+                       "fe_add_rows": {(1, 12): 830 + 351 + 702, (1, 2): 353},
+                       "fe_pow": {("rows", 1): 1}},
+            "splits": {(12, 6): 351, (2, 1): 353, (12, 0): 702}}
     cases = chip_smoke.path_rows_cases(slot)
     assert cases == {
-        ("fe_mul_rows", 1): {1: 485, 108: 0, 6912: 0, 8: 68},
-        ("fe_add_rows", 1): {108: 0, 6912: 0, 12: 830, (12, 6): 351, (2, 1): 353},
-        ("fe_sub_rows", 1): {108: 0, 6912: 0, 18: 702},
+        ("fe_mul_rows", 1): {1: 11, 108: 0, 6912: 0, 8: 59},
+        ("fe_add_rows", 1): {108: 0, 6912: 0, 12: 830, (12, 6): 351, (2, 1): 353,
+                             (12, 0): 702},
         ("fe_mul_rows", 2): {3: 0, 18: 351, 36: 0, 2304: 0},
     }
     # every launch of the run is one case's
-    for name in ("fe_mul_rows", "fe_add_rows", "fe_sub_rows"):
+    for name in ("fe_mul_rows", "fe_add_rows"):
         assert sum(c for (n, E), keys in cases.items() if n == name for c in keys.values()) \
             == sum(slot["widths"][name].values())
+
+
+def test_chip_smoke_holds_what_the_committee_phase_launched_beyond_the_headline():
+    """chip_smoke.py holds and times every rows and fe_pow case that the
+    committee slot and the chunked check launched and the headline slot
+    did not: h2c's scans at 64 messages and the pairing's wider rows."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                   "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    inv = (1, 2, 3)
+    slot = {"widths": {"fe_mul_rows": {(1, 1): 11, (2, 18): 351},
+                       "fe_add_rows": {(1, 12): 830 + 351, (1, 2): 353}},
+            "splits": {(12, 6): 351, (2, 1): 353},
+            "exponents": {("rows", 1, inv): 1, ("plane", 4096, inv): 1}}
+    run = {"widths": {"fe_mul_rows": {(1, 1): 3, (1, 384): 5, (2, 18): 2, (2, 130): 7},
+                      "fe_add_rows": {(1, 12): 4, (1, 390): 9 + 6}},
+           "splits": {(390, 0): 6, (12, 6): 1},
+           "exponents": {("rows", 1, inv): 2, ("rows", 384, inv): 1, ("plane", 4096, inv): 1}}
+    rows, pows = chip_smoke.other_cases(run, slot)
+    assert rows == {("fe_mul_rows", 1): {384: 5}, ("fe_mul_rows", 2): {130: 7},
+                    ("fe_add_rows", 1): {390: 9, (390, 0): 6}}
+    assert pows == {("rows", 384, inv): 1}
+

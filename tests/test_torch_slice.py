@@ -182,13 +182,14 @@ def test_facade_threshold_aggregate_gives_native_bytes():
 # A verify of 3 pairs (bucket 4, H(m) cached): 63 doubling and 5 addition
 # steps, the two-level Fq12 fold and one final exponentiation. The device
 # hash-to-G2 of one batch: five p-sized power scans and the affine
-# inversion's, plus the SSWU, isogeny and affine products. Plain calls by
-# rows kernel.
-# by E: fe_mul_rows<2> is a whole Fq2 product, fe_add_rows also subtracts
-# past its split
-VERIFY_CALLS = {"fe_mul_rows": {1: 555, 2: 700}, "fe_add_rows": {1: 3351},
-                "fe_sub_rows": {1: 1473}}
-H2C_CALLS = {"fe_mul_rows": {1: 2908, 2: 18}, "fe_add_rows": {1: 12}, "fe_sub_rows": {1: 5}}
+# inversion's, one fe_pow<rows> each, plus the SSWU, isogeny and affine
+# products. Plain calls by rows kernel, by E (fe_mul_rows<2> is a whole Fq2
+# product, fe_add_rows also subtracts past its split, and at n_add = 0 is a
+# subtraction) or, for fe_pow, by layout
+VERIFY_CALLS = {"fe_mul_rows": {1: 70, 2: 700}, "fe_add_rows": {1: 4016},
+                "fe_pow": {"plane": 0, "rows": 1}}
+H2C_CALLS = {"fe_mul_rows": {1: 11, 2: 18}, "fe_add_rows": {1: 17},
+             "fe_pow": {"plane": 0, "rows": 6}}
 
 
 def test_one_slot_goes_through_every_kernel(slot):
@@ -201,12 +202,13 @@ def test_one_slot_goes_through_every_kernel(slot):
     doublings and 16 adds (the pk subgroup check). The device hash-to-G2
     adds its cofactor clear (635 doublings, 304 additions, and q0 + q1) to
     the G2 point ops; everything else of the verify runs on the rows
-    kernels. fe_mul<1> is dominated by four 494-product power scans (sqrt,
-    (p−3)/4, p−2, G1 sqrt)."""
+    kernels. The four plane power scans (the G2 partials' sqrt and (p−3)/4,
+    the affine p−2, the G1 sqrt) are one fe_pow<plane> call each."""
+    rows = {k: {E: c + H2C_CALLS[k][E] for E, c in v.items()} for k, v in VERIFY_CALLS.items()}
+    rows["fe_pow"]["plane"] = 4
     assert slot["calls"] == {
-        "fe_mul": {1: 2014, 2: 6}, "fe_add": {1: 6, 2: 1}, "fe_sub": {1: 7, 2: 1},
-        "pt_double": {1: 127, 2: 334 + 635}, "pt_add": {1: 16, 2: 106 + 305},
-        **{k: {E: c + H2C_CALLS[k][E] for E, c in v.items()} for k, v in VERIFY_CALLS.items()}}
+        "fe_mul": {1: 38, 2: 6}, "fe_add": {1: 6, 2: 1}, "fe_sub": {1: 7, 2: 1},
+        "pt_double": {1: 127, 2: 334 + 635}, "pt_add": {1: 16, 2: 106 + 305}, **rows}
     u2 = RPF.X_ABS * RPF.X_ABS
     assert slot["calls"]["pt_double"][1] == u2.bit_length() - 1
     assert slot["calls"]["pt_add"][1] == bin(u2).count("1") - 1
@@ -214,7 +216,7 @@ def test_one_slot_goes_through_every_kernel(slot):
 
 
 def test_one_verify_goes_through_the_rows_kernels(slot):
-    """A steady verify (H(m) cached) runs on the three rows kernels only."""
+    """A steady verify (H(m) cached) runs on the rows kernels only."""
     S, pts = slot["pairs"]
     CP.reset_counts()
     assert PA.pairing_finish(S, pts, slot["impl"].h2c, {}, "device", torch.device("cpu"))
