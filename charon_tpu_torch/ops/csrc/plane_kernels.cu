@@ -18,6 +18,12 @@
 //   fe_pow<L>    -> _pow_scan    (the fixed-exponent power scan over
 //                   _mul_call, whole, in one launch; on rows also the scans
 //                   of tower.fq_inv and h2c._fq_pow_scan)
+// and two chain the point steps of _kern_double and _kern_add, whole, in one
+// launch each, where the reference compiles the loop of steps as one program:
+//   pt_mul_shared<E>   -> _shared_mul_call (k*P for one host-known scalar;
+//                         also the cofactor clear of charon_tpu/ops/h2c.py)
+//   pt_mul_windowed<E> -> _scalar_mul_windowed (per-element k*P from 4-bit
+//                         digit planes)
 // and one more stands for XLA-op code of the reference's rows field plane
 // (charon_tpu/ops/field.py fq_add / fq_sub / fq_neg):
 //   fe_add_rows (adds, then subtracts past a split; at n_add = 0 a
@@ -55,10 +61,9 @@
 // (ops/point_schedule.py), so a thread waits through one product per level:
 // see "Point kernels" below. fe_pow keeps a whole power scan in one thread's
 // registers (see "fe_pow" below). Every kernel shares fp.cuh's carry-chain
-// fq_mul, fq_sqr and fq_addsub. Later work: fusing the other composite
-// loops (windowed scalar multiplication with the MSM reduction, reduction
-// tree, shared-scalar multiplication, the cofactor clear) into single
-// kernels.
+// fq_mul, fq_sqr and fq_addsub. The scalar multiplications keep each point's
+// group and scratch for the whole chain of steps (see "Scalar
+// multiplication" below). Later work: the reduction tree in one kernel.
 #include <cuda_runtime.h>
 
 #include "fp.cuh"
@@ -295,6 +300,30 @@ __device__ __forceinline__ bool slots_zero(const uint32_t* sm, int tab, int pt) 
     return zero;
 }
 
+// The unified add of the points in slots 0..6E-1 (the schedule's inputs,
+// p then q), by the group: the general sum, then on a point that needs it
+// the P+P double; returns where the reference's selects (P+P double, H=0 &
+// R!=0 -> infinity, q = inf -> p, p = inf -> q; the last wins) put the sum:
+// the offset into kSchedSlots of its 3E slots, or -1 for infinity (zeros).
+// The selects read shared slots after the level's sync, so every thread of
+// the group takes the same branch.
+template <int E, int G>
+__device__ __forceinline__ int add_levels(uint32_t* sm, int pt, int rank, unsigned mask) {
+    typedef Sched<kPtAdd, E> S;
+    run_levels<G>(sm, S::kLevel0, S::kLevel0 + S::kMain, pt, rank, mask);
+    const bool p_inf = slots_zero<E>(sm, S::kIn + 2 * E, pt);
+    const bool q_inf = slots_zero<E>(sm, S::kIn + 5 * E, pt);
+    const bool h_zero = slots_zero<E>(sm, S::kH, pt);
+    const bool r_zero = slots_zero<E>(sm, S::kR, pt);
+    if (!p_inf && !q_inf && h_zero && r_zero)
+        run_levels<G>(sm, S::kLevel0 + S::kMain, S::kLevel0 + S::kLevels, pt, rank, mask);
+    return p_inf    ? S::kIn + 3 * E
+           : q_inf  ? S::kIn
+           : !h_zero ? S::kOut
+           : r_zero ? S::kDblOut
+                    : -1;
+}
+
 // Coordinates c of the planes src into slots c * E + e (every schedule puts
 // its inputs first, in order); points past n read as zero. A block of T
 // threads: each thread issues all of its loads before it writes any, so
@@ -362,10 +391,8 @@ __global__ void __launch_bounds__(G * kPoints) pt_double_kernel(const uint32_t* 
     store_points<E, G * kPoints>(dst, sm, off, base, n);
 }
 
-// Replaces _kern_add (pallas_plane.py:439): the unified add's general sum,
-// then on the groups whose points need it the P+P double, and the
-// reference's selects (P+P double, H=0 & R!=0 -> infinity, q = inf -> p,
-// p = inf -> q; the last wins) as the choice of the slots stored. Bound:
+// Replaces _kern_add (pallas_plane.py:439): add_levels, and its selects as
+// the choice of the slots stored. Bound:
 // operations (16 / 44 Fq products per element, +7 / +16 on a lane that
 // takes the P+P double).
 template <int E, int G>
@@ -384,20 +411,8 @@ __global__ void __launch_bounds__(G * kPoints) pt_add_kernel(const uint32_t* x1,
     load_points<E, 6, G * kPoints>(sm, src, base, n);
     __syncthreads();
     if (base + pt < n) {
-        const unsigned mask = group_mask<G>();
-        run_levels<G>(sm, S::kLevel0, S::kLevel0 + S::kMain, pt, rank, mask);
-        const bool p_inf = slots_zero<E>(sm, S::kIn + 2 * E, pt);
-        const bool q_inf = slots_zero<E>(sm, S::kIn + 5 * E, pt);
-        const bool h_zero = slots_zero<E>(sm, S::kH, pt);
-        const bool r_zero = slots_zero<E>(sm, S::kR, pt);
-        if (!p_inf && !q_inf && h_zero && r_zero)
-            run_levels<G>(sm, S::kLevel0 + S::kMain, S::kLevel0 + S::kLevels, pt, rank, mask);
-        if (rank == 0)
-            off[pt] = p_inf    ? S::kIn + 3 * E
-                      : q_inf  ? S::kIn
-                      : !h_zero ? S::kOut
-                      : r_zero ? S::kDblOut
-                               : -1;
+        const int o = add_levels<E, G>(sm, pt, rank, group_mask<G>());
+        if (rank == 0) off[pt] = o;
     }
     __syncthreads();
     uint32_t* const dst[3] = {ox, oy, oz};
@@ -602,6 +617,216 @@ __global__ void __launch_bounds__(kPowBlock) fe_pow_kernel(const uint32_t* a, ui
     store<L>(o, acc, n, i);
 }
 
+// ---------------------------------------------------------------------------
+// Scalar multiplication: the point steps chained in one launch
+// ---------------------------------------------------------------------------
+//
+// pt_mul_shared<E> replaces _shared_mul_call (pallas_plane.py:625: one
+// jax.jit of the unrolled steps) and the cofactor clear of the reference's
+// hash-to-G2 (charon_tpu/ops/h2c.py:216, a lax.scan): k*P for one scalar k
+// known on the host, MSB-first double-and-add, a double per bit after the
+// first and an add of P per set bit, the order of the port's earlier loop of
+// pt_double / pt_add launches, so the Jacobian outputs are that loop's bit
+// for bit. The bits arrive by value in the parameter space, as fe_pow's
+// digits: every group reads the same bit at the same step, so the branch on
+// it is uniform.
+//
+// pt_mul_windowed<E> replaces _scalar_mul_windowed (pallas_plane.py:677,
+// the MSM of _msm_reduce_jit :746): per-element k*P from (windows, n) uint8
+// MSB-first 4-bit digit planes, read in place (the low 4 bits of each). The
+// reference's 16-entry table k*P first (7 doubles, 7 adds: an even entry is
+// the double of entry k/2, an odd one entry k-1 plus P), then from infinity
+// per window 4 doubles and one unified add of the entry the digit selects,
+// digit 0 the all-zero infinity entry.
+//
+// Both give each point a group of kMulG1 / kMulG2 threads for the whole
+// chain, as the point kernels do for one step (kPoints points a block), and
+// walk the same schedules (Sched<kPtDouble, E>, Sched<kPtAdd, E>) through
+// run_levels on one scratch of slots in shared memory; the groups never
+// sync with each other. The accumulator lives in slots 0..3E-1, the inputs
+// of both schedules; a double ends with the group copying the schedule's
+// outputs into them, an add starts by copying its addend into slots
+// 3E..6E-1 and ends by copying the slots that pt_add_kernel's selects
+// choose (the P+P double where H = R = 0, infinity, P or Q). Every copy goes
+// through registers between two group syncs, 16 bytes at a time, so a
+// schedule's output slot may be one of its input slots. P stays in slots
+// past the scratch (pt_mul_shared), or is table entry 1 (pt_mul_windowed).
+//
+// The windowed table: 15 entries (entry 0 is zeros, never stored) of 3E Fq
+// a point, 4,320 B at E = 2, in slots of shared memory past the scratch:
+// (41 + 90) slots of kSlotWords words, a block of 16 points 102,704 B of
+// dynamic shared memory (opted into at every launch), two blocks an SM. A
+// table in device memory (17.7 MB at 4,096 lanes, read back through the L2)
+// timed within 1% of it on the H100 and needed a scratch buffer (PERF.md).
+//
+// What bounds them: latency. The chain has 635 + 304 steps for the cofactor
+// clear (one point, one group: nothing hides it), 143 for the G1 subgroup
+// check and 14 + 5 x windows for the windowed product, and a step waits
+// through its formula's dependent product levels (3 and 5 at E = 2, each one
+// fq_mul's carry chains, ~2 us at one point) and linear levels; the card's
+// rates bound none of them (the operations of all steps over the card's
+// integer rate are ~1 us for the cofactor clear and ~1 ms for the sweep).
+// On the H100 a step in the chain costs about what its launch did less
+// ~2 us, not less the ~5.4 us that the point kernels' no-arithmetic build
+// (`chip_smoke.py --ab --diagnose`) took a launch: most of that was walking
+// the levels, which the chain still does (PERF.md). The level loops and the
+// step loops are not unrolled (code size: fe_pow's unrolled squaring loop
+// was slower with every SM busy). Group sizes: 8 at E = 2 as the point
+// kernels (16 was 8% faster at one point, 18% slower at 64 and 79% at
+// 4,096), 4 at E = 1.
+constexpr int kMulG1 = 4;
+constexpr int kMulG2 = 8;
+constexpr int kMulMaxBits = 640;     // the largest scalar, H_EFF_G2, has 636 bits
+constexpr int kWinTable = 15;        // entries 1..15 of the window table
+
+template <int E>
+struct MulTraits {
+    static constexpr int G = E == 1 ? kMulG1 : kMulG2;
+    // slots of the scratch: the larger of the two schedules
+    static constexpr int kScratch = Sched<kPtDouble, E>::kSlots > Sched<kPtAdd, E>::kSlots
+                                        ? Sched<kPtDouble, E>::kSlots
+                                        : Sched<kPtAdd, E>::kSlots;
+};
+
+struct MulBits {
+    uint32_t w[kMulMaxBits / 32];    // bit b (b = 0 the most significant) at w[b / 32] >> b % 32
+    int n;
+};
+
+// The 3E Fq of a point from src(i) to dst(i), i < 3E (src(i) null: zeros), by
+// the group: each thread loads its share of the 16-byte words, the group
+// syncs, stores and syncs again.
+template <int E, int G, class Src, class Dst>
+__device__ __forceinline__ void group_copy(Src src, Dst dst, int rank, unsigned mask) {
+    constexpr int Q = FP_LIMBS / 4, N = 3 * E * Q, K = (N + G - 1) / G;
+    uint4 v[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        const int w = rank + k * G;
+        if (w < N) {
+            const uint32_t* p = src(w / Q);
+            v[k] = p ? reinterpret_cast<const uint4*>(p)[w % Q] : make_uint4(0u, 0u, 0u, 0u);
+        }
+    }
+    __syncwarp(mask);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        const int w = rank + k * G;
+        if (w < N) reinterpret_cast<uint4*>(dst(w / Q))[w % Q] = v[k];
+    }
+    __syncwarp(mask);
+}
+
+// acc = 2 * acc (acc: slots 0..3E-1)
+template <int E>
+__device__ void mul_double(uint32_t* sm, int pt, int rank, unsigned mask) {
+    typedef Sched<kPtDouble, E> S;
+    run_levels<MulTraits<E>::G>(sm, S::kLevel0, S::kLevel0 + S::kLevels, pt, rank, mask);
+    group_copy<E, MulTraits<E>::G>(
+        [&](int i) -> const uint32_t* { return sm + sword(kSchedSlots[S::kOut + i], pt); },
+        [&](int i) { return sm + sword(i, pt); }, rank, mask);
+}
+
+// acc = acc + q, q(i) the addend's Fq i (null: zero): pt_add_kernel's
+// add_levels, then the selected slots copied into acc
+template <int E, class Q>
+__device__ __forceinline__ void mul_add(uint32_t* sm, Q q, int pt, int rank, unsigned mask) {
+    constexpr int G = MulTraits<E>::G;
+    group_copy<E, G>(q, [&](int i) { return sm + sword(3 * E + i, pt); }, rank, mask);
+    const int o = add_levels<E, G>(sm, pt, rank, mask);
+    group_copy<E, G>(
+        [&](int i) -> const uint32_t* { return o < 0 ? nullptr : sm + sword(kSchedSlots[o + i], pt); },
+        [&](int i) { return sm + sword(i, pt); }, rank, mask);
+}
+
+// X, Y, Z of each point of the block from slots c * E + e.
+template <int E, int T>
+__device__ __forceinline__ void store_acc(uint32_t* const (&dst)[3], const uint32_t* sm,
+                                          long long base, long long n) {
+    constexpr int W = E * FP_LIMBS * kPoints, K = (W + T - 1) / T;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int w = threadIdx.x + k * T, pt = w % kPoints, ej = w / kPoints;
+            if (w < W && base + pt < n)
+                dst[c][ej * n + base + pt] = sm[sword(c * E + ej / FP_LIMBS, pt) + ej % FP_LIMBS];
+        }
+}
+
+template <int E>
+__global__ void __launch_bounds__(MulTraits<E>::G * kPoints)
+    pt_mul_shared_kernel(const uint32_t* x, const uint32_t* y, const uint32_t* z, uint32_t* ox,
+                         uint32_t* oy, uint32_t* oz, long long n, const __grid_constant__ MulBits k) {
+    constexpr int G = MulTraits<E>::G, kP = MulTraits<E>::kScratch;
+    static_assert((kP + 3 * E) * kSlotWords * 4 <= 48 * 1024, "static shared memory");
+    __shared__ __align__(16) uint32_t sm[(kP + 3 * E) * kSlotWords];
+    const long long base = (long long)blockIdx.x * kPoints;
+    const int pt = threadIdx.x / G, rank = threadIdx.x % G;
+    const uint32_t* const src[3] = {x, y, z};
+    load_points<E, 3, G * kPoints>(sm + kP * kSlotWords, src, base, n);
+    __syncthreads();
+    if (base + pt < n) {
+        const unsigned mask = group_mask<G>();
+        auto P = [&](int i) -> const uint32_t* { return sm + sword(kP + i, pt); };
+        group_copy<E, G>(P, [&](int i) { return sm + sword(i, pt); }, rank, mask);
+#pragma unroll 1
+        for (int b = 1; b < k.n; ++b) {
+            mul_double<E>(sm, pt, rank, mask);
+            if (k.w[b >> 5] >> (b & 31) & 1u) mul_add<E>(sm, P, pt, rank, mask);
+        }
+    }
+    __syncthreads();
+    uint32_t* const dst[3] = {ox, oy, oz};
+    store_acc<E, G * kPoints>(dst, sm, base, n);
+}
+
+template <int E>
+__global__ void __launch_bounds__(MulTraits<E>::G * kPoints)
+    pt_mul_windowed_kernel(const uint32_t* x, const uint32_t* y, const uint32_t* z, uint32_t* ox,
+                           uint32_t* oy, uint32_t* oz, long long n, const uint8_t* digits,
+                           int n_win) {
+    constexpr int G = MulTraits<E>::G, kT = MulTraits<E>::kScratch;
+    extern __shared__ __align__(16) uint32_t sm[];
+    const long long base = (long long)blockIdx.x * kPoints;
+    const int pt = threadIdx.x / G, rank = threadIdx.x % G;
+    const long long lane = base + pt;
+    const uint32_t* const src[3] = {x, y, z};
+    load_points<E, 3, G * kPoints>(sm, src, base, n);
+    __syncthreads();
+    if (lane < n) {
+        const unsigned mask = group_mask<G>();
+        // Fq i of table entry t (1..15)
+        auto entry = [&](int t) {
+            return [&, t](int i) { return sm + sword(kT + (t - 1) * 3 * E + i, pt); };
+        };
+        auto acc = [&](int i) { return sm + sword(i, pt); };
+        group_copy<E, G>(acc, entry(1), rank, mask);
+#pragma unroll 1
+        for (int t = 2; t <= kWinTable; ++t) {    // acc holds entry t - 1
+            if (t % 2 == 0) {
+                if (t > 2) group_copy<E, G>(entry(t / 2), acc, rank, mask);
+                mul_double<E>(sm, pt, rank, mask);
+            } else {
+                mul_add<E>(sm, entry(1), pt, rank, mask);
+            }
+            group_copy<E, G>(acc, entry(t), rank, mask);
+        }
+        group_copy<E, G>([](int) -> const uint32_t* { return nullptr; }, acc, rank, mask);
+#pragma unroll 1
+        for (int w = 0; w < n_win; ++w) {
+#pragma unroll 1
+            for (int q = 0; q < 4; ++q) mul_double<E>(sm, pt, rank, mask);
+            const int d = digits[(long long)w * n + lane] & 15;
+            auto sel = [&](int i) -> const uint32_t* { return d ? entry(d)(i) : nullptr; };
+            mul_add<E>(sm, sel, pt, rank, mask);
+        }
+    }
+    __syncthreads();
+    uint32_t* const dst[3] = {ox, oy, oz};
+    store_acc<E, G * kPoints>(dst, sm, base, n);
+}
+
 inline unsigned grid_for(long long n) { return (unsigned)((n + kBlock - 1) / kBlock); }
 inline unsigned point_blocks(long long n) { return (unsigned)((n + kPoints - 1) / kPoints); }
 
@@ -619,6 +844,31 @@ int pow_launch(const void* a, void* o, long long n, const PowDigits& e, cudaStre
     if (err != cudaSuccess) return (int)err;
     fe_pow_kernel<L><<<(unsigned)((n + kPowBlock - 1) / kPowBlock), kPowBlock, smem, s>>>(
         (In)a, (Out)o, n, e);
+    return (int)cudaGetLastError();
+}
+
+template <int E>
+int mul_shared_launch(const void* x, const void* y, const void* z, void* ox, void* oy, void* oz,
+                      long long n, const MulBits& k, cudaStream_t s) {
+    constexpr int G = MulTraits<E>::G;
+    pt_mul_shared_kernel<E><<<point_blocks(n), G * kPoints, 0, s>>>(
+        (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n, k);
+    return (int)cudaGetLastError();
+}
+
+// The table's slots take the block past the 48 KB a launch gets by default:
+// opted into at every launch, as fe_pow's.
+template <int E>
+int mul_windowed_launch(const void* x, const void* y, const void* z, void* ox, void* oy, void* oz,
+                        long long n, const uint8_t* digits, int n_win, cudaStream_t s) {
+    constexpr int G = MulTraits<E>::G;
+    const int slots = MulTraits<E>::kScratch + kWinTable * 3 * E;
+    const int smem = slots * kSlotWords * (int)sizeof(uint32_t);
+    const cudaError_t err = cudaFuncSetAttribute(
+        pt_mul_windowed_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    pt_mul_windowed_kernel<E><<<point_blocks(n), G * kPoints, smem, s>>>(
+        (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n, digits, n_win);
     return (int)cudaGetLastError();
 }
 
@@ -737,6 +987,37 @@ int charon_fe_pow(int layout, const void* a, void* o, long long n, const uint8_t
     }
     if (layout == kPlane) return pow_launch<kPlane>(a, o, n, e, (cudaStream_t)stream);
     if (layout == kRows) return pow_launch<kRows>(a, o, n, e, (cudaStream_t)stream);
+    return (int)cudaErrorInvalidValue;
+}
+
+// k * P for one scalar k: n_bits bytes of 0 or 1, most significant first,
+// bits[0] = 1, n_bits <= kMulMaxBits.
+int charon_pt_mul_shared(int E, const void* x, const void* y, const void* z, void* ox, void* oy,
+                         void* oz, long long n, const uint8_t* bits, int n_bits, void* stream) {
+    if (n <= 0 || n_bits < 1 || n_bits > kMulMaxBits || bits[0] != 1)
+        return (int)cudaErrorInvalidValue;
+    MulBits k = {};
+    k.n = n_bits;
+    for (int b = 0; b < n_bits; ++b) {
+        if (bits[b] > 1) return (int)cudaErrorInvalidValue;
+        k.w[b >> 5] |= (uint32_t)bits[b] << (b & 31);
+    }
+    cudaStream_t s = (cudaStream_t)stream;
+    if (E == 1) return mul_shared_launch<1>(x, y, z, ox, oy, oz, n, k, s);
+    if (E == 2) return mul_shared_launch<2>(x, y, z, ox, oy, oz, n, k, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// Per-element k * P from digits (n_win, n) uint8, element i's window w at
+// digits[w * n + i].
+int charon_pt_mul_windowed(int E, const void* x, const void* y, const void* z, void* ox,
+                           void* oy, void* oz, long long n, const void* digits, int n_win,
+                           void* stream) {
+    if (n <= 0 || n_win < 1 || !digits) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const uint8_t* d = (const uint8_t*)digits;
+    if (E == 1) return mul_windowed_launch<1>(x, y, z, ox, oy, oz, n, d, n_win, s);
+    if (E == 2) return mul_windowed_launch<2>(x, y, z, ox, oy, oz, n, d, n_win, s);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -17,6 +17,11 @@ ops/rows.py):
     fe_pow                                        a fixed-exponent power scan in one
                                                   launch, a thread per element, over a
                                                   (1, 12, n) plane or (n, 12) rows
+    pt_mul_shared, pt_mul_windowed                for E in {1, 2}: k·P for one host-known
+                                                  scalar, and per-element k·P from 4-bit
+                                                  digits, each in one launch, a group of
+                                                  threads per point walking the point
+                                                  kernels' schedules
 
 Build: the point schedules' header into `build/charon_tpu_torch/`, then
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -I build/charon_tpu_torch`
@@ -29,11 +34,12 @@ else. A CPU tensor runs the kernel's plain version (ops/field.py,
 ops/curve.py) and counts a plain call; a CUDA tensor launches the kernel on
 the current stream and counts a launch — or raises: there is no fallback.
 
-Composites: `pow_scan` (_pow_scan :593) is one fe_pow launch; the others are
-Python loops that launch one kernel per step, like the XLA loops of the
-reference they replace: `scalar_mul_windowed` (_scalar_mul_windowed :677),
-`reduce_tree` (_reduce_tree_jit :763), `shared_mul` (_shared_mul_call :625,
-unrolled) and `host_fold` (_host_fold :778). Bucket sizes (`pad_batch`), the 4-bit windows
+Composites: `pow_scan` (_pow_scan :593) is one fe_pow launch, `shared_mul`
+(_shared_mul_call :625, and the cofactor clear of h2c._clear_cofactor) one
+pt_mul_shared launch and `scalar_mul_windowed` (_scalar_mul_windowed :677)
+one pt_mul_windowed launch; `reduce_tree` (_reduce_tree_jit :763) is a
+Python loop of one pt_add launch per level, and `host_fold` (_host_fold
+:778) folds on the host. Bucket sizes (`pad_batch`), the 4-bit windows
 and the MSB-first digit order are the reference's: they decide the outputs'
 shapes.
 """
@@ -111,6 +117,8 @@ _ARGS = {
     "charon_fe_mul_rows": [_VP, _VP, _VP, _LL, ctypes.c_int, _VP],
     "charon_fe_add_rows": [_VP, _VP, _VP, _LL, _LL, _VP],
     "charon_fe_pow": [ctypes.c_int, _VP, _VP, _LL, ctypes.c_char_p, ctypes.c_int, _VP],
+    "charon_pt_mul_shared": [ctypes.c_int] + [_VP] * 6 + [_LL, ctypes.c_char_p, ctypes.c_int, _VP],
+    "charon_pt_mul_windowed": [ctypes.c_int] + [_VP] * 6 + [_LL, _VP, ctypes.c_int, _VP],
 }
 
 
@@ -173,7 +181,8 @@ def _library() -> ctypes.CDLL:
 
 class Kernel:
     """One CUDA kernel: where its source is, which TPU kernel (or, for the
-    rows add, which XLA-op function) it replaces, and how often it ran, per
+    rows add, which XLA-op function; for the scalar multiplications, which
+    composite of point kernels) it replaces, and how often it ran, per
     variant: E for most (fe_add_rows has E = 1 only), the layout ("plane",
     "rows") for fe_pow. `launches` counts CUDA launches only, `widths` the
     launches by (variant, width) (rows: Fq or Fq2 rows); `plain_calls` counts
@@ -194,10 +203,11 @@ class Kernel:
         self.launches = {E: 0 for E in self.variants}
         self.plain_calls = {E: 0 for E in self.variants}
         self.widths = collections.Counter()     # launches by (E, width)
-        self.splits = collections.Counter()     # fe_add_rows calls that subtract (a
-                                                # split, or n_add = 0; launches, or plain
-                                                # calls on the CPU), by (width, n_add) in rows
-        self.exponents = collections.Counter()  # fe_pow calls by (layout, width, digits)
+        # calls (launches, or plain calls on the CPU) by (variant, width,
+        # extra): fe_add_rows' calls that subtract by (1, rows, n_add),
+        # fe_pow's by (layout, width, digits), pt_mul_shared's by (E, width,
+        # k), pt_mul_windowed's by (E, width, windows)
+        self.cases = collections.Counter()
 
 
 KERNELS = {
@@ -215,6 +225,13 @@ KERNELS = {
     # of tower.fq_inv (:105) and h2c._fq_pow_scan (:91) over the rows product
     "fe_pow": Kernel("fe_pow", {"plane": "charon_tpu/ops/pallas_plane.py:593",
                                 "rows": "charon_tpu/ops/tower.py:105"}, ("plane", "rows")),
+    # the composites of _kern_double and _kern_add, each one launch: k·P for
+    # one host-known scalar (_shared_mul_call; at E = 2 the main path's use
+    # is the cofactor clear, h2c._clear_cofactor) and per-element k·P from
+    # digit planes (_scalar_mul_windowed)
+    "pt_mul_shared": Kernel("pt_mul_shared", {1: "charon_tpu/ops/pallas_plane.py:625",
+                                              2: "charon_tpu/ops/h2c.py:216"}),
+    "pt_mul_windowed": Kernel("pt_mul_windowed", "charon_tpu/ops/pallas_plane.py:677"),
 }
 
 
@@ -243,22 +260,24 @@ def _check(tensors, E: int) -> torch.device:
     return first.device
 
 
-def call(lib: ctypes.CDLL, name: str, E: int, ins, n_out: int):
-    """Launch charon_<name> of a bound library on CUDA planes, on the current
-    stream of their device, and return the new output planes."""
+def call(lib: ctypes.CDLL, name: str, E: int, ins, n_out: int, args=()):
+    """Launch charon_<name> of a bound library on CUDA planes, with the
+    launcher's own arguments after n (the scalar multiplications' scalar
+    or digits), on the current stream of their device, and return the new
+    output planes."""
     outs = [torch.empty_like(ins[0]) for _ in range(n_out)]
     fn = getattr(lib, "charon_" + name)
     with torch.cuda.device(ins[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(E, *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs],
-                ins[0].shape[2], stream)
+                ins[0].shape[2], *args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name}<{E}> did not launch: error {rc}")
     return outs
 
 
-def _launch(name: str, E: int, ins, n_out: int):
-    outs = call(_library(), name, E, ins, n_out)
+def _launch(name: str, E: int, ins, n_out: int, args=()):
+    outs = call(_library(), name, E, ins, n_out, args)
     KERNELS[name].launches[E] += 1
     KERNELS[name].widths[E, ins[0].shape[2]] += 1
     return outs
@@ -360,9 +379,9 @@ def pow_call(layout: str, a: torch.Tensor, digits: list[int], plain_mul) -> torc
     """fe_pow over checked, contiguous elements of one layout: on a CPU
     tensor its plain version (field.pow_plain over `plain_mul`, the layout's
     plain product), counted as one plain call; on a CUDA tensor one launch.
-    Either way counted by (layout, width, digits) in `exponents`."""
+    Either way counted by (layout, width, digits) in `cases`."""
     k = KERNELS["fe_pow"]
-    k.exponents[layout, a.numel() // LIMBS, tuple(digits)] += 1
+    k.cases[layout, a.numel() // LIMBS, tuple(digits)] += 1
     if a.device.type == "cpu":
         k.plain_calls[layout] += 1
         return F.pow_plain(a, digits, plain_mul)
@@ -399,8 +418,34 @@ def pow_scan(A: torch.Tensor, digits) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Composites: one kernel launch per step
+# Scalar multiplication: one launch each
 # ---------------------------------------------------------------------------
+
+MUL_MAX_BITS = 640      # pt_mul_shared's parameter struct; H_EFF_G2 has 636 bits
+
+
+def scalar_bits(k: int) -> bytes:
+    """k's bits MSB-first, a byte each, as pt_mul_shared takes them."""
+    return bytes(int(b) for b in bin(k)[2:])
+
+
+def shared_mul(X, Y, Z, k: int, E: int):
+    """k·P for one scalar 1 <= k < 2^MUL_MAX_BITS shared by the whole
+    batch and known on the host: MSB-first double-and-add, a double per
+    bit after the first and an add of P per set bit (_shared_mul_call's
+    unrolled order, and the cofactor clear's). One pt_mul_shared launch on
+    the card; on the CPU its plain version, the same loop over the plain
+    point functions. Counted by (E, width, k) in `cases`."""
+    if not 1 <= k < 1 << MUL_MAX_BITS:
+        raise ValueError(f"shared scalar must be in [1, 2^{MUL_MAX_BITS})")
+    device = _check((X, Y, Z), E)
+    kern = KERNELS["pt_mul_shared"]
+    kern.cases[E, X.shape[2], k] += 1
+    if device.type == "cpu":
+        kern.plain_calls[E] += 1
+        return C.pt_mul_shared_plain(X, Y, Z, k, E)
+    bits = scalar_bits(k)
+    return tuple(_launch("pt_mul_shared", E, (X, Y, Z), 3, (bits, len(bits))))
 
 
 def scalars_to_digitplanes(scalars, B: int, nbits: int = 256) -> np.ndarray:
@@ -427,27 +472,30 @@ def scalars_to_digitplanes(scalars, B: int, nbits: int = 256) -> np.ndarray:
 
 
 def scalar_mul_windowed(X, Y, Z, digits: torch.Tensor, E: int):
-    """Per-element k·P from (nwin, n) MSB-first 4-bit digits: a 16-entry
-    table k·P (7 doubles + 7 adds), then per window 4 doubles and one
-    unified add of the selected entry; digit 0 selects ∞ (Z = 0)."""
-    zero = torch.zeros_like(X)
-    tab = [(zero, zero, zero), (X, Y, Z)]
-    for k in range(2, 1 << WINDOW):
-        if k % 2 == 0:
-            tab.append(pt_double(*tab[k // 2], E))
-        else:
-            tab.append(pt_add(*tab[k - 1], X, Y, Z, E))
-    T = [torch.stack([t[c] for t in tab]) for c in range(3)]    # (16, E, 12, n)
-    n = X.shape[-1]
-    idx_all = digits.to(device=X.device, dtype=torch.int64)
-    acc = (zero, zero, zero)
-    for w in range(idx_all.shape[0]):
-        for _ in range(WINDOW):
-            acc = pt_double(*acc, E)
-        idx = idx_all[w].view(1, 1, 1, n).expand(1, E, LIMBS, n)
-        sel = [t.gather(0, idx)[0] for t in T]
-        acc = pt_add(*acc, *sel, E)
-    return acc
+    """Per-element k·P from (nwin, n) MSB-first 4-bit digits, uint8 on the
+    planes' device, read in place: a 16-entry table k·P (7 doubles and 7
+    adds), then from ∞ per window 4 doubles and one unified add of the
+    selected entry; digit 0 selects ∞ (Z = 0). One pt_mul_windowed launch
+    on the card; on the CPU its plain version. Counted by (E, width,
+    windows) in `cases`."""
+    device = _check((X, Y, Z), E)
+    n = X.shape[2]
+    if (digits.dim() != 2 or digits.shape[0] < 1 or digits.shape[1] != n
+            or digits.dtype != torch.uint8 or digits.device != device):
+        raise ValueError(f"digits must be a (windows >= 1, {n}) uint8 tensor on {device}, "
+                         f"got {tuple(digits.shape)} {digits.dtype} on {digits.device}")
+    digits = digits.contiguous()
+    kern = KERNELS["pt_mul_windowed"]
+    kern.cases[E, n, digits.shape[0]] += 1
+    if device.type == "cpu":
+        kern.plain_calls[E] += 1
+        return C.pt_mul_windowed_plain(X, Y, Z, digits, E)
+    return tuple(_launch("pt_mul_windowed", E, (X, Y, Z), 3, (digits.data_ptr(), digits.shape[0])))
+
+
+# ---------------------------------------------------------------------------
+# Reduction: one pt_add launch per level, then the host fold
+# ---------------------------------------------------------------------------
 
 
 def reduce_tree(X, Y, Z, E: int):
@@ -471,19 +519,6 @@ def reduce_tree(X, Y, Z, E: int):
         pts = add([c[:, :, :h].contiguous() for c in pts],
                   [c[:, :, h:].contiguous() for c in pts])
     return tuple(c.reshape(E, LIMBS, -1) for c in pts)
-
-
-def shared_mul(X, Y, Z, k: int, E: int):
-    """k·P for one scalar shared by the whole batch: unrolled MSB-first
-    double-and-add, one add per set bit."""
-    if k < 1:
-        raise ValueError("shared scalar must be >= 1")
-    acc = (X, Y, Z)
-    for bit in bin(k)[2:][1:]:
-        acc = pt_double(*acc, E)
-        if bit == "1":
-            acc = pt_add(*acc, X, Y, Z, E)
-    return acc
 
 
 def host_fold(X, Y, Z, E: int):

@@ -1,5 +1,7 @@
 """Plain Jacobian point formulas on tensors: the PyTorch counterparts of the
-pt_double and pt_add CUDA kernels (ops/csrc/plane_kernels.cu).
+pt_double and pt_add CUDA kernels (ops/csrc/plane_kernels.cu), and of the
+two scalar multiplications that chain them in one launch, pt_mul_shared and
+pt_mul_windowed (the loops of those steps, in the same order).
 
 Same math and staging as the reference's in-kernel forms
 (charon_tpu/ops/pallas_plane.py `_pt_double` :371 and `_pt_add_unified`
@@ -134,3 +136,40 @@ def pt_add_plain(X1, Y1, Z1, X2, Y2, Z2, E: int):
                 o[:, :, idx] = s
         return tuple(out)
     return _add_limbs(coords)
+
+
+def pt_mul_shared_plain(X, Y, Z, k: int, E: int):
+    """Plain version of the pt_mul_shared kernel: k·P (k >= 1) by MSB-first
+    double-and-add, a double per bit after the first and an add of P per
+    set bit."""
+    acc = (X, Y, Z)
+    for bit in bin(k)[3:]:
+        acc = pt_double_plain(*acc, E)
+        if bit == "1":
+            acc = pt_add_plain(*acc, X, Y, Z, E)
+    return acc
+
+
+def pt_mul_windowed_plain(X, Y, Z, digits, E: int):
+    """Plain version of the pt_mul_windowed kernel: per-element k·P from
+    (nwin, n) MSB-first 4-bit digits. The 16-entry table k·P (entry 0 ∞,
+    an even entry the double of entry k/2, an odd one entry k−1 plus P),
+    then from ∞ per window 4 doubles and one unified add of the entry the
+    digit selects (digit 0: ∞, Z = 0)."""
+    zero = torch.zeros_like(X)
+    tab = [(zero, zero, zero), (X, Y, Z)]
+    for k in range(2, 16):
+        if k % 2 == 0:
+            tab.append(pt_double_plain(*tab[k // 2], E))
+        else:
+            tab.append(pt_add_plain(*tab[k - 1], X, Y, Z, E))
+    T = [torch.stack([t[c] for t in tab]) for c in range(3)]    # (16, E, 12, n)
+    n = X.shape[-1]
+    idx_all = digits.to(torch.int64)
+    acc = (zero, zero, zero)
+    for w in range(idx_all.shape[0]):
+        for _ in range(4):
+            acc = pt_double_plain(*acc, E)
+        idx = idx_all[w].view(1, 1, 1, n).expand(1, E, F.LIMBS, n)
+        acc = pt_add_plain(*acc, *[t.gather(0, idx)[0] for t in T], E)
+    return acc

@@ -14,9 +14,9 @@ plus sgn0(u); the curve math runs on the device over the batch axis:
   * the 3-isogeny into Jacobian coordinates, inversion-free
     (`_iso_map`, Z = x_den·y_den), its four polynomials in one stacked
     Horner;
-  * q0 + q1 and the 636-bit h_eff cofactor clear on the plane kernels
-    pt_add<2> / pt_double<2> after one rows->plane transpose, branching in
-    Python on the constant's bits (635 doublings, 304 additions);
+  * q0 + q1 on the plane kernel pt_add<2> after one rows->plane
+    transpose, then the 636-bit h_eff cofactor clear as one pt_mul_shared<2>
+    launch (635 doublings and 304 additions chained in the kernel);
   * one Fq2 inversion for the affine output the pairing consumes. The
     Jacobian representative of the cleared point may differ from the
     reference's (other point formulas); the affine point does not.
@@ -195,13 +195,10 @@ def _to_rows(x):
 
 def _clear_cofactor(p):
     """[h_eff]·P for a Jacobian G2 plane triple (2, 12, n): MSB-first
-    double-and-add over the constant's bits on pt_double<2> / pt_add<2>."""
-    acc = p
-    for bit in bin(H_EFF_G2)[3:]:
-        acc = CP.pt_double(*acc, 2)
-        if bit == "1":
-            acc = CP.pt_add(*acc, *p, 2)
-    return acc
+    double-and-add over the 636-bit constant, one pt_mul_shared<2> launch
+    (the reference's scan, charon_tpu/ops/h2c.py:216, starts from ∞ and
+    gives the same affine point)."""
+    return CP.shared_mul(*p, H_EFF_G2, 2)
 
 
 def map_to_g2(u0, u1, s0, s1):

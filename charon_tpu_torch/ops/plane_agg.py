@@ -449,34 +449,66 @@ def g1_plane(pks: list[bytes], Bp: int, device):
 
 class PkPlaneCache:
     """Decoded, subgroup-checked pk planes keyed by the pubkey set's digest,
-    the bucket and the device (the counterpart of plane_store.full_plane). A
-    plain bounded dict: the oldest entry goes when it is full. Raises
+    the bucket and the device: the counterpart of the reference's PlaneStore
+    (charon_tpu/ops/plane_store.py) for its whole-set planes. A true LRU of
+    MAX_ENTRIES sets: a hit refreshes its entry; on overflow the oldest entry
+    whose digest is not pinned goes, and when every entry is pinned the
+    cache grows rather than drop a pin. `pin` / `unpin` act on the set's
+    digest, so entries of any bucket or device are protected. Raises
     ValueError, and caches nothing, on an infinity or out-of-subgroup
-    pubkey."""
+    pubkey. `hits`, `misses` and `evictions` count lookups and drops."""
 
-    CAP = 16
+    MAX_ENTRIES = 64
 
     def __init__(self):
-        self._entries: OrderedDict = OrderedDict()
+        self._entries: OrderedDict = OrderedDict()      # oldest first
+        self._pinned: set[bytes] = set()
         self._lock = threading.Lock()
+        self.hits = self.misses = self.evictions = 0
 
-    def get(self, pks: list[bytes], Bp: int, device):
+    @staticmethod
+    def digest(pks) -> bytes:
         h = hashlib.sha256()
         for p in pks:
             h.update(bytes(p))
-        key = (h.digest(), Bp, str(device))
+        return h.digest()
+
+    def pin(self, pks) -> None:
+        """Keep this set's planes through any cache pressure."""
+        if pks:
+            with self._lock:
+                self._pinned.add(self.digest(pks))
+
+    def unpin(self, pks) -> None:
+        with self._lock:
+            self._pinned.discard(self.digest(pks))
+
+    def get(self, pks: list[bytes], Bp: int, device):
+        key = (self.digest(pks), Bp, str(device))
         with self._lock:
             plane = self._entries.get(key)
-        if plane is not None:
-            return plane
+            if plane is not None:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                return plane
+            self.misses += 1
         plane = g1_plane([bytes(p) for p in pks], Bp, device)
         if not g1_subgroup_ok(*plane):
             raise ValueError("G1 pubkey not in subgroup")
         with self._lock:
             self._entries[key] = plane
-            while len(self._entries) > self.CAP:
-                self._entries.popitem(last=False)
+            while len(self._entries) > self.MAX_ENTRIES:
+                victim = next((k for k in self._entries if k[0] not in self._pinned), None)
+                if victim is None:
+                    break
+                del self._entries[victim]
+                self.evictions += 1
         return plane
+
+    def stats(self) -> dict[str, int]:
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses, "evictions": self.evictions,
+                    "entries": len(self._entries), "pinned_sets": len(self._pinned)}
 
 
 # ---------------------------------------------------------------------------

@@ -103,12 +103,12 @@ def fq2_mul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _addsub(a: torch.Tensor, b: torch.Tensor, split: int, plain) -> torch.Tensor:
     """One fe_add_rows call: rows [0, split) add, the rest subtract; a call
-    that subtracts is counted in KERNELS["fe_add_rows"].splits by (rows,
+    that subtracts is counted in KERNELS["fe_add_rows"].cases by (1, rows,
     split)."""
     out = _run("fe_add_rows", plain, a, b, 1, (split,))
     n = a.numel() // LIMBS
     if split < n:
-        CP.KERNELS["fe_add_rows"].splits[n, split] += 1
+        CP.KERNELS["fe_add_rows"].cases[1, n, split] += 1
     return out
 
 

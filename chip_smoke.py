@@ -30,12 +30,19 @@ Phases, any failure exits non-zero:
                n_add 1, n/2, n-1 and at n_add 0 (the subtraction, and the
                negation 0 - a), and fe_mul_rows<2> at 3, 18, 36 and 2304
                Fq2 products, general and squaring; fe_pow on a 4096-lane
-               plane and on 1 row. Time per launch vs the plain version and
-               the card's bound; the rows kernels' and fe_pow's times are
-               taken after the slot's first run, at every width (split, or
-               exponent) it launched them, and at the widths above; fe_pow
-               also against the per-step loop it replaces (fe_mul<1> or
-               fe_mul_rows<1> launches, built here), device and host time.
+               plane and on 1 row; pt_mul_shared<1,2> and pt_mul_windowed<1,2>
+               at 16 lanes (MUL_GATE) with the edge lanes inf, a point of
+               order 3 (through P+P and inf in the table and the scan), a G1
+               point plus one, an all-zero digit column, k = 1, and the
+               scalars u^2, h_eff, 1 and 5, bit for bit (X, Y, Z words).
+               Time per launch vs the plain version and the card's bound;
+               the rows kernels', fe_pow's and the scalar multiplications'
+               times are taken after the slot's first run, at every width
+               (split, exponent, scalar or window count) it launched them,
+               and at the widths above; fe_pow and the scalar
+               multiplications also against the per-step loop each replaces
+               (fe_mul<1> / fe_mul_rows<1>, or pt_double / pt_add launches,
+               built here), device and host time.
   4. slot    — the fixed probe (seed 99, 1000 x 4-of-6, msg 0x42*32) with
                the default device verify: warm once with every kernel
                counter at 0 (the launches of one slot: pk-plane miss, device
@@ -58,10 +65,10 @@ Phases, any failure exits non-zero:
                chunks) True, and False with a pair of the last chunk
                tampered; then every rows and fe_pow case (width, split or
                exponent) that this phase launched and the headline slot did
-               not (hash-to-G2's scans at 64 messages, the pairing at 65 and
-               1,040 pairs) held against its plain version and timed, in the
-               kernels JSON as committee_by_width; the RFC 9380 J.10.1
-               vector through the device hash-to-G2.
+               not (hash-to-G2's scans and cofactor clear at 64 messages,
+               the pairing at 65 and 1,040 pairs) held against its plain
+               version and timed, in the kernels JSON as committee_by_width;
+               the RFC 9380 J.10.1 vector through the device hash-to-G2.
 The last two lines are the kernels JSON and the device JSON.
 
 --ab builds each variant NAME=DIR (the plane_kernels.cu and fp.cuh in DIR,
@@ -76,10 +83,11 @@ bit against the plain versions, then the rows kernels (fe_mul_rows<1>,
 fe_add_rows, at n_add 0 too, at 108 and 6,912 rows; fe_mul_rows<2> at 36 and
 2,304 Fq2 products), then fe_pow (the (p-3)/4 scan on planes of 12,288,
 4,096 and 1,024 lanes, p-2 on 1 and 8 rows; `kPowBlock=64` sets another
-block size). --kernels
-points,rows,pow picks the groups timed (all by default). Every variant must
-have this checkout's C interface;
-to compare with a tree whose interface differs, run that tree's own
+block size), then the scalar multiplications at the main path's cases
+(MUL_AB; `kMulG2=16` sets the E = 2 group size). --kernels
+points,rows,pow,mul picks the groups timed (all by default). Every variant
+must have this checkout's C interface; to compare with a tree whose
+interface differs, run that tree's own
 chip_smoke.py in turns with this one. --diagnose adds three builds of this
 checkout's source with part of the level loop's work taken out, to show
 where a launch's time goes: no-arith (each operation only copies a slot),
@@ -88,8 +96,9 @@ product is an add); their outputs are wrong by design and not checked.
 --slot-rounds N then runs N rounds of the 1000 x 4-of-6 slot with each
 variant's library in turn, the order alternating by round: per variant a
 steady device-verified slot (and its verify phase), a steady native-verified
-slot and a first slot step by step; each side's median and quartiles and the
-pairs each variant wins.
+slot and a first slot step by step (its sweep + combine, MSM and device
+verify, H(m) hashed); each side's median and quartiles and the pairs each
+variant wins.
 Variants of one call are comparable; calls are not.
 """
 
@@ -148,8 +157,11 @@ OPS_PER_FQ_ADD = 3 * 12                # add/sub with carry, borrow, select per 
 # Fq2 square is 2 Fq products and an Fq2 product 3 (Karatsuba).
 FQ_WORK = {("pt_double", 1): (5, 2), ("pt_double", 2): (0, 5 * 2 + 2 * 3),
            ("pt_add", 1): (4, 12), ("pt_add", 2): (0, 4 * 2 + 12 * 3)}
-# every width at which the main path launches the point kernels
+# every width at which the main path launched the point kernels before their
+# chains moved into pt_mul_shared / pt_mul_windowed (pt_add<2> still runs at
+# 1024-128, 64 and 1)
 POINT_WIDTHS = (4096, 2048, 1024, 512, 256, 128, 64, 1)
+POINT_KERNELS = ("pt_double", "pt_add", "pt_mul_shared", "pt_mul_windowed")
 
 
 def point_ops(name: str, E: int) -> int:
@@ -182,7 +194,8 @@ def ptxas_summary(text: str) -> list[str]:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = re.search(r"((?:fe_mul|fe_add|fe_sub|pt_double|pt_add)(?:_rows)?_kernel)"
+            k = re.search(r"((?:fe_mul|fe_add|fe_sub|pt_double|pt_add|pt_mul_shared"
+                          r"|pt_mul_windowed)(?:_rows)?_kernel)"
                           r"(?:ILi(\d)E(?:Li(\d+)E)?E)?", name)
             pw = re.search(r"fe_pow_kernelIL\w*?LayoutE(\d)EE", name)
             short = name
@@ -503,22 +516,21 @@ def check_rows_kernels(device, cases: dict, reps: int = 0) -> dict:
 
 def path_counts() -> dict:
     """What the counters hold since their last reset: every kernel's
-    launches by width, fe_add_rows' subtracting launches by (width, n_add)
-    and fe_pow's by (layout, width, digits)."""
+    launches by (variant, width) and its calls by case (Kernel.cases)."""
     return {"widths": {name: dict(k.widths) for name, k in CP.KERNELS.items()},
-            "splits": dict(CP.KERNELS["fe_add_rows"].splits),
-            "exponents": dict(CP.KERNELS["fe_pow"].exponents)}
+            "cases": {name: dict(k.cases) for name, k in CP.KERNELS.items()}}
 
 
 def other_cases(run: dict, slot: dict) -> tuple[dict, dict]:
-    """The rows and fe_pow cases that `run` launched and the headline
-    slot's run did not: (rows cases as path_rows_cases gives them, fe_pow
-    cases as check_pow takes them), each at the run's launches."""
+    """The cases that `run` launched and the headline slot's run did not,
+    each at the run's launches: (the rows kernels' as path_rows_cases gives
+    them, every kernel's cases by name as path_counts gives them)."""
     seen = path_rows_cases(slot)
     rows = {key: {k: c for k, c in keys.items() if c and k not in seen[key]}
             for key, keys in path_rows_cases(run).items()}
     return ({key: keys for key, keys in rows.items() if keys},
-            {k: c for k, c in run["exponents"].items() if k not in slot["exponents"]})
+            {name: {k: c for k, c in keys.items() if k not in slot["cases"].get(name, {})}
+             for name, keys in run["cases"].items()})
 
 
 def path_rows_cases(slot: dict) -> dict:
@@ -533,7 +545,7 @@ def path_rows_cases(slot: dict) -> dict:
             if e == E:
                 keys[n] = keys.get(n, 0) + c
         if name == "fe_add_rows":
-            for (n, n_add), c in slot["splits"].items():
+            for (_E, n, n_add), c in slot["cases"]["fe_add_rows"].items():
                 keys[n] -= c
                 keys[(n, n_add)] = c
         cases[(name, E)] = {k: c for k, c in keys.items() if c or k in gate}
@@ -713,6 +725,259 @@ def pow_shape() -> str:
 
 
 # ---------------------------------------------------------------------------
+# Scalar multiplication: pt_mul_shared and pt_mul_windowed, one launch each
+# ---------------------------------------------------------------------------
+
+U2 = PF.X_ABS * PF.X_ABS               # the G1 subgroup check's [u²]P
+# the gates before the slot, at 16 lanes with every edge lane: (kernel, E,
+# width, k or windows); k = 5 takes an order-3 lane through P + P (P, 2P,
+# 4P = P, + P) and k = 1 through no step. pt_mul_windowed<1> is on no path
+# of this script and is held and timed at the width of the MSM's G1 half
+MUL_GATE = (("pt_mul_shared", 1, 16, U2), ("pt_mul_shared", 2, 16, PC.H_EFF_G2),
+            ("pt_mul_shared", 1, 16, 1), ("pt_mul_shared", 1, 16, 5),
+            ("pt_mul_shared", 2, 16, 5), ("pt_mul_windowed", 1, 16, 4),
+            ("pt_mul_windowed", 2, 16, 4))
+MUL_OFF_PATH = (("pt_mul_windowed", 1, 1024, 16),)
+
+
+def _mul_any(ops, pt, k: int):
+    """k·pt by double-and-add, k not reduced mod r."""
+    acc = PC.jac_infinity(ops)
+    for bit in bin(k)[2:]:
+        acc = PC.jac_double(ops, acc)
+        if bit == "1":
+            acc = PC.jac_add(ops, acc, pt)
+    return acc
+
+
+def order3_g1():
+    """A point of order 3 on G1's curve y² = x³ + 4 (its cofactor
+    (X_ABS + 1)²/3 has the factor 3): [r·h/3]Q for the first curve point Q
+    whose multiple is not ∞."""
+    h = (PF.X_ABS + 1) ** 2 // 3
+    x = 1
+    while True:
+        y = PF.fq_sqrt((x ** 3 + 4) % PF.P)
+        if y is not None:
+            pt = _mul_any(PC.FqOps, (x, y, 1), PF.R * h // 3)
+            if not PC.jac_is_infinity(PC.FqOps, pt):
+                if not PC.jac_is_infinity(PC.FqOps, _mul_any(PC.FqOps, pt, 3)):
+                    raise SystemExit("order3_g1: the point's order is not 3")
+                return pt
+        x += 1
+
+
+_MUL_POOL: dict = {}
+
+
+def _mul_lanes(E: int) -> list:
+    """16 Jacobian points: lane 0 ∞ (zeros, as the planes' padding), lanes 1
+    and 5 a point of order 3, lane 2 a G1 point plus it (off the subgroup,
+    with an order-3 component), the rest seeded multiples of the generator;
+    at E = 2 the G1 edge points embedded in Fq2 (c1 = 0, as the MSM's pk
+    lanes)."""
+    if E not in _MUL_POOL:
+        rng = random.Random(f"mul lanes {E}")
+        ops = PC.FqOps if E == 1 else PC.Fq2Ops
+        gen = PC.g1_generator() if E == 1 else PC.g2_generator()
+        pts = [PC.jac_mul(ops, gen, rng.randrange(1, PF.R)) for _ in range(16)]
+        o3 = order3_g1()
+        mixed = PC.jac_add(PC.FqOps, PC.jac_mul(PC.FqOps, PC.g1_generator(), 7), o3)
+
+        def fit(pt):
+            return pt if E == 1 else tuple((c, 0) for c in pt)
+
+        pts[0] = (0, 0, 0) if E == 1 else ((0, 0),) * 3
+        pts[1] = pts[5] = fit(o3)
+        pts[2] = fit(mixed)
+        _MUL_POOL[E] = pts
+    return _MUL_POOL[E]
+
+
+def _mul_digits(n: int, nwin: int, seed: str, edges: bool) -> torch.Tensor:
+    """(nwin, n) seeded 4-bit digits; with edges (n > 5): lane 3 all zero,
+    lane 4 k = 1, lane 5 (the order-3 point) 1 then 1, so that its second
+    window adds P to 16P = P (the P+P double)."""
+    rng = random.Random(seed)
+    d = torch.tensor([[rng.randrange(16) for _ in range(n)] for _ in range(nwin)],
+                     dtype=torch.uint8)
+    if edges and n > 5:
+        d[:, 3] = 0
+        d[:, 4] = 0
+        d[-1, 4] = 1
+        d[:2, 5] = 1
+    return d
+
+
+def _mul_cases(name: str, E: int, n: int, arg: int, device) -> list:
+    """[(label, (X, Y, Z), digits or None)] at width n: the edge lanes
+    (cycling through _mul_lanes; below 16 lanes from lane 0, ∞, and from
+    lane 1, order 3), and last the case that is timed: general lanes only,
+    seeded multiples of the generator and random digits, as on the main
+    path, where no point of small order reaches a kernel (no P+P double)."""
+    pool = _mul_lanes(E)
+    if n >= 16:
+        cases = [("edge lanes", [i % 16 for i in range(n)])]
+    else:
+        cases = [(f"edge lanes from {lo}", [(lo + i) % 16 for i in range(n)]) for lo in (0, 1)]
+    cases.append(("general lanes", [6 + i % 10 for i in range(n)]))
+    out = []
+    for label, lanes in cases:
+        planes = tuple(CV.port_from_ints([pool[i][c] for i in lanes], E, device)
+                       for c in range(3))
+        digits = (_mul_digits(n, arg, f"{name}<{E}> {n} {arg} {label}",
+                              label != "general lanes").to(device)
+                  if name == "pt_mul_windowed" else None)
+        out.append((label, planes, digits))
+    return out
+
+
+def mul_kernel(name: str, E: int, pts, arg):
+    """The wrapper: one pt_mul_shared / pt_mul_windowed launch."""
+    if name == "pt_mul_shared":
+        return CP.shared_mul(*pts, arg, E)
+    return CP.scalar_mul_windowed(*pts, arg, E)
+
+
+def mul_plain(name: str, E: int, pts, arg):
+    if name == "pt_mul_shared":
+        return C.pt_mul_shared_plain(*pts, arg, E)
+    return C.pt_mul_windowed_plain(*pts, arg, E)
+
+
+def mul_loop(lib, name: str, E: int, pts, arg):
+    """The per-step loop the kernel replaces, launched from `lib` outside the
+    counters: cuda_plane.shared_mul and scalar_mul_windowed as they were, a
+    pt_double / pt_add launch per step (and for the windowed product a torch
+    gather of the selected entries per window)."""
+    def dbl(p):
+        return CP.call(lib, "pt_double", E, p, 3)
+
+    def add(p, q):
+        return CP.call(lib, "pt_add", E, (*p, *q), 3)
+
+    if name == "pt_mul_shared":
+        return shared_steps(lib, E, pts, pts, bin(arg)[3:])
+    zero = torch.zeros_like(pts[0])
+    tab = [(zero, zero, zero), tuple(pts)]
+    for k in range(2, 16):
+        tab.append(dbl(tab[k // 2]) if k % 2 == 0 else add(tab[k - 1], pts))
+    T = [torch.stack([t[c] for t in tab]) for c in range(3)]
+    n = pts[0].shape[-1]
+    idx_all = arg.to(torch.int64)
+    acc = (zero, zero, zero)
+    for w in range(idx_all.shape[0]):
+        for _ in range(4):
+            acc = dbl(acc)
+        idx = idx_all[w].view(1, 1, 1, n).expand(1, E, F.LIMBS, n)
+        acc = add(acc, [t.gather(0, idx)[0] for t in T])
+    return acc
+
+
+def shared_steps(lib, E: int, acc, P, bits: str):
+    """pt_mul_shared's loop over some of its bits from acc: a pt_double
+    launch per bit, then a pt_add of P where the bit is 1."""
+    for bit in bits:
+        acc = CP.call(lib, "pt_double", E, acc, 3)
+        if bit == "1":
+            acc = CP.call(lib, "pt_add", E, (*acc, *P), 3)
+    return acc
+
+
+def loop_device_ms(lib, name: str, E: int, pts, a) -> float:
+    """Device ms of mul_loop back to back; pt_mul_shared's loop timed in
+    chunks of 256 bits (each chunk's start computed first), so that no timed
+    run holds more launches than the launch queue takes (_time_ms)."""
+    if name != "pt_mul_shared":
+        return _time_ms(lambda: mul_loop(lib, name, E, pts, a), 1)
+    bits, ms, acc = bin(a)[3:], 0.0, tuple(pts)
+    for lo in range(0, len(bits), 256):
+        chunk = bits[lo:lo + 256]
+        ms += _time_ms(lambda acc=acc, chunk=chunk: shared_steps(lib, E, acc, pts, chunk), 1)
+        acc = shared_steps(lib, E, acc, pts, chunk)
+    return ms
+
+
+def mul_steps(name: str, arg: int) -> tuple:
+    """(doubles, adds) of one lane's chain."""
+    if name == "pt_mul_shared":
+        return arg.bit_length() - 1, bin(arg).count("1") - 1
+    return 7 + 4 * arg, 7 + arg
+
+
+def check_mul(device, cases: dict, reps: int = 0) -> dict:
+    """pt_mul_shared<E> and pt_mul_windowed<E> bit for bit (X, Y, Z words)
+    against their plain versions (the same loop over the plain point
+    functions) at each case (kernel, E, width, k or windows) -> the main
+    path's launches, on _mul_cases' inputs. With reps each case is also
+    timed on its general lanes, beside the per-step loop it replaces
+    (device us back to back,
+    and the loop's synchronised host wall); returns per (kernel, E) the JSON
+    row of its most launched case, with every case in by_width. Bound: the
+    sum of the steps' bounds, by operations (an add counted without the
+    P+P double), against the planes' and digits' bytes."""
+    rows = {}
+    lib = CP._library()
+    for (name, E) in (("pt_mul_shared", 1), ("pt_mul_shared", 2), ("pt_mul_windowed", 1),
+                      ("pt_mul_windowed", 2)):
+        timed = []
+        for (nm, e, n, arg), launches in sorted(cases.items(), key=lambda kv: -kv[1]):
+            if (nm, e) != (name, E):
+                continue
+            what = f"k={'H_EFF_G2' if arg == PC.H_EFF_G2 else 'X_ABS^2' if arg == U2 else arg}" \
+                if name == "pt_mul_shared" else f"windows={arg}"
+            cases_n = _mul_cases(name, E, n, arg, device)
+            for i, (label, pts, digits) in enumerate(cases_n):
+                a = arg if digits is None else digits
+                tag = f"{name}<{E}> n={n} {what} ({label})"
+                got = mul_kernel(name, E, pts, a)
+                err = _hold(tag, got, mul_plain(name, E, pts, a))
+                if i < len(cases_n) - 1 or not reps:
+                    log(f"kernel {tag}: bit-equal to plain (X, Y, Z words)")
+                    continue
+                _hold(f"{tag} (the per-step loop)", mul_loop(lib, name, E, pts, a), got)
+                dbl, add = mul_steps(name, arg)
+                ops = n * (dbl * point_ops("pt_double", E) + add * point_ops("pt_add", E))
+                nbytes = 2 * 3 * E * 48 * n + (0 if digits is None else digits.numel())
+                bound_ms, by = _bound(nbytes, ops)
+                row = {"width": n, ("scalar_bits" if digits is None else "windows"):
+                       arg.bit_length() if digits is None else arg, "launches": launches,
+                       "steps": dbl + add,
+                       "ms": _time_ms(lambda: mul_kernel(name, E, pts, a), reps),
+                       "loop_ms": loop_device_ms(lib, name, E, pts, a),
+                       "wall_ms": _wall_ms(lambda: mul_kernel(name, E, pts, a), reps),
+                       "loop_wall_ms": _wall_ms(lambda: mul_loop(lib, name, E, pts, a), 2),
+                       "plain_ms": _wall_ms(lambda: mul_plain(name, E, pts, a), 1),
+                       "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+                timed.append(row)
+                log(f"kernel {tag}: bit-equal to plain (max_abs_err 0); {launches} launches on "
+                    f"the main path; {row['ms'] * 1e3:.1f} us/launch (host wall "
+                    f"{row['wall_ms'] * 1e3:.1f} us) against the per-step loop's "
+                    f"{row['loop_ms'] * 1e3:.1f} us of device time (host wall "
+                    f"{row['loop_wall_ms'] * 1e3:.1f} us, {dbl + add} steps); plain "
+                    f"{row['plain_ms']:.1f} ms; bound {bound_ms * 1e3:.2f} us ({by})")
+        if not timed:
+            continue
+        top = timed[0]
+        rows[(name, E)] = {
+            "name": f"{name}<{E}>", "route": "cuda", "source": CP.KERNELS[name].source,
+            "replaces": CP.KERNELS[name].site(E), "launches": 0, "library_ms": None,
+            **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "width", "loop_ms", "loop_wall_ms")},
+            "by_width": [{k: v for k, v in r.items() if k not in ("bound_by", "max_abs_err")}
+                         for r in timed]}
+    torch.cuda.synchronize()
+    return rows
+
+
+def mul_cases(cases: dict) -> dict:
+    """The composites' cases of a run, from path_counts()["cases"]: (kernel,
+    E, width, k or windows) -> launches."""
+    return {(name, E, n, arg): c for name in ("pt_mul_shared", "pt_mul_windowed")
+            for (E, n, arg), c in cases[name].items()}
+
+
+# ---------------------------------------------------------------------------
 # Slot
 # ---------------------------------------------------------------------------
 
@@ -843,6 +1108,13 @@ def _width_text(widths: dict) -> str:
                      for (E, n), c in sorted(counts.items()))
 
 
+# kernels the main path no longer launches: every point double and every G1
+# add run inside pt_mul_shared / pt_mul_windowed (pt_add<2> still adds the
+# combine, the reduction trees and hash-to-G2's q0 + q1), and the windowed
+# product runs at E = 2 only (the MSM's G1 lanes embedded in Fq2)
+OFF_PATH = (("pt_double", 1), ("pt_double", 2), ("pt_add", 1), ("pt_mul_windowed", 1))
+
+
 def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
     main_path = [(k, E) for k in CP.KERNELS for E in CP.KERNELS[k].variants]
     # one slot of the main path, pk-plane miss included: counters at 0
@@ -854,16 +1126,20 @@ def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
     launches = {(k, E): CP.KERNELS[k].launches[E] for k, E in main_path}
     if not ok:
         raise SystemExit("slot verdict False on valid aggregates (warm run)")
-    missing = [f"{k}<{E}>" for (k, E), c in launches.items() if c == 0]
+    missing = [f"{k}<{E}>" for (k, E), c in launches.items() if c == 0 and (k, E) not in OFF_PATH]
     if missing:
         raise SystemExit(f"main path launched no {missing}")
+    off = [f"{k}<{E}>={launches[k, E]}" for k, E in OFF_PATH if launches[k, E]]
+    if off:
+        raise SystemExit(f"main path launched {off}, which should run inside pt_mul_shared / "
+                         f"pt_mul_windowed or not at all")
     log(f"slot warm (first: pk plane decoded, H(m) hashed on the device, device verify): "
         f"{warm_s:.3f} s, verify {impl.last_times.verify:.4f} s; launches "
         + ", ".join(f"{k}<{E}>={c}" for (k, E), c in launches.items()))
     counts = path_counts()
     widths = counts["widths"]
     log(f"slot warm point launches by width: "
-        f"{_width_text({k: widths[k] for k in ('pt_double', 'pt_add')})}")
+        f"{_width_text({k: widths[k] for k in POINT_KERNELS})}")
 
     times, shares = [], []
     for _ in range(3):
@@ -976,11 +1252,11 @@ def verify_launches(impl: TorchImpl, S, live, label: str) -> dict:
               for k, v in CP.KERNELS.items() for E in v.variants if v.launches[E]}
     if not ok:
         raise SystemExit(f"{label} device verify False on valid aggregates")
-    splits = CP.KERNELS["fe_add_rows"].splits
+    splits = CP.KERNELS["fe_add_rows"].cases
     log(f"{label} device verify: {dt:.4f} s, {sum(counts.values())} launches: "
         + ", ".join(f"{k}={c}" for k, c in counts.items())
-        + f" (fe_add_rows split: {sum(c for (_n, k), c in splits.items() if k)}, at n_add 0: "
-        f"{sum(c for (_n, k), c in splits.items() if not k)})")
+        + f" (fe_add_rows split: {sum(c for (_E, _n, k), c in splits.items() if k)}, at n_add "
+        f"0: {sum(c for (_E, _n, k), c in splits.items() if not k)})")
     return counts
 
 
@@ -1020,7 +1296,7 @@ def committee_slot(pool, jobs, pubkeys) -> dict:
     rows_launches = (sum(sum(CP.KERNELS[k].launches.values())
                          for k in ("fe_mul_rows", "fe_add_rows"))
                      + CP.KERNELS["fe_pow"].launches["rows"])
-    widths = {name: dict(CP.KERNELS[name].widths) for name in ("pt_double", "pt_add")}
+    widths = {name: dict(CP.KERNELS[name].widths) for name in POINT_KERNELS}
     _aggs, ok_n = native_impl.threshold_aggregate_verify_batch(batches, pubkeys, datas)
     if not (ok and ok_n):
         raise SystemExit(f"committee slot: device verdict {ok}, native verdict {ok_n}")
@@ -1228,6 +1504,37 @@ def ab_pow(libs: dict, reps: int, dev) -> None:
             f"{name} {sum(t) / len(t):.1f}" for name, t in times.items()) + " us")
 
 
+# the composites' A/B cases: (kernel, E, width, k or windows), the main
+# path's
+MUL_AB = (("pt_mul_windowed", 2, 4096, 64), ("pt_mul_windowed", 2, 2048, 16),
+          ("pt_mul_shared", 1, 1024, U2), ("pt_mul_shared", 2, 1, PC.H_EFF_G2),
+          ("pt_mul_shared", 2, 64, PC.H_EFF_G2))
+
+
+def ab_mul(libs: dict, reps: int, dev) -> None:
+    """pt_mul_shared and pt_mul_windowed of every variant in turns at
+    MUL_AB, each held bit for bit against its plain version (through each
+    library's C interface); the --diagnose builds, whose outputs are wrong
+    by design, are timed only."""
+    names = list(libs)
+    for name, E, n, arg in MUL_AB:
+        _label, pts, digits = _mul_cases(name, E, n, arg, dev)[-1]
+        a = arg if digits is None else digits
+        want = mul_plain(name, E, pts, a)
+        args = ((CP.scalar_bits(arg), arg.bit_length()) if digits is None
+                else (digits.data_ptr(), digits.shape[0]))
+        times = {nm: [] for nm in names}
+        for nm in names + names[::-1]:
+            def fn(lib=libs[nm]):
+                return CP.call(lib, name, E, pts, 3, args)
+            if nm not in DIAGNOSTICS:
+                _hold(f"{nm} {name}<{E}> n={n}", fn(), want)
+            times[nm].append(_time_ms(fn, reps) * 1e3)
+        log(f"{name}<{E}> A/B n={n} {'windows' if digits is not None else 'bits'}="
+            f"{arg if digits is not None else arg.bit_length()}: " + "; ".join(
+                f"{nm} {sum(t) / len(t):.1f}" for nm, t in times.items()) + " us")
+
+
 def _quartiles(xs: list) -> str:
     q1, q2, q3 = statistics.quantiles(xs, n=4)
     return f"median {statistics.median(xs):.4f} (quartiles {q1:.4f}-{q3:.4f})"
@@ -1266,7 +1573,8 @@ def ab_slots(libs: dict, rounds: int) -> None:
         batches, pubkeys, _jobs = gen_cluster(pool)
     datas = [MSG] * N_VALIDATORS
     dev, nat = TorchImpl(), TorchImpl(verify="native")
-    metrics = ("device slot", "device verify", "native slot", "sweep + combine", "MSM")
+    metrics = ("device slot", "device verify", "native slot", "sweep + combine", "MSM",
+               "first verify")
     got = {name: {m: [] for m in metrics} for name in names}
     want = None
     for r in range(-1, rounds):                 # round -1 warms both caches
@@ -1286,6 +1594,7 @@ def ab_slots(libs: dict, rounds: int) -> None:
                                                                     dev.device)}
             t["sweep + combine"] = steps["Lagrange sweep + combine"] / 1e3
             t["MSM"] = steps["combined RLC MSM + reduction trees"] / 1e3
+            t["first verify"] = steps["device verify (H(m) hashed)"] / 1e3
             if r >= 0:
                 for m in metrics:
                     got[name][m].append(t[m])
@@ -1306,7 +1615,7 @@ def ab_main(argv: list[str]) -> int:
     ap.add_argument("--diagnose", action="store_true")
     ap.add_argument("--slot-rounds", type=int, default=0)
     ap.add_argument("--widths", default=",".join(map(str, POINT_WIDTHS)))
-    ap.add_argument("--kernels", default="points,rows,pow")
+    ap.add_argument("--kernels", default="points,rows,pow,mul")
     args = ap.parse_args(argv)
     groups = set(args.kernels.split(","))
     jobs = []
@@ -1334,6 +1643,8 @@ def ab_main(argv: list[str]) -> int:
         ab_rows(libs, 50, torch.device("cuda:0"))
     if "pow" in groups:
         ab_pow(libs, 10, torch.device("cuda:0"))
+    if "mul" in groups:
+        ab_mul(libs, 3, torch.device("cuda:0"))
     if args.slot_rounds:
         ab_slots(libs, args.slot_rounds)
     log(nvidia_smi_line())
@@ -1361,11 +1672,13 @@ def main(argv: list[str]) -> int:
     rows = check_kernels(device, {("fe", 1): 12288, ("fe", 2): 4096}, reps=50)
     # the combined MSM plane's width as well
     check_kernels(device, {("fe", 1): 2048, ("fe", 2): 2048}, reps=5)
-    # the point ops at every width the main path launches them: the sweep
-    # (4096), the MSM (2048), the combine and the pk subgroup check (1024),
-    # the MSM's reduction tree (512-128), the committee cofactor clear (64)
-    # and the headline's (1); the JSON row of each is the sweep's (G2) or
-    # the subgroup check's (G1) width
+    # the point ops at every width the main path launched them before the
+    # scalar multiplications took their chains: the sweep (4096), the MSM
+    # (2048), the combine and the pk subgroup check (1024), the MSM's
+    # reduction tree (512-128), hash-to-G2's q0 + q1 at 64 and 1; the JSON
+    # row of each is the width the slot launches it most (pt_add<2>: the
+    # combine's), or where it launches it no more the sweep's (G2) or the
+    # subgroup check's (G1)
     pt_rows = check_point_kernels(device, POINT_WIDTHS, reps=50)
     for name in ("pt_double", "pt_add"):
         for E, main_width in ((1, 1024), (2, 4096)):
@@ -1377,6 +1690,7 @@ def main(argv: list[str]) -> int:
     check_rows_kernels(device, {key: dict.fromkeys(keys, 0) for key, keys in ROWS_GATE.items()})
     log(pow_shape())
     check_pow(device, {pow_case(*c): 0 for c in POW_GATE})
+    check_mul(device, {c: 0 for c in MUL_GATE})
 
     with ThreadPoolExecutor(max_workers=8) as pool:
         t0 = time.perf_counter()
@@ -1386,9 +1700,17 @@ def main(argv: list[str]) -> int:
         impl = TorchImpl()
         datas = [MSG] * N_VALIDATORS
         slot = run_slot(impl, batches, pubkeys, datas, pool)
+        for (name, E), row in list(rows.items()):
+            launched = {n: c for (e, n), c in slot["widths"][name].items() if e == E}
+            if name in ("pt_double", "pt_add") and launched:
+                top = max(launched, key=launched.get)
+                rows[(name, E)] = dict(pt_rows[(name, E, top)], by_width=row["by_width"])
         rows.update(check_rows_kernels(device, path_rows_cases(slot), reps=50))
         rows.update(check_pow(device, {**{pow_case(*c): 0 for c in POW_GATE},
-                                       **slot["exponents"]}, reps=20))
+                                       **slot["cases"]["fe_pow"]}, reps=20))
+        rows.update(check_mul(device, {**{c: 0 for c in MUL_OFF_PATH},
+                                       **mul_cases(slot["cases"])},
+                              reps=3))
         native_twin(batches, pubkeys, datas, slot["tampered"])
         S, live = slot_pairs(impl, batches, pubkeys, datas)
         verify_launches(TorchImpl(), S, live, "first (H(m) miss)")
@@ -1398,11 +1720,13 @@ def main(argv: list[str]) -> int:
             raise SystemExit(f"a steady device verify launched {sum(steady.values())} kernels, "
                              f"more than {STEADY_VERIFY_MAX_LAUNCHES}")
         # the cases the committee slot and the chunked check launched that
-        # the headline slot did not (h2c's scans and the tower at 64
-        # messages, the pairing at 65 and 1,040 pairs), held and timed too
-        more_rows, more_pow = other_cases(committee_slot(pool, jobs, pubkeys), slot)
+        # the headline slot did not (h2c's scans, the tower and the cofactor
+        # clear at 64 messages, the pairing at 65 and 1,040 pairs), held and
+        # timed too
+        more_rows, more = other_cases(committee_slot(pool, jobs, pubkeys), slot)
         for key, row in {**check_rows_kernels(device, more_rows, reps=50),
-                         **check_pow(device, more_pow, reps=20)}.items():
+                         **check_pow(device, more["fe_pow"], reps=20),
+                         **check_mul(device, mul_cases(more), reps=3)}.items():
             rows[key]["committee_by_width"] = row["by_width"]
     rfc_vector(device)
     torch.cuda.synchronize()

@@ -1,8 +1,11 @@
 """Port point layer vs the JAX package: the plain versions of the pt_double
 and pt_add kernels against charon_tpu.ops.pallas_plane's pt_double/pt_add
 (their CPU path) with the edges P+P, P+(−P), ∞+Q and P+∞, compared as affine
-points; and the composite loops (pow scan, windowed scalar multiplication,
-reduction tree + host fold, shared-scalar multiplication) against the
+points; the plain versions of the two scalar-multiplication kernels
+(pt_mul_shared, pt_mul_windowed) word for word against the reference's
+pt_double/pt_add chained in the order of _shared_mul_call and
+_scalar_mul_windowed; and the composites (pow scan, windowed and
+shared-scalar multiplication, reduction tree + host fold) against the
 pure-Python oracle."""
 
 import random
@@ -160,6 +163,136 @@ def test_shared_scalar_mul():
         assert got == [RC.to_affine(RC.FqOps, RC.jac_mul(RC.FqOps, p, k)) for p in pts]
     with pytest.raises(ValueError):
         CP.shared_mul(*planes, 0, 1)
+
+
+# ---------------------------------------------------------------------------
+# The scalar-multiplication kernels' plain versions against the reference's
+# point steps, chained in its order (its whole composites are not compiled
+# here: PP._scalar_mul_windowed and PP._shared_mul_call take minutes on
+# XLA:CPU)
+# ---------------------------------------------------------------------------
+
+N8 = 8
+
+
+def _mul_lanes(E: int, seed: int):
+    """8 lanes: random points, lane 5 ∞, lane 6 the generator (small
+    multiples of one point)."""
+    ops = _ops(E)
+    pts = _points(E, seed)
+    pts[5] = (ops.one, ops.one, ops.zero)
+    pts[6] = RC.g1_generator() if E == 1 else RC.g2_generator()
+    return pts, _ref_planes(pts, E)
+
+
+def _ref_point(planes, E):
+    return PP.PlanePoint(*[jnp.asarray(c) for c in planes], E, N8)
+
+
+def _words(point):
+    return [CV.planes_from_jax(np.asarray(c)) for c in (point.X, point.Y, point.Z)]
+
+
+def _plain_calls(*names):
+    return {k: dict(CP.KERNELS[k].plain_calls) for k in names}
+
+
+@pytest.mark.parametrize("E", [1, 2])
+def test_shared_mul_plain_matches_the_jax_package_steps(E):
+    """k = 13 (bits 1101): the reference's unrolled double-and-add
+    (_shared_mul_call: a double per bit after the first, an add of P per set
+    bit) over PP.pt_double / PP.pt_add, word for word; one pt_mul_shared
+    plain call and no per-step one."""
+    pts, ref = _mul_lanes(E, 90 + E)
+    P = _ref_point(ref, E)
+    acc = P
+    for bit in bin(13)[3:]:
+        acc = PP.pt_double(acc)
+        if bit == "1":
+            acc = PP.pt_add(acc, P)
+    CP.reset_counts()
+    got = CP.shared_mul(*[CV.planes_from_jax(c) for c in ref], 13, E)
+    assert all(torch.equal(g, w) for g, w in zip(got, _words(acc)))
+    assert _plain_calls("pt_mul_shared", "pt_double", "pt_add") == {
+        "pt_mul_shared": {1: int(E == 1), 2: int(E == 2)},
+        "pt_double": {1: 0, 2: 0}, "pt_add": {1: 0, 2: 0}}
+    assert CP.KERNELS["pt_mul_shared"].cases == {(E, 128, 13): 1}
+    assert _affine(got, E)[:N8] == [RC.to_affine(_ops(E), RC.jac_mul(_ops(E), p, 13))
+                                    for p in pts]
+
+
+@pytest.mark.parametrize("nwin", [2, 4])
+def test_windowed_mul_plain_matches_the_jax_package_steps(nwin):
+    """E = 2, seeded digits with an all-zero column (lane 2), a zero row and
+    the ∞ lane: the reference's _scalar_mul_windowed walk over PP.pt_double /
+    PP.pt_add (the table: an even entry the double of entry k/2, an odd one
+    entry k−1 plus P; then from ∞ per window 4 doubles and the add of the
+    selected entry, digit 0 the ∞ entry), word for word; one
+    pt_mul_windowed plain call and no per-step one."""
+    E = 2
+    pts, ref = _mul_lanes(E, 100 + nwin)
+    rng = np.random.default_rng(nwin)
+    digits = np.zeros((nwin, 128), np.uint8)
+    digits[:, :N8] = rng.integers(0, 16, (nwin, N8))
+    digits[:, 2] = 0
+    digits[0, 3:5] = 0
+    digits[1, 6] = 1
+    P = _ref_point(ref, E)
+    zero = PP.PlanePoint(P.X * 0, P.Y * 0, P.Z * 0, E, N8)
+    tab = [zero, P]
+    for k in range(2, 16):
+        tab.append(PP.pt_double(tab[k // 2]) if k % 2 == 0 else PP.pt_add(tab[k - 1], P))
+    T = [np.stack([np.asarray(getattr(t, c)) for t in tab]) for c in "XYZ"]  # (16, E, 12, 8, 16)
+    acc = zero
+    for w in range(nwin):
+        for _ in range(4):
+            acc = PP.pt_double(acc)
+        idx = np.broadcast_to(digits[w].reshape(1, 1, 1, 8, 16).astype(np.int64),
+                              (1,) + T[0].shape[1:])
+        sel = [jnp.asarray(np.take_along_axis(t, idx, 0)[0]) for t in T]
+        acc = PP.pt_add(acc, PP.PlanePoint(*sel, E, N8))
+    CP.reset_counts()
+    got = CP.scalar_mul_windowed(*[CV.planes_from_jax(c) for c in ref], torch.as_tensor(digits), E)
+    assert all(torch.equal(g, w) for g, w in zip(got, _words(acc)))
+    assert _plain_calls("pt_mul_windowed", "pt_double", "pt_add") == {
+        "pt_mul_windowed": {1: 0, 2: 1}, "pt_double": {1: 0, 2: 0}, "pt_add": {1: 0, 2: 0}}
+    assert CP.KERNELS["pt_mul_windowed"].cases == {(2, 128, nwin): 1}
+    ks = [sum(int(digits[w, i]) << (4 * (nwin - 1 - w)) for w in range(nwin)) for i in range(N8)]
+    assert _affine(got, E)[:N8] == [RC.to_affine(_ops(E), RC.jac_mul(_ops(E), p, k))
+                                    for p, k in zip(pts, ks)]
+
+
+def test_shared_mul_large_scalars_match_the_oracle():
+    """[X_ABS²]P (the G1 subgroup check's scalar) on 4 points and [h_eff]P
+    (the G2 cofactor clear's, 636 bits) on one, affine against RC.jac_mul."""
+    pts = _points(1, 110, 4)
+    planes = [CV.port_from_ints([p[c] for p in pts], 1) for c in range(3)]
+    u2 = RPF.X_ABS * RPF.X_ABS
+    assert _affine(CP.shared_mul(*planes, u2, 1), 1) == [
+        RC.to_affine(RC.FqOps, RC.jac_mul(RC.FqOps, p, u2)) for p in pts]
+    q = _points(2, 111, 1)
+    planes = [CV.port_from_ints([q[0][c]], 2) for c in range(3)]
+    assert _affine(CP.shared_mul(*planes, RC.H_EFF_G2, 2), 2) == [
+        RC.to_affine(RC.Fq2Ops, RC.jac_mul(RC.Fq2Ops, q[0], RC.H_EFF_G2))]
+
+
+def test_scalar_mul_wrappers_reject_what_the_kernels_do_not_take():
+    planes = [CV.port_from_ints([p[c] for p in _points(1, 120, 2)], 1) for c in range(3)]
+    digits = torch.zeros((2, 2), dtype=torch.uint8)
+    CP.reset_counts()
+    for k in (0, -1, 1 << CP.MUL_MAX_BITS):
+        with pytest.raises(ValueError, match="shared scalar"):
+            CP.shared_mul(*planes, k, 1)
+    with pytest.raises(ValueError, match="E must be 1 or 2"):
+        CP.shared_mul(*planes, 5, 3)
+    for bad in (digits[:, :1], torch.zeros((0, 2), dtype=torch.uint8), digits[0],
+                digits.to(torch.int32)):
+        with pytest.raises(ValueError, match="digits"):
+            CP.scalar_mul_windowed(*planes, bad, 1)
+    with pytest.raises(ValueError, match="E must be 1 or 2"):
+        CP.scalar_mul_windowed(*planes, digits, 3)
+    assert _plain_calls("pt_mul_shared", "pt_mul_windowed") == {
+        "pt_mul_shared": {1: 0, 2: 0}, "pt_mul_windowed": {1: 0, 2: 0}}
 
 
 def test_pad_batch_buckets_match_the_reference():

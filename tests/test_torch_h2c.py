@@ -82,12 +82,16 @@ def mapped():
 def test_rfc9380_vector_through_the_device_map(mapped):
     aff, calls = mapped
     assert aff[0] == RFC_P
-    # the cofactor clear ran on the plane point kernels, the rest on rows
-    assert calls["pt_double"][2] == 635
-    assert calls["pt_add"][2] == 1 + 304
+    # q0 + q1 on pt_add<2>, the cofactor clear one pt_mul_shared<2> (its 635
+    # doublings and 304 additions in the kernel), the rest on rows
+    assert calls["pt_double"] == {1: 0, 2: 0}
+    assert calls["pt_add"] == {1: 0, 2: 1}
+    assert calls["pt_mul_shared"] == {1: 0, 2: 1}
     assert calls["fe_mul_rows"][1] > 0
     # its six power scans (five p-sized, the affine inversion) one fe_pow each
     assert calls["fe_pow"] == {"plane": 0, "rows": 6}
+    # 54 launches in all: a first verify (H(m) hashed) takes 4,778 + 54
+    assert sum(sum(c.values()) for c in calls.values()) == 54
 
 
 def test_device_map_matches_host_and_native(mapped):

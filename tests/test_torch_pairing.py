@@ -155,9 +155,9 @@ def test_pairing_check_matches_native(n, tampered, pair_sets):
                 for k in ("fe_mul_rows", "fe_add_rows", "fe_pow")} == {
             "fe_mul_rows": {1: 70, 2: 699}, "fe_add_rows": {1: 4008},
             "fe_pow": {"plane": 0, "rows": 1}}
-        splits = CP.KERNELS["fe_add_rows"].splits
-        assert sum(c for (_n, k), c in splits.items() if k > 0) == 1519
-        assert sum(c for (_n, k), c in splits.items() if k == 0) == 920
+        splits = CP.KERNELS["fe_add_rows"].cases
+        assert sum(c for (_E, _n, k), c in splits.items() if k > 0) == 1519
+        assert sum(c for (_E, _n, k), c in splits.items() if k == 0) == 920
     assert CP.KERNELS["fe_mul_rows"].plain_calls[2] > 0
 
 

@@ -212,3 +212,79 @@ def test_layout_matches_the_reference(keys):
     batches = [{i + 1: sigs[(4 * v + i) % len(sigs)] for i in range(4)} for v in range(9)]
     assert PA.layout_slots(batches) == RPA._layout_slots(batches)
     assert PA.bucket_for_slots(1000, 4) == RPA._bucket_for_slots(1000, 4) == 1024
+
+
+# ---------------------------------------------------------------------------
+# The pk-plane cache against the reference's PlaneStore
+# ---------------------------------------------------------------------------
+
+
+def _stub_decoders(monkeypatch):
+    """No plane is decoded: both caches get a token per decode."""
+    from charon_tpu.ops import plane_store as RPS
+
+    monkeypatch.setattr(RPA, "g1_plane_from_compressed", lambda pks, Bc, reject_infinity: ("plane",))
+    monkeypatch.setattr(RPA, "g1_subgroup_ok", lambda plane: True)
+    monkeypatch.setattr(PA, "g1_plane", lambda pks, Bp, device: ("plane",) * 3)
+    monkeypatch.setattr(PA, "g1_subgroup_ok", lambda *plane: True)
+    return RPS
+
+
+def _drive(sequence, ref, port):
+    """Run (action, set) steps on both caches; per step the (hits, misses,
+    evictions) it added on each."""
+    keys = ("hits", "misses", "evictions")
+    out = []
+    for action, pks in sequence:
+        before = ref.stats(), port.stats()
+        if action == "get":
+            ref.full_plane(pks, BP)
+            port.get(pks, BP, CPU)
+        else:
+            getattr(ref, action)(pks)
+            getattr(port, action)(pks)
+        after = ref.stats(), port.stats()
+        out.append(tuple(tuple(a[k] - b[k] for k in keys) for a, b in zip(after, before)))
+    return out
+
+
+def test_pk_plane_cache_evicts_as_the_reference_plane_store(monkeypatch):
+    """Fill to the cap (64 sets), hit set 1, insert a 65th set (set 2, the
+    oldest after set 1's refresh, goes), pin set 3 and overflow again (set
+    4 goes, not the pinned set 3); then set 1 and set 3 hit and set 2
+    misses, on both."""
+    RPS = _stub_decoders(monkeypatch)
+    ref, port = RPS.PlaneStore(), PA.PkPlaneCache()
+    assert port.MAX_ENTRIES == ref.max_entries == 64
+    sets = {i: [b"pk-set-%d" % i] for i in range(1, 67)}
+    seq = [("get", sets[i]) for i in range(1, 65)]
+    seq += [("get", sets[1]), ("get", sets[65]), ("pin", sets[3]), ("get", sets[66])]
+    seq += [("get", sets[1]), ("get", sets[3]), ("get", sets[4]), ("get", sets[2])]
+    steps = _drive(seq, ref, port)
+    assert all(r == p for r, p in steps)
+    got = [p for _r, p in steps]
+    assert got[:64] == [(0, 1, 0)] * 64
+    assert got[64:] == [(1, 0, 0), (0, 1, 1), (0, 0, 0), (0, 1, 1),
+                        (1, 0, 0), (1, 0, 0), (0, 1, 1), (0, 1, 1)]
+    assert port.stats() == {"hits": 3, "misses": 68, "evictions": 4, "entries": 64,
+                            "pinned_sets": 1}
+
+
+def test_pk_plane_cache_grows_rather_than_drop_a_pin(monkeypatch):
+    """At the cap of 64 sets, every resident pinned: a pinned 65th set is
+    added past the cap (the cache grows) and an unpinned one evicted at
+    once; after set 1's unpin a new set's insert evicts set 1 and then
+    itself, back to the 65 pinned sets."""
+    RPS = _stub_decoders(monkeypatch)
+    ref, port = RPS.PlaneStore(), PA.PkPlaneCache()
+    assert port.MAX_ENTRIES == ref.max_entries == 64
+    sets = {i: [b"pk-set-%d" % i] for i in range(1, 68)}
+    seq = [("get", sets[i]) for i in range(1, 65)] + [("pin", sets[i]) for i in range(1, 66)]
+    seq += [("get", sets[65]), ("get", sets[66]), ("get", sets[66]), ("unpin", sets[1]),
+            ("get", sets[1]), ("get", sets[67]), ("get", sets[1])]
+    steps = _drive(seq, ref, port)
+    assert all(r == p for r, p in steps)
+    assert [p for _r, p in steps][129:] == [(0, 1, 0), (0, 1, 1), (0, 1, 1), (0, 0, 0),
+                                           (1, 0, 0), (0, 1, 2), (0, 1, 1)]
+    assert port.stats() == {"hits": 1, "misses": 69, "evictions": 5, "entries": 64,
+                            "pinned_sets": 64}

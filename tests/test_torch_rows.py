@@ -143,8 +143,8 @@ def test_addsub_rows_matches_the_jax_package(n_add, jit_field):
     assert np.array_equal(CV.rows_to_jax(got), want)
     k = CP.KERNELS["fe_add_rows"]
     assert k.plain_calls == {1: 1} and k.launches == {1: 0}
-    # every call that subtracts is counted by (width, n_add) in rows
-    assert dict(k.splits) == ({(24, 4 * n_add): 1} if n_add < 6 else {})
+    # every call that subtracts is counted by (1, width, n_add) in rows
+    assert dict(k.cases) == ({(1, 24, 4 * n_add): 1} if n_add < 6 else {})
 
 
 def test_pow_rows_matches_host_powers():
@@ -255,7 +255,7 @@ def test_chip_smoke_times_the_rows_kernels_where_the_main_path_launches_them():
     slot = {"widths": {"fe_mul_rows": {(1, 1): 11, (1, 8): 59, (2, 18): 351},
                        "fe_add_rows": {(1, 12): 830 + 351 + 702, (1, 2): 353},
                        "fe_pow": {("rows", 1): 1}},
-            "splits": {(12, 6): 351, (2, 1): 353, (12, 0): 702}}
+            "cases": {"fe_add_rows": {(1, 12, 6): 351, (1, 2, 1): 353, (1, 12, 0): 702}}}
     cases = chip_smoke.path_rows_cases(slot)
     assert cases == {
         ("fe_mul_rows", 1): {1: 11, 108: 0, 6912: 0, 8: 59},
@@ -270,9 +270,10 @@ def test_chip_smoke_times_the_rows_kernels_where_the_main_path_launches_them():
 
 
 def test_chip_smoke_holds_what_the_committee_phase_launched_beyond_the_headline():
-    """chip_smoke.py holds and times every rows and fe_pow case that the
-    committee slot and the chunked check launched and the headline slot
-    did not: h2c's scans at 64 messages and the pairing's wider rows."""
+    """chip_smoke.py holds and times every rows, fe_pow and scalar-
+    multiplication case that the committee slot and the chunked check
+    launched and the headline slot did not: h2c's scans and cofactor clear
+    at 64 messages and the pairing's wider rows."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                    "chip_smoke.py"))
@@ -281,14 +282,19 @@ def test_chip_smoke_holds_what_the_committee_phase_launched_beyond_the_headline(
     inv = (1, 2, 3)
     slot = {"widths": {"fe_mul_rows": {(1, 1): 11, (2, 18): 351},
                        "fe_add_rows": {(1, 12): 830 + 351, (1, 2): 353}},
-            "splits": {(12, 6): 351, (2, 1): 353},
-            "exponents": {("rows", 1, inv): 1, ("plane", 4096, inv): 1}}
+            "cases": {"fe_add_rows": {(1, 12, 6): 351, (1, 2, 1): 353},
+                      "fe_pow": {("rows", 1, inv): 1, ("plane", 4096, inv): 1},
+                      "pt_mul_shared": {(2, 1, 5): 1}, "pt_mul_windowed": {(2, 4096, 64): 1}}}
     run = {"widths": {"fe_mul_rows": {(1, 1): 3, (1, 384): 5, (2, 18): 2, (2, 130): 7},
                       "fe_add_rows": {(1, 12): 4, (1, 390): 9 + 6}},
-           "splits": {(390, 0): 6, (12, 6): 1},
-           "exponents": {("rows", 1, inv): 2, ("rows", 384, inv): 1, ("plane", 4096, inv): 1}}
-    rows, pows = chip_smoke.other_cases(run, slot)
+           "cases": {"fe_add_rows": {(1, 390, 0): 6, (1, 12, 6): 1},
+                     "fe_pow": {("rows", 1, inv): 2, ("rows", 384, inv): 1,
+                                ("plane", 4096, inv): 1},
+                     "pt_mul_shared": {(2, 1, 5): 2, (2, 64, 5): 1},
+                     "pt_mul_windowed": {(2, 4096, 64): 1}}}
+    rows, more = chip_smoke.other_cases(run, slot)
     assert rows == {("fe_mul_rows", 1): {384: 5}, ("fe_mul_rows", 2): {130: 7},
                     ("fe_add_rows", 1): {390: 9, (390, 0): 6}}
-    assert pows == {("rows", 384, inv): 1}
+    assert more["fe_pow"] == {("rows", 384, inv): 1}
+    assert chip_smoke.mul_cases(more) == {("pt_mul_shared", 2, 64, 5): 1}
 

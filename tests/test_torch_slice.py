@@ -77,8 +77,9 @@ def slot():
         aggs, ok = impl.threshold_aggregate_verify_batch(batches, pks, datas)
     calls = {k: dict(v.plain_calls) for k, v in CP.KERNELS.items()}
     launches = {k: dict(v.launches) for k, v in CP.KERNELS.items()}
+    cases = {k: dict(CP.KERNELS[k].cases) for k in ("pt_mul_shared", "pt_mul_windowed")}
     return dict(impl=impl, native=native, batches=batches, pks=pks, datas=datas,
-                aggs=aggs, ok=ok, calls=calls, launches=launches, pairs=seen[0],
+                aggs=aggs, ok=ok, calls=calls, launches=launches, cases=cases, pairs=seen[0],
                 pairing_path=dict(impl.pairing_path))
 
 
@@ -195,24 +196,47 @@ H2C_CALLS = {"fe_mul_rows": {1: 11, 2: 18}, "fe_add_rows": {1: 17},
 def test_one_slot_goes_through_every_kernel(slot):
     """Plain-path calls of the first V=8 slot (pk plane decoded, both
     messages hashed on the device path, device verify), by kernel and E.
-    The aggregation's point ops follow from the slot's structure (Vp=128,
-    T=4, G=2 groups): pt_double<2> = (7 + 64·4) sweep + (7 + 16·4) MSM =
-    334; pt_add<2> = (7 + 64) sweep + 3 combine + (7 + 16) MSM + 3·(1 + 2)
-    reduction trees = 106; pt_double<1> / pt_add<1> are [u²]P's 127
-    doublings and 16 adds (the pk subgroup check). The device hash-to-G2
-    adds its cofactor clear (635 doublings, 304 additions, and q0 + q1) to
-    the G2 point ops; everything else of the verify runs on the rows
-    kernels. The four plane power scans (the G2 partials' sqrt and (p−3)/4,
-    the affine p−2, the G1 sqrt) are one fe_pow<plane> call each."""
+    The scalar multiplications are one call each: the Lagrange sweep
+    (Vp·T = 512 lanes, 64 windows) and the combined RLC MSM (256 lanes, 16
+    windows) pt_mul_windowed<2>, the pk subgroup check's [u²]P
+    pt_mul_shared<1> and the device hash-to-G2's cofactor clear
+    pt_mul_shared<2>; what is left of the point ops is pt_add<2>: 3 combine
+    + 3·(1 + 2) reduction trees (Vp = 128, G = 2 groups) + hash-to-G2's
+    q0 + q1 = 13. Everything else of the verify runs on the rows kernels.
+    The four plane power scans (the G2 partials' sqrt and (p−3)/4, the
+    affine p−2, the G1 sqrt) are one fe_pow<plane> call each."""
     rows = {k: {E: c + H2C_CALLS[k][E] for E, c in v.items()} for k, v in VERIFY_CALLS.items()}
     rows["fe_pow"]["plane"] = 4
     assert slot["calls"] == {
         "fe_mul": {1: 38, 2: 6}, "fe_add": {1: 6, 2: 1}, "fe_sub": {1: 7, 2: 1},
-        "pt_double": {1: 127, 2: 334 + 635}, "pt_add": {1: 16, 2: 106 + 305}, **rows}
-    u2 = RPF.X_ABS * RPF.X_ABS
-    assert slot["calls"]["pt_double"][1] == u2.bit_length() - 1
-    assert slot["calls"]["pt_add"][1] == bin(u2).count("1") - 1
+        "pt_double": {1: 0, 2: 0}, "pt_add": {1: 0, 2: 13}, **rows,
+        "pt_mul_shared": {1: 1, 2: 1}, "pt_mul_windowed": {1: 0, 2: 2}}
+    assert slot["cases"]["pt_mul_shared"] == {(1, 128, RPF.X_ABS * RPF.X_ABS): 1,
+                                              (2, 2, H.H_EFF_G2): 1}
+    assert slot["cases"]["pt_mul_windowed"] == {(2, 512, 64): 1, (2, 256, 16): 1}
     assert all(c == {E: 0 for E in c} for c in slot["launches"].values())
+
+
+def test_first_slot_dispatch_steps(slot):
+    """The launches of a first slot's dispatch by step (pk plane decoded),
+    one message as the 1000 × 4-of-6 headline: 75, of which pk plane 19
+    (G1 decompression and the subgroup check's one pt_mul_shared<1>), sweep
+    + combine 4 (one pt_mul_windowed<2>, 3 pt_add<2>) and MSM + trees 7 (one
+    pt_mul_windowed<2>, 2 trees of 3 pt_add<2> levels). Vp = 128 here and
+    1,024 at the headline reduce in the same 3 levels, so the counts are
+    the headline's."""
+    steps = []
+
+    def mark(name):
+        steps.append((name, sum(sum(k.plain_calls.values()) for k in CP.KERNELS.values())))
+        CP.reset_counts()
+
+    CP.reset_counts()
+    state = PA.fused_slot(PA.layout_slots(slot["batches"]), slot["pks"], [MSGS[0]] * V,
+                          torch.device("cpu"), PA.PkPlaneCache(), mark=mark)
+    assert state[0] == "pending"
+    assert [c for _name, c in steps] == [0, 19, 0, 32, 4, 13, 7]
+    assert steps[1][0].startswith("pk plane") and steps[4][0] == "Lagrange sweep + combine"
 
 
 def test_one_verify_goes_through_the_rows_kernels(slot):
@@ -222,7 +246,8 @@ def test_one_verify_goes_through_the_rows_kernels(slot):
     assert PA.pairing_finish(S, pts, slot["impl"].h2c, {}, "device", torch.device("cpu"))
     calls = {k: dict(v.plain_calls) for k, v in CP.KERNELS.items()}
     assert calls == {"fe_mul": {1: 0, 2: 0}, "fe_add": {1: 0, 2: 0}, "fe_sub": {1: 0, 2: 0},
-                     "pt_double": {1: 0, 2: 0}, "pt_add": {1: 0, 2: 0}, **VERIFY_CALLS}
+                     "pt_double": {1: 0, 2: 0}, "pt_add": {1: 0, 2: 0}, **VERIFY_CALLS,
+                     "pt_mul_shared": {1: 0, 2: 0}, "pt_mul_windowed": {1: 0, 2: 0}}
 
 
 # ---------------------------------------------------------------------------
