@@ -1,8 +1,9 @@
 // BLS12-381 Fq / Fq2 arithmetic for the port's CUDA kernels
 // (plane_kernels.cu), the one field core every kernel shares. Every function
-// is __host__ __device__: on the card fq_add, fq_sub, fq_addsub and fq_mul are
-// PTX carry chains, and a host C++ compiler builds C forms of the same
-// functions.
+// but the lane-split product's is __host__ __device__: on the card fq_add,
+// fq_sub, fq_addsub and fq_mul are PTX carry chains, and a host C++ compiler
+// builds C forms of the same functions. The lane-split product
+// (fq_mul_split, below) is plain C on both sides, __device__ on the card.
 //
 // An Fq element is 12 little-endian 32-bit limbs, canonical in [0, p), in
 // Montgomery form with R = 2^384 (the reference's R, so residues are the same
@@ -31,6 +32,11 @@
     {0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u,      \
      0x6730d2a0u, 0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u,      \
      0x397fe69au, 0x1a0111eau}
+// 2^384 - p
+#define FP_NEG_P_INIT                                                      \
+    {0x00005555u, 0x46010000u, 0x4eac0000u, 0xe1540001u, 0x094f09dbu,      \
+     0x98cf2d5fu, 0x0c7aed40u, 0x9b88b47bu, 0xbcb45328u, 0xb4e45849u,      \
+     0xc6801965u, 0xe5feee15u}
 
 struct Fq {
     uint32_t v[FP_LIMBS];
@@ -79,36 +85,35 @@ FP_HD bool fq_is_zero(const Fq& a) {
 // sets the carry flag to c (0 or 1) for the chain that follows
 #define FQ_CARRY_IN(c) "{\n\t.reg .u32 cin;\n\tadd.cc.u32 cin, " c ", 0xffffffff;\n\t"
 
-// (a + b) mod p, or (a - b) mod p as a + (p - b), in one branch-free path, so
-// that threads that add and threads that subtract do not diverge. Canonical
-// inputs, canonical output.
+// (a + b) mod p or (a - b) mod p, in one branch-free path, so that threads
+// that add and threads that subtract do not diverge, in two dependent carry
+// chains: s = a + b, or a + ~b + 1 = a - b (its carry c: no borrow); t = s +
+// (2^384 - p), or s + p; r = t where the add's t carries out (s >= p) or the
+// sub borrows (c = 0), else s. The chains' flag is the carry in and out of
+// each. Canonical inputs, canonical output.
 FP_HD void fq_addsub(Fq& r, const Fq& a, const Fq& b, bool sub) {
-    const uint32_t p[FP_LIMBS] = FP_P_INIT;
-    uint32_t t[FP_LIMBS], d[FP_LIMBS], hi;
+    const uint32_t p[FP_LIMBS] = FP_P_INIT, np[FP_LIMBS] = FP_NEG_P_INIT;
+    uint32_t s[FP_LIMBS], q[FP_LIMBS], c1, c2;
 #pragma unroll
-    for (int i = 0; i < FP_LIMBS; ++i) t[i] = b.v[i];
-    // t = p - b (b < p: no borrow out)
-    asm(FQ_CHAIN(FQ_CHAIN_RLIMB, "sub.cc.u32", "subc.cc.u32", "subc.u32", 12, 13, 14, 15, 16,
-                 17, 18, 19, 20, 21, 22, 23)
-        : FQ_LIMB_INOUT(t, 0)
-        : FQ_LIMB_OPERANDS(p));
+    for (int i = 0; i < FP_LIMBS; ++i) {
+        s[i] = sub ? ~b.v[i] : b.v[i];
+        q[i] = sub ? p[i] : np[i];
+    }
+    asm(FQ_CARRY_IN("%25")
+        FQ_CHAIN(FQ_CHAIN_LIMB, "addc.cc.u32", "addc.cc.u32", "addc.cc.u32", 13, 14, 15, 16, 17,
+                 18, 19, 20, 21, 22, 23, 24) "addc.u32 %12, 0, 0;\n\t}"
+        : FQ_LIMB_INOUT(s, 0), "=r"(c1)
+        : FQ_LIMB_OPERANDS(a.v), "r"((uint32_t)sub));
+    uint32_t t[FP_LIMBS];
 #pragma unroll
-    for (int i = 0; i < FP_LIMBS; ++i) t[i] = sub ? t[i] : b.v[i];
-    // t += a, its carry into hi
+    for (int i = 0; i < FP_LIMBS; ++i) t[i] = s[i];
     asm(FQ_CHAIN(FQ_CHAIN_LIMB, "add.cc.u32", "addc.cc.u32", "addc.cc.u32", 13, 14, 15, 16, 17,
                  18, 19, 20, 21, 22, 23, 24) "addc.u32 %12, 0, 0;"
-        : FQ_LIMB_INOUT(t, 0), "=r"(hi)
-        : FQ_LIMB_OPERANDS(a.v));
-    // t < 2p < 2^382: d = t - p, kept unless it borrows
+        : FQ_LIMB_INOUT(t, 0), "=r"(c2)
+        : FQ_LIMB_OPERANDS(q));
+    const bool take = sub ? c1 == 0 : c2 != 0;
 #pragma unroll
-    for (int i = 0; i < FP_LIMBS; ++i) d[i] = t[i];
-    asm(FQ_CHAIN(FQ_CHAIN_LIMB, "sub.cc.u32", "subc.cc.u32", "subc.cc.u32", 13, 14, 15, 16, 17,
-                 18, 19, 20, 21, 22, 23, 24) "subc.u32 %12, %12, 0;"
-        : FQ_LIMB_INOUT(d, 0), "+r"(hi)
-        : FQ_LIMB_OPERANDS(p));
-    const bool ge = hi == 0;
-#pragma unroll
-    for (int i = 0; i < FP_LIMBS; ++i) r.v[i] = ge ? d[i] : t[i];
+    for (int i = 0; i < FP_LIMBS; ++i) r.v[i] = take ? t[i] : s[i];
 }
 
 FP_HD void fq_add(Fq& r, const Fq& a, const Fq& b) { fq_addsub(r, a, b, false); }
@@ -354,11 +359,25 @@ FP_HD void fq_sub(Fq& r, const Fq& a, const Fq& b) {
     }
 }
 
+// the card's two chains
 FP_HD void fq_addsub(Fq& r, const Fq& a, const Fq& b, bool sub) {
-    if (sub)
-        fq_sub(r, a, b);
-    else
-        fq_add(r, a, b);
+    const uint32_t p[FP_LIMBS] = FP_P_INIT, np[FP_LIMBS] = FP_NEG_P_INIT;
+    uint32_t s[FP_LIMBS], t[FP_LIMBS];
+    uint64_t c = sub;
+    for (int i = 0; i < FP_LIMBS; ++i) {
+        c += (uint64_t)a.v[i] + (sub ? ~b.v[i] : b.v[i]);
+        s[i] = (uint32_t)c;
+        c >>= 32;
+    }
+    const bool borrow = c == 0;
+    c = 0;
+    for (int i = 0; i < FP_LIMBS; ++i) {
+        c += (uint64_t)s[i] + (sub ? p[i] : np[i]);
+        t[i] = (uint32_t)c;
+        c >>= 32;
+    }
+    const bool take = sub ? borrow : c != 0;
+    for (int i = 0; i < FP_LIMBS; ++i) r.v[i] = take ? t[i] : s[i];
 }
 
 // CIOS Montgomery product a*b*R^-1 mod p with 64-bit limb products.
@@ -398,6 +417,272 @@ FP_HD void fq_mul(Fq& r, const Fq& a, const Fq& b) {
 FP_HD void fq_sqr(Fq& r, const Fq& a) { fq_mul(r, a, a); }
 
 #endif  // __CUDA_ARCH__
+
+// ---------------------------------------------------------------------------
+// The Fq product split over a group of T lanes of one warp
+// ---------------------------------------------------------------------------
+//
+// fq_mul_split<T> is fq_mul's CIOS on T lanes (T divides 12): lane l of the
+// group holds limbs L*l .. L*l + L - 1 (L = 12 / T) of b, of p and of the
+// running value w, and a carry word c of its own at limb L*l + L; every lane
+// holds all of a. Step i of the 12:
+//   1. w += a_i * b, a row of L multiply-adds (64-bit: x*y + w + carry
+//      never overflows), whose carry out goes into c;
+//   2. m = w_0 * (-p^-1) mod 2^32 on lane 0, shuffled to the group;
+//   3. w += m * p likewise (lane 0's w_0 is now 0);
+//   4. the shift: each lane's w_0 moves to the lane below (__shfl_sync; the
+//      top lane gets 0), w moves down a limb, and c, now at w's top limb, is
+//      added to it: the top limb keeps the low word and c the rest.
+// No carry crosses lanes inside a step: c < 2^34 after the rows (a u64) and
+// c <= 3 after the shift. The value stays CIOS's, < 2p < 2^382, so the top
+// lane's c ends at 0. At the end the carries resolve once: lane l adds
+// lane l-1's c, and the carry it passes up comes from a lookahead over the
+// group's generate (carry out) and propagate (all ones) bits; one
+// subtraction of p, its borrows from the same lookahead, is kept unless the
+// group borrows out; both lookaheads take one round of __ballot_sync. The
+// output is the same 12 canonical words as fq_mul's, lane l holding its L
+// of them.
+// ops/field.py mont_mul_split models it word for word (T a parameter).
+//
+// A lane's work per step is 2L multiply-adds and a few adds against fq_mul's
+// 24 (ptxas issues each of fq_mul's 288 mad.cc as an IMAD and an IADD3.X:
+// ~1,350 instructions a product on one thread); at L = 3 ~30 instructions a
+// step, each limb product one IMAD.WIDE.U32 with a 64-bit addend, ~8 on its
+// critical path: lane 0's w_0 -> m -> the shuffle -> m * p_0, m * p_1 -> the
+// next w_0 (PERF.md §7, from the SASS). What did not pay on the H100 (PERF.md
+// PR 7): every lane keeping lane 0's words to form m without a shuffle, and
+// forming m by a recurrence off the shuffle: more instructions a step cost
+// more than the shuffle's latency.
+//
+// Every lane of the warp calls each function at once, every group with its
+// own arguments: the shuffles and ballots take the whole warp's mask, a
+// constant. (With a mask that differs between the warp's groups, ptxas
+// cannot prove it uniform and wraps each shuffle in a loop over the masks,
+// WARPSYNC ... ENDCOLLECTIVE, which ran the groups of a warp one after
+// another on the H100: PERF.md.) A host build has these only where the
+// caller defines the warp functions (FP_WARP_FUNCTIONS: the g++ build of
+// tests/test_torch_split_product.py, one thread a lane).
+#if defined(__CUDACC__) || defined(FP_WARP_FUNCTIONS)
+
+#define FP_WARP 0xffffffffu
+// device code only on the card (the warp functions are __device__)
+#if defined(__CUDACC__)
+#define FP_WD __device__ __forceinline__
+#else
+#define FP_WD static inline
+#endif
+
+template <int T>
+struct FqGroup {
+    static_assert(T >= 1 && FP_LIMBS % T == 0 && 32 % T == 0, "T lanes divide the 12 limbs");
+    static constexpr int L = FP_LIMBS / T;
+    int lane;        // 0 .. T-1 within the group
+    int base;        // the warp lane of the group's lane 0
+    uint32_t p[L];   // this lane's limbs of p
+};
+
+template <int L>
+struct FqSlice {
+    uint32_t v[L];
+};
+
+// x if c else y, a select that stays one: a chain of ?: over the lane index
+// (fq_slice) is otherwise turned into an array indexed in local memory
+FP_WD uint32_t fp_pick(bool c, uint32_t x, uint32_t y) {
+#if defined(__CUDA_ARCH__)
+    uint32_t r;
+    asm("{\n\t.reg .pred c;\n\tsetp.ne.u32 c, %3, 0;\n\tselp.b32 %0, %1, %2, c;\n\t}"
+        : "=r"(r)
+        : "r"(x), "r"(y), "r"((uint32_t)c));
+    return r;
+#else
+    return c ? x : y;
+#endif
+}
+
+// lane `lane` of a group of T whose first lane in the warp is `base`
+template <int T>
+FP_WD FqGroup<T> fq_group(int lane, int base) {
+    constexpr int L = FP_LIMBS / T;
+    const uint32_t p[FP_LIMBS] = FP_P_INIT;
+    FqGroup<T> g;
+    g.lane = lane;
+    g.base = base;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+        uint32_t v = p[j];
+#pragma unroll
+        for (int q = 1; q < T; ++q) v = fp_pick(lane == q, p[L * q + j], v);
+        g.p[j] = v;
+    }
+    return g;
+}
+
+// this lane's limbs of a whole element
+template <int T>
+FP_WD void fq_slice(FqSlice<FP_LIMBS / T>& s, const Fq& x, const FqGroup<T>& g) {
+    constexpr int L = FP_LIMBS / T;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+        uint32_t v = x.v[j];
+#pragma unroll
+        for (int q = 1; q < T; ++q) v = fp_pick(g.lane == q, x.v[L * q + j], v);
+        s.v[j] = v;
+    }
+}
+
+// the whole element on every lane of the group (12 shuffles)
+template <int T>
+FP_WD void fq_gather(Fq& x, const FqSlice<FP_LIMBS / T>& s, const FqGroup<T>& g) {
+    constexpr int L = FP_LIMBS / T;
+#pragma unroll
+    for (int q = 0; q < T; ++q)
+#pragma unroll
+        for (int j = 0; j < L; ++j)
+            x.v[L * q + j] = T == 1 ? s.v[j] : __shfl_sync(FP_WARP, s.v[j], g.base + q);
+}
+
+// w[0..L-1] += x * y[0..L-1]; returns the carry out, the word at limb L
+template <int L>
+FP_WD uint32_t fq_row(uint32_t* w, uint32_t x, const uint32_t* y) {
+    uint64_t s = 0;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+        s = (uint64_t)x * y[j] + w[j] + (s >> 32);
+        w[j] = (uint32_t)s;
+    }
+    return (uint32_t)(s >> 32);
+}
+
+// bit l: lane l's pred, for each lane of the group
+template <int T>
+FP_WD unsigned fq_ballot(bool pred, const FqGroup<T>& g) {
+    if (T == 1) return pred;
+    return __ballot_sync(FP_WARP, pred) >> g.base & ((1u << T) - 1);
+}
+
+// Carries of a group from its lanes' generate and propagate bits G and P
+// (exclusive): bit l of the result is the carry into lane l, bit T the carry
+// out of the group (A = G | P and B = G carry, added, exactly where the
+// lanes do).
+FP_WD unsigned fq_lookahead(unsigned G, unsigned P) { return ((G | P) + G) ^ (G | P) ^ G; }
+
+// R = false leaves out the subtraction of p: r < 2p, in proper words (an
+// input below 2p is as good as a canonical one: with 4p < 2^384 the CIOS
+// value stays below 3p inside and 2p at the end).
+template <int T, bool R = true>
+FP_WD void fq_mul_split(FqSlice<FP_LIMBS / T>& r, const Fq& a, const FqSlice<FP_LIMBS / T>& b,
+                        const FqGroup<T>& g) {
+    constexpr int L = FP_LIMBS / T;
+    const bool top = g.lane == T - 1;
+    // the warp lanes above and below (self at the group's ends, masked out)
+    const int up = top ? g.base + g.lane : g.base + g.lane + 1;
+    const int down = g.lane == 0 ? g.base : g.base + g.lane - 1;
+    uint32_t w[L];
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < L; ++j) w[j] = 0;
+#pragma unroll
+    for (int i = 0; i < FP_LIMBS; ++i) {
+        c += fq_row<L>(w, a.v[i], b.v);
+        uint32_t m = w[0] * FP_N0;
+        if (T > 1) m = __shfl_sync(FP_WARP, m, g.base);
+        c += fq_row<L>(w, m, g.p);
+        uint32_t x = 0;
+        if (T > 1) x = __shfl_sync(FP_WARP, w[0], up);
+#pragma unroll
+        for (int j = 0; j + 1 < L; ++j) w[j] = w[j + 1];
+        c += top ? 0u : x;
+        w[L - 1] = (uint32_t)c;
+        c >>= 32;
+    }
+    // The carries between lanes resolve once. Lane l adds lane l-1's carry
+    // word: s, its carry out (generate) and whether it is all ones
+    // (propagate). With k, the carry that then reaches the lane, its words
+    // are s + k, and their subtraction of p's limbs borrows out (generate)
+    // or is 0 (propagate): for k = 0 as d = s - p says; for k = 1 where s +
+    // 1 < p (s all ones wraps to 0, below p), and 0 where d is all ones and
+    // borrows. One round of six ballots gives every lane the group's
+    // carries, then (with each lane's k) its borrows; the group keeps s + k
+    // where it borrows out (the value is below p), else s + k - p.
+    uint32_t cin = 0;
+    if (T > 1) cin = __shfl_sync(FP_WARP, (uint32_t)c, down);
+    uint64_t s = g.lane == 0 ? 0u : cin, t = 0;
+    if (!R) {   // the carries alone: one round of two ballots
+        bool ones = true;
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+            s += w[j];
+            w[j] = (uint32_t)s;
+            s >>= 32;
+            ones = ones && w[j] == 0xffffffffu;
+        }
+        s = fq_lookahead(fq_ballot<T>(s != 0, g), fq_ballot<T>(ones, g)) >> g.lane & 1u;
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+            s += w[j];
+            r.v[j] = (uint32_t)s;
+            s >>= 32;
+        }
+        return;
+    }
+    uint32_t d[L];
+    bool ones = true, zero = true, dones = true;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+        s += w[j];
+        w[j] = (uint32_t)s;
+        s >>= 32;
+        ones = ones && w[j] == 0xffffffffu;
+        t = (uint64_t)w[j] - g.p[j] - (t >> 63);
+        d[j] = (uint32_t)t;
+        zero = zero && d[j] == 0;
+        dones = dones && d[j] == 0xffffffffu;
+    }
+    const bool borrow = t >> 63;
+    const unsigned K = fq_lookahead(fq_ballot<T>(s != 0, g), fq_ballot<T>(ones, g));
+    const unsigned GB = (fq_ballot<T>(ones || (borrow && !dones), g) & K) |
+                        (fq_ballot<T>(borrow, g) & ~K);
+    const unsigned PB = (fq_ballot<T>(!ones && borrow && dones, g) & K) |
+                        (fq_ballot<T>(zero, g) & ~K);
+    const unsigned B = fq_lookahead(GB, PB);
+    const bool keep = B >> T & 1u;
+    // r = s + k, or s + k - p - (the borrow into the lane)
+    int64_t e = (int64_t)(K >> g.lane & 1u) - (keep ? 0 : (int64_t)(B >> g.lane & 1u));
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+        e += (int64_t)w[j] - (keep ? 0 : (int64_t)g.p[j]);
+        r.v[j] = (uint32_t)e;
+        e >>= 32;
+    }
+}
+
+// r = x mod p for x < 2p, each lane's limbs: one subtraction of p, its
+// borrows from the group's lookahead, kept unless the group borrows out
+template <int T>
+FP_WD void fq_reduce_split(FqSlice<FP_LIMBS / T>& r, const FqSlice<FP_LIMBS / T>& x,
+                           const FqGroup<T>& g) {
+    constexpr int L = FP_LIMBS / T;
+    uint32_t d[L];
+    uint64_t t = 0;
+    bool zero = true;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+        t = (uint64_t)x.v[j] - g.p[j] - (t >> 63);
+        d[j] = (uint32_t)t;
+        zero = zero && d[j] == 0;
+    }
+    const unsigned B = fq_lookahead(fq_ballot<T>(t >> 63, g), fq_ballot<T>(zero, g));
+    const bool keep = B >> T & 1u;
+    t = (uint64_t)(B >> g.lane & 1u) << 63;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+        t = (uint64_t)d[j] - (t >> 63);
+        r.v[j] = keep ? x.v[j] : (uint32_t)t;
+    }
+}
+
+#endif  // __CUDACC__ || FP_WARP_FUNCTIONS
 
 // ---------------------------------------------------------------------------
 // Fq2

@@ -59,9 +59,10 @@
 // Fq products (~2.4 us each); they now give each point a group of G threads
 // that runs the formula as levels of independent Fq operations
 // (ops/point_schedule.py), so a thread waits through one product per level:
-// see "Point kernels" below. fe_pow keeps a whole power scan in one thread's
-// registers (see "fe_pow" below). Every kernel shares fp.cuh's carry-chain
-// fq_mul, fq_sqr and fq_addsub. The scalar multiplications keep each point's
+// see "Point kernels" below. fe_pow keeps a whole power scan in registers,
+// each product split over a group of lanes (see "fe_pow" below). Every
+// kernel shares fp.cuh's carry-chain fq_mul, fq_sqr and fq_addsub, or its
+// lane-split fq_mul_split. The scalar multiplications keep each point's
 // group and scratch for the whole chain of steps (see "Scalar
 // multiplication" below). Later work: the reduction tree in one kernel.
 #include <cuda_runtime.h>
@@ -140,6 +141,23 @@ __device__ __forceinline__ void store(uint32_t* b, const Fq2& x, long long n, lo
 
 __device__ __forceinline__ void mul_inline(Fq& r, const Fq& a, const Fq& b) { fq_mul(r, a, b); }
 __device__ __forceinline__ void mul_inline(Fq2& r, const Fq2& a, const Fq2& b) { fq2_mul(r, a, b); }
+
+// r = this lane's limbs of x * y, y given as this lane's limbs (fp.cuh
+// fq_mul_split; T = 1 fq_mul)
+template <int T>
+__device__ __forceinline__ void mul_split(FqSlice<FP_LIMBS / T>& r, const Fq& x,
+                                          const FqSlice<FP_LIMBS / T>& y, const FqGroup<T>& g) {
+    if constexpr (T == 1) {
+        Fq b, c;
+#pragma unroll
+        for (int j = 0; j < FP_LIMBS; ++j) b.v[j] = y.v[j];
+        fq_mul(c, x, b);
+#pragma unroll
+        for (int j = 0; j < FP_LIMBS; ++j) r.v[j] = c.v[j];
+    } else {
+        fq_mul_split<T>(r, x, y, g);
+    }
+}
 
 __device__ __forceinline__ long long element() {
     return (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -228,8 +246,8 @@ constexpr int kAddG2 = 8;
 
 template <int G>
 __device__ __forceinline__ unsigned group_mask() {
-    static_assert(G < 32 && 32 % G == 0, "a group lies inside one warp");
-    return ((1u << G) - 1) << (threadIdx.x % 32 / G * G);
+    static_assert(G <= 32 && 32 % G == 0, "a group lies inside one warp");
+    return G == 32 ? 0xffffffffu : ((1u << G) - 1) << (threadIdx.x % 32 / G * G);
 }
 
 __device__ __forceinline__ int sword(int s, int pt) { return s * kSlotWords + pt * FP_LIMBS; }
@@ -242,11 +260,17 @@ __device__ __forceinline__ void sstore(uint32_t* sm, int s, int pt, const Fq& x)
     store16(sm + sword(s, pt), x);
 }
 
-// x = slot a, a + b or a - b (b = kSchedNone: a + 0).
+// x = slot a, a + b or a - b (b = kSchedNone: a + 0). A team of T > 1
+// lanes skips adding 0; one thread an operation (T = 1) adds it, as the
+// threads of a warp run different operations there: on the H100 the branch
+// cost more than the add in pt_add<2>, pt_double<2> and the MSM (2-3%),
+// though not in the sweep (PERF.md, PR 7).
+template <int T>
 __device__ __forceinline__ void operand(Fq& x, const uint32_t* sm, int a, int b, bool sub,
                                         int pt) {
     Fq y;
     sload(x, sm, a, pt);
+    if (T > 1 && b == kSchedNone) return;
     if (b != kSchedNone)
         sload(y, sm, b, pt);
     else
@@ -255,46 +279,121 @@ __device__ __forceinline__ void operand(Fq& x, const uint32_t* sm, int a, int b,
     fq_addsub(x, x, y, sub);
 }
 
-// Levels [first, last) of the schedule tables for one point; every thread of
-// the group calls it. The thread's first operation of the next level is
-// fetched while this level runs.
-template <int G>
-__device__ void run_levels(uint32_t* sm, int first, int last, int pt, int rank, unsigned mask) {
-    uint32_t lv = kSchedLevels[first];
-    uint64_t next = rank < (int)(lv >> 16 & 0xff) ? kSchedOps[(lv & 0xffff) + rank] : 0;
+constexpr int kSchedLevelWords = sizeof(kSchedLevels) / sizeof(kSchedLevels[0]);
+constexpr int kSchedOpWords = sizeof(kSchedOps) / sizeof(kSchedOps[0]);
+constexpr int kSchedSlotBytes = sizeof(kSchedSlots);
+
+// The schedule tables where a kernel reads them: the header's constant
+// arrays (const_tables), or a copy in the block's shared memory that
+// stage_tables makes before the block's first sync. The threads of a warp
+// read different operation words of a level at once, which the constant
+// cache serves one after another: in the scalar multiplications' chains of
+// steps the copy pays (4-8% on the H100), in the one-step point kernels it
+// costs more than it saves (1-1.5 us a launch; PERF.md, PR 7).
+struct SchedTables {
+    const uint64_t* ops;
+    const uint32_t* levels;
+    const uint8_t* slots;
+};
+
+__device__ __forceinline__ SchedTables const_tables() {
+    return {kSchedOps, kSchedLevels, kSchedSlots};
+}
+
+struct SchedStage {   // 1,856 B
+    uint64_t ops[kSchedOpWords];
+    uint32_t levels[kSchedLevelWords];
+    uint8_t slots[kSchedSlotBytes];
+};
+
+__device__ __forceinline__ SchedTables stage_tables(SchedStage& st) {
+    for (int i = threadIdx.x; i < kSchedOpWords; i += blockDim.x) st.ops[i] = kSchedOps[i];
+    for (int i = threadIdx.x; i < kSchedLevelWords; i += blockDim.x)
+        st.levels[i] = kSchedLevels[i];
+    for (int i = threadIdx.x; i < kSchedSlotBytes; i += blockDim.x) st.slots[i] = kSchedSlots[i];
+    return {st.ops, st.levels, st.slots};
+}
+
+// a "group" of one lane: the point kernels' products on one thread (fq_mul)
+__device__ __forceinline__ FqGroup<1> one_lane() {
+    return fq_group<1>(0, threadIdx.x % 32);
+}
+
+// this lane's limbs of slot s of point pt, 16 bytes at a time where they
+// are whole 16-byte words
+template <int T>
+__device__ __forceinline__ void sstore_slice(uint32_t* sm, int s, int pt,
+                                             const FqSlice<FP_LIMBS / T>& r, const FqGroup<T>& g) {
+    constexpr int W = FP_LIMBS / T;
+    uint32_t* q = sm + sword(s, pt) + W * g.lane;
+    if constexpr (W % 4 == 0) {
+#pragma unroll
+        for (int k = 0; k < W / 4; ++k)
+            reinterpret_cast<uint4*>(q)[k] =
+                make_uint4(r.v[4 * k], r.v[4 * k + 1], r.v[4 * k + 2], r.v[4 * k + 3]);
+    } else {
+#pragma unroll
+        for (int j = 0; j < W; ++j) q[j] = r.v[j];
+    }
+}
+
+// Levels [first, last) of the schedule tables for one point, run by its G
+// teams of T lanes (g: this lane's team; mask: the point's G * T lanes);
+// every lane of the point calls it, and for T > 1 every lane of its warp.
+// Team `rank` runs operations rank, rank + G, ... of a level, all T lanes
+// of the team on the same operation: each lane forms both operands whole, a
+// product is split over the team (fq_mul_split; T = 1 fq_mul), and each
+// lane stores its 12/T limbs of the product; a linear operation runs whole
+// on every lane of the team, which all store it. A product level takes the
+// same number of turns on every team (the split product's shuffles take
+// the whole warp): a team past the level's last product runs operation word
+// 0 (slot 0 + slot 0, squared) and stores nothing. The team's first
+// operation of the next level is fetched while this level runs.
+template <int G, int T>
+__device__ void run_levels(const SchedTables& tab, uint32_t* sm, int first, int last, int pt,
+                           int rank, const FqGroup<T>& g, unsigned mask) {
+    constexpr int W = FP_LIMBS / T;
+    uint32_t lv = tab.levels[first];
+    uint64_t next = rank < (int)(lv >> 16 & 0xff) ? tab.ops[(lv & 0xffff) + rank] : 0;
 #pragma unroll 1
     for (int L = first; L < last; ++L) {
         const int op0 = lv & 0xffff, count = lv >> 16 & 0xff;
         const bool mul = lv >> 24;
+        const int end = T > 1 && mul ? (count + G - 1) / G * G : count;
         const uint64_t mine = next;
         if (L + 1 < last) {
-            lv = kSchedLevels[L + 1];
-            if (rank < (int)(lv >> 16 & 0xff)) next = kSchedOps[(lv & 0xffff) + rank];
+            lv = tab.levels[L + 1];
+            next = rank < (int)(lv >> 16 & 0xff) ? tab.ops[(lv & 0xffff) + rank] : 0;
         }
 #pragma unroll 1
-        for (int k = rank; k < count; k += G) {
-            const uint64_t op = k == rank ? mine : kSchedOps[op0 + k];
+        for (int k = rank; k < end; k += G) {
+            const uint64_t op = k >= count ? 0 : k == rank ? mine : tab.ops[op0 + k];
             const int flags = (int)(op >> 40);
             Fq x, y, z;
-            operand(x, sm, op >> 8 & 0xff, op >> 16 & 0xff, flags & 1, pt);
-            operand(y, sm, op >> 24 & 0xff, op >> 32 & 0xff, flags & 2, pt);
-            if (mul)
-                fq_mul(z, x, y);
-            else
+            FqSlice<W> r;
+            operand<T>(x, sm, op >> 8 & 0xff, op >> 16 & 0xff, flags & 1, pt);
+            operand<T>(y, sm, op >> 24 & 0xff, op >> 32 & 0xff, flags & 2, pt);
+            if (mul) {
+                fq_slice<T>(r, y, g);
+                mul_split<T>(r, x, r, g);
+                if (k < count) sstore_slice<T>(sm, op & 0xff, pt, r, g);
+            } else {
                 fq_addsub(z, x, y, flags & 4);
-            sstore(sm, op & 0xff, pt, z);
+                sstore(sm, op & 0xff, pt, z);
+            }
         }
         __syncwarp(mask);
     }
 }
 
 template <int E>
-__device__ __forceinline__ bool slots_zero(const uint32_t* sm, int tab, int pt) {
+__device__ __forceinline__ bool slots_zero(const SchedTables& tab, const uint32_t* sm, int at,
+                                           int pt) {
     bool zero = true;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
         Fq x;
-        sload(x, sm, kSchedSlots[tab + e], pt);
+        sload(x, sm, tab.slots[at + e], pt);
         zero = zero && fq_is_zero(x);
     }
     return zero;
@@ -304,19 +403,25 @@ __device__ __forceinline__ bool slots_zero(const uint32_t* sm, int tab, int pt) 
 // p then q), by the group: the general sum, then on a point that needs it
 // the P+P double; returns where the reference's selects (P+P double, H=0 &
 // R!=0 -> infinity, q = inf -> p, p = inf -> q; the last wins) put the sum:
-// the offset into kSchedSlots of its 3E slots, or -1 for infinity (zeros).
+// the offset into tab.slots of its 3E slots, or -1 for infinity (zeros).
 // The selects read shared slots after the level's sync, so every thread of
 // the group takes the same branch.
-template <int E, int G>
-__device__ __forceinline__ int add_levels(uint32_t* sm, int pt, int rank, unsigned mask) {
+template <int E, int G, int T>
+__device__ __forceinline__ int add_levels(const SchedTables& tab, uint32_t* sm, int pt, int rank,
+                                          const FqGroup<T>& g, unsigned mask) {
     typedef Sched<kPtAdd, E> S;
-    run_levels<G>(sm, S::kLevel0, S::kLevel0 + S::kMain, pt, rank, mask);
-    const bool p_inf = slots_zero<E>(sm, S::kIn + 2 * E, pt);
-    const bool q_inf = slots_zero<E>(sm, S::kIn + 5 * E, pt);
-    const bool h_zero = slots_zero<E>(sm, S::kH, pt);
-    const bool r_zero = slots_zero<E>(sm, S::kR, pt);
-    if (!p_inf && !q_inf && h_zero && r_zero)
-        run_levels<G>(sm, S::kLevel0 + S::kMain, S::kLevel0 + S::kLevels, pt, rank, mask);
+    run_levels<G, T>(tab, sm, S::kLevel0, S::kLevel0 + S::kMain, pt, rank, g, mask);
+    const bool p_inf = slots_zero<E>(tab, sm, S::kIn + 2 * E, pt);
+    const bool q_inf = slots_zero<E>(tab, sm, S::kIn + 5 * E, pt);
+    const bool h_zero = slots_zero<E>(tab, sm, S::kH, pt);
+    const bool r_zero = slots_zero<E>(tab, sm, S::kR, pt);
+    // for T > 1 the double runs where any point of the warp needs it (its
+    // levels write none of the slots read below)
+    bool dbl = !p_inf && !q_inf && h_zero && r_zero;
+    if (T > 1) dbl = __any_sync(FP_WARP, dbl);
+    if (dbl)
+        run_levels<G, T>(tab, sm, S::kLevel0 + S::kMain, S::kLevel0 + S::kLevels, pt, rank, g,
+                         mask);
     return p_inf    ? S::kIn + 3 * E
            : q_inf  ? S::kIn
            : !h_zero ? S::kOut
@@ -326,34 +431,35 @@ __device__ __forceinline__ int add_levels(uint32_t* sm, int pt, int rank, unsign
 
 // Coordinates c of the planes src into slots c * E + e (every schedule puts
 // its inputs first, in order); points past n read as zero. A block of T
-// threads: each thread issues all of its loads before it writes any, so
-// their latencies overlap.
-template <int E, int NC, int T>
+// threads and NP points: each thread issues all of its loads before it
+// writes any, so their latencies overlap.
+template <int E, int NC, int T, int NP = kPoints>
 __device__ __forceinline__ void load_points(uint32_t* sm, const uint32_t* const (&src)[NC],
                                             long long base, long long n) {
-    constexpr int W = E * FP_LIMBS * kPoints, K = (W + T - 1) / T;
+    constexpr int W = E * FP_LIMBS * NP, K = (W + T - 1) / T;
     uint32_t v[NC][K];
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
         for (int k = 0; k < K; ++k) {
-            const int w = threadIdx.x + k * T, pt = w % kPoints, ej = w / kPoints;
+            const int w = threadIdx.x + k * T, pt = w % NP, ej = w / NP;
             v[c][k] = w < W && base + pt < n ? src[c][ej * n + base + pt] : 0u;
         }
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
         for (int k = 0; k < K; ++k) {
-            const int w = threadIdx.x + k * T, pt = w % kPoints, ej = w / kPoints;
+            const int w = threadIdx.x + k * T, pt = w % NP, ej = w / NP;
             if (w < W) sm[sword(c * E + ej / FP_LIMBS, pt) + ej % FP_LIMBS] = v[c][k];
         }
 }
 
-// X, Y, Z of point pt from the slots listed at kSchedSlots[off[pt] + c * E +
+// X, Y, Z of point pt from the slots listed at tab.slots[off[pt] + c * E +
 // e], or zeros where off[pt] < 0.
 template <int E, int T>
-__device__ __forceinline__ void store_points(uint32_t* const (&dst)[3], const uint32_t* sm,
-                                             const short* off, long long base, long long n) {
+__device__ __forceinline__ void store_points(uint32_t* const (&dst)[3], const SchedTables& tab,
+                                             const uint32_t* sm, const short* off, long long base,
+                                             long long n) {
     constexpr int W = E * FP_LIMBS * kPoints, K = (W + T - 1) / T;
 #pragma unroll
     for (int c = 0; c < 3; ++c)
@@ -363,7 +469,7 @@ __device__ __forceinline__ void store_points(uint32_t* const (&dst)[3], const ui
             if (w >= W || base + pt >= n) continue;
             const int o = off[pt];
             dst[c][ej * n + base + pt] =
-                o < 0 ? 0u : sm[sword(kSchedSlots[o + c * E + ej / FP_LIMBS], pt) + ej % FP_LIMBS];
+                o < 0 ? 0u : sm[sword(tab.slots[o + c * E + ej / FP_LIMBS], pt) + ej % FP_LIMBS];
         }
 }
 
@@ -378,6 +484,7 @@ __global__ void __launch_bounds__(G * kPoints) pt_double_kernel(const uint32_t* 
     static_assert(S::kSlots * kSlotWords * 4 <= 48 * 1024, "static shared memory");
     __shared__ __align__(16) uint32_t sm[S::kSlots * kSlotWords];
     __shared__ short off[kPoints];
+    const SchedTables tab = const_tables();
     const long long base = (long long)blockIdx.x * kPoints;
     const int pt = threadIdx.x / G, rank = threadIdx.x % G;
     const uint32_t* const src[3] = {x, y, z};
@@ -385,10 +492,11 @@ __global__ void __launch_bounds__(G * kPoints) pt_double_kernel(const uint32_t* 
     if (rank == 0) off[pt] = S::kOut;
     __syncthreads();
     if (base + pt < n)
-        run_levels<G>(sm, S::kLevel0, S::kLevel0 + S::kLevels, pt, rank, group_mask<G>());
+        run_levels<G, 1>(tab, sm, S::kLevel0, S::kLevel0 + S::kLevels, pt, rank,
+                         one_lane(), group_mask<G>());
     __syncthreads();
     uint32_t* const dst[3] = {ox, oy, oz};
-    store_points<E, G * kPoints>(dst, sm, off, base, n);
+    store_points<E, G * kPoints>(dst, tab, sm, off, base, n);
 }
 
 // Replaces _kern_add (pallas_plane.py:439): add_levels, and its selects as
@@ -405,18 +513,19 @@ __global__ void __launch_bounds__(G * kPoints) pt_add_kernel(const uint32_t* x1,
     static_assert(S::kSlots * kSlotWords * 4 <= 48 * 1024, "static shared memory");
     __shared__ __align__(16) uint32_t sm[S::kSlots * kSlotWords];
     __shared__ short off[kPoints];
+    const SchedTables tab = const_tables();
     const long long base = (long long)blockIdx.x * kPoints;
     const int pt = threadIdx.x / G, rank = threadIdx.x % G;
     const uint32_t* const src[6] = {x1, y1, z1, x2, y2, z2};
     load_points<E, 6, G * kPoints>(sm, src, base, n);
     __syncthreads();
     if (base + pt < n) {
-        const int o = add_levels<E, G>(sm, pt, rank, group_mask<G>());
+        const int o = add_levels<E, G, 1>(tab, sm, pt, rank, one_lane(), group_mask<G>());
         if (rank == 0) off[pt] = o;
     }
     __syncthreads();
     uint32_t* const dst[3] = {ox, oy, oz};
-    store_points<E, G * kPoints>(dst, sm, off, base, n);
+    store_points<E, G * kPoints>(dst, tab, sm, off, base, n);
 }
 
 // ---------------------------------------------------------------------------
@@ -541,30 +650,49 @@ __global__ void __launch_bounds__(kBlock) fe_add_rows_kernel(const uint32_t* a, 
 // Replaces the reference's _pow_scan (pallas_plane.py:593: a lax.scan over
 // _mul_call, one product launch per step) and, on rows, the square-and-
 // multiply scans of tower.fq_inv and h2c._fq_pow_scan: o = a^e mod p in
-// Montgomery form, canonical, for an exponent known on the host. A thread
-// runs one element's whole chain: its accumulator stays in registers through
-// every squaring and table product, and only a and a^e touch global memory.
-// The exponent arrives by value in the parameter space as MSB-first 4-bit
-// windows, leading zeros stripped (d[0] != 0): every thread reads the same
-// digit at the same step, a uniform broadcast with no memory traffic, and a
-// zero window costs its four squarings and no product. The power table
-// a^1..a^15 lives in shared memory entry-major, [15][12][blockDim], so that
-// neighbouring threads read neighbouring words (no bank conflicts); at
-// kPowBlock = 128 threads it is 15 x 48 B x 128 = 92,160 B a block, more
-// than the 48 KB a launch gets without opting in, so the launcher opts in.
+// Montgomery form, canonical, for an exponent known on the host. A group of
+// kPowLanes = T lanes runs one element's whole chain on split products
+// (fp.cuh fq_mul_split): each lane keeps its 12/T limbs of the accumulator
+// in registers through every squaring and table product, and only a and a^e
+// touch global memory. Every lane loads the whole element (its row's 48 B
+// in 16-byte pieces, or its word of each limb row of a plane: the group's
+// lanes read one address), which is a for the table's products; a squaring
+// or a table product first gathers the accumulator to every lane (12
+// shuffles); each lane stores its limbs. Between the first product and the
+// last the values stay below 2p, not reduced (fq_mul_split<T, false>: the
+// carries resolve, the subtraction of p waits), and one subtraction at the
+// end makes a^e canonical. The exponent arrives by value in the
+// parameter space as MSB-first 4-bit windows, leading zeros stripped (d[0]
+// != 0): every thread reads the same digit at the same step, a uniform
+// broadcast with no memory traffic, and a zero window costs its four
+// squarings and no product. The power table a^1..a^15 is split as the
+// accumulator, each lane's limbs of each entry in shared memory entry-major,
+// [15][12/T][blockDim], so that neighbouring threads read neighbouring words
+// (no bank conflicts): 15 x 48/T B a lane, at T = 4 and kPowBlock = 128
+// threads 23,040 B a block (at T = 1 92,160 B; the launcher opts in past
+// 48 KB).
 //
 // What bounds it: latency. A scan is ~485 dependent Fq operations (~380 of
-// them squarings, fq_sqr); at the main path's widths (1 to 12,288 lanes, at
-// most 96 blocks of 128 on 132 SMs) each SM sub-partition runs one warp or
-// none, so nothing hides a product's chain of dependent carry operations,
-// and the time is one thread's chain (PERF.md, "fe_pow"). The code is kept
-// small (one inlined fq_sqr and two fq_mul; the squaring loop is not
-// unrolled): the unrolled loop, four inlined copies of fq_sqr, was 22%
-// slower with every SM running it, though no slower on one.
-//
-// Threads a block (128 was never slower than 64 on the H100, and faster at
-// 1,024 lanes); `chip_smoke.py --ab` times other values.
+// them squarings); at the main path's widths (1 to 12,288 elements) each SM
+// sub-partition runs a few warps or none, and on one thread (T = 1) a
+// product is ~1,350 instructions that one warp issues in turn (ptxas issues
+// each mad.cc of fq_mul as an IMAD and an IADD3.X; PERF.md), ~1.1 us. On T
+// = 4 lanes a lane issues ~30 instructions a CIOS step (one IMAD.WIDE.U32
+// a limb product; PERF.md §7 from the SASS), ~8 of them on the step's
+// critical path with the m shuffle, and the group resolves its carries with
+// ballots once a product: ~0.6 us. Past kPowSplitMax elements a sub-
+// partition holds three warps or more at T = 4 and their extra instructions
+// cost more than the shorter chain saves (at 12,288 elements T = 4 was 4%
+// slower than one thread, at 4,096 twice as fast), so the launcher takes T =
+// 1 there. kPowLanes = 4 from the A/B in PERF.md (T = 2 was slower at every
+// width). The loops are not unrolled (code size: an unrolled squaring loop
+// was 22% slower with every SM running it).
+// Threads a block (at T = 1, 128 was never slower than 64 on the H100, and
+// faster at 1,024 lanes); lanes a product (1: fq_mul on one thread, 2 or 4)
+// up to kPowSplitMax elements, one thread an element past it.
 constexpr int kPowBlock = 128;
+constexpr int kPowLanes = 4;
+constexpr int kPowSplitMax = 8192;
 constexpr int kPowMaxDigits = 96;  // 384 / 4
 constexpr int kPowTable = 15;      // a^1 .. a^15
 
@@ -573,48 +701,98 @@ struct PowDigits {
     int n;
 };
 
-// entry k (a^(k+1)) of this thread's table column
-__device__ __forceinline__ void tab_put(uint32_t* tab, int k, const Fq& x) {
+// this thread's words (an Fq, or a lane's FqSlice) of entry k (a^(k+1)) of
+// its table column
+template <class X>
+__device__ __forceinline__ void tab_put(uint32_t* tab, int k, const X& x) {
+    constexpr int W = sizeof(x.v) / sizeof(x.v[0]);
 #pragma unroll
-    for (int j = 0; j < FP_LIMBS; ++j) tab[(k * FP_LIMBS + j) * blockDim.x + threadIdx.x] = x.v[j];
+    for (int j = 0; j < W; ++j) tab[(k * W + j) * blockDim.x + threadIdx.x] = x.v[j];
 }
 
-__device__ __forceinline__ void tab_get(Fq& x, const uint32_t* tab, int k) {
+template <class X>
+__device__ __forceinline__ void tab_get(X& x, const uint32_t* tab, int k) {
+    constexpr int W = sizeof(x.v) / sizeof(x.v[0]);
 #pragma unroll
-    for (int j = 0; j < FP_LIMBS; ++j) x.v[j] = tab[(k * FP_LIMBS + j) * blockDim.x + threadIdx.x];
+    for (int j = 0; j < W; ++j) x.v[j] = tab[(k * W + j) * blockDim.x + threadIdx.x];
 }
 
 // Each thread touches only its own table column, so the block never syncs.
 // The digits are read in place in the parameter space (__grid_constant__:
 // indexed at run time, a by-value struct would be copied to a local stack).
-template <Layout L>
+// T = 1: a thread an element, fq_sqr and fq_mul on whole elements. T > 1:
+// every lane of a warp runs the scan (the shuffles take the whole warp); a
+// group past n works on element n - 1 and stores nothing, a warp wholly past
+// n leaves at once.
+template <Layout L, int T>
 __global__ void __launch_bounds__(kPowBlock) fe_pow_kernel(const uint32_t* a, uint32_t* o,
                                                            long long n,
                                                            const __grid_constant__ PowDigits e) {
+    static_assert(kPowBlock % 32 == 0, "whole warps");
     extern __shared__ uint32_t tab[];
-    const long long i = element();
-    if (i >= n) return;
-    Fq x, acc, y;
-    load<L>(x, a, n, i);
-    tab_put(tab, 0, x);
-    acc = x;
+    if constexpr (T == 1) {
+        const long long i = element();
+        if (i >= n) return;
+        Fq x, acc, y;
+        load<L>(x, a, n, i);
+        tab_put(tab, 0, x);
+        acc = x;
 #pragma unroll 1
-    for (int k = 2; k <= kPowTable; ++k) {  // a^k = a^(k-1) * a
-        fq_mul(acc, acc, x);
-        tab_put(tab, k - 1, acc);
-    }
-    tab_get(acc, tab, e.d[0] - 1);
-#pragma unroll 1
-    for (int s = 1; s < e.n; ++s) {
-#pragma unroll 1
-        for (int q = 0; q < 4; ++q) fq_sqr(acc, acc);
-        const int d = e.d[s];
-        if (d) {
-            tab_get(y, tab, d - 1);
-            fq_mul(acc, acc, y);
+        for (int k = 2; k <= kPowTable; ++k) {  // a^k = a^(k-1) * a
+            fq_mul(acc, acc, x);
+            tab_put(tab, k - 1, acc);
         }
+        tab_get(acc, tab, e.d[0] - 1);
+#pragma unroll 1
+        for (int s = 1; s < e.n; ++s) {
+#pragma unroll 1
+            for (int q = 0; q < 4; ++q) fq_sqr(acc, acc);
+            const int d = e.d[s];
+            if (d) {
+                tab_get(y, tab, d - 1);
+                fq_mul(acc, acc, y);
+            }
+        }
+        store<L>(o, acc, n, i);
+    } else {
+        constexpr int W = FP_LIMBS / T;
+        const long long me = element() / T, i = me < n ? me : n - 1;
+        if ((element() & ~31ll) / T >= n) return;
+        const int lane = threadIdx.x % T;
+        const FqGroup<T> g = fq_group<T>(lane, threadIdx.x % 32 - lane);
+        Fq x, full;
+        FqSlice<W> acc, y;
+        load<L>(x, a, n, i);
+        fq_slice<T>(acc, x, g);
+        tab_put(tab, 0, acc);
+#pragma unroll 1
+        for (int k = 2; k <= kPowTable; ++k) {  // a^k = a * a^(k-1)
+            fq_mul_split<T, false>(acc, x, acc, g);
+            tab_put(tab, k - 1, acc);
+        }
+        tab_get(acc, tab, e.d[0] - 1);
+#pragma unroll 1
+        for (int s = 1; s < e.n; ++s) {
+#pragma unroll 1
+            for (int q = 0; q < 4; ++q) {
+                fq_gather<T>(full, acc, g);
+                fq_mul_split<T, false>(acc, full, acc, g);
+            }
+            const int d = e.d[s];
+            if (d) {
+                tab_get(y, tab, d - 1);
+                fq_gather<T>(full, acc, g);
+                fq_mul_split<T, false>(acc, full, y, g);
+            }
+        }
+        fq_reduce_split<T>(acc, acc, g);
+        if (me < n)
+#pragma unroll
+            for (int j = 0; j < W; ++j) {
+                const long long k = W * lane + j;
+                o[L == kRows ? i * FP_LIMBS + k : k * n + i] = acc.v[j];
+            }
     }
-    store<L>(o, acc, n, i);
 }
 
 // ---------------------------------------------------------------------------
@@ -639,18 +817,32 @@ __global__ void __launch_bounds__(kPowBlock) fe_pow_kernel(const uint32_t* a, ui
 // per window 4 doubles and one unified add of the entry the digit selects,
 // digit 0 the all-zero infinity entry.
 //
-// Both give each point a group of kMulG1 / kMulG2 threads for the whole
-// chain, as the point kernels do for one step (kPoints points a block), and
-// walk the same schedules (Sched<kPtDouble, E>, Sched<kPtAdd, E>) through
-// run_levels on one scratch of slots in shared memory; the groups never
-// sync with each other. The accumulator lives in slots 0..3E-1, the inputs
-// of both schedules; a double ends with the group copying the schedule's
-// outputs into them, an add starts by copying its addend into slots
-// 3E..6E-1 and ends by copying the slots that pt_add_kernel's selects
-// choose (the P+P double where H = R = 0, infinity, P or Q). Every copy goes
-// through registers between two group syncs, 16 bytes at a time, so a
-// schedule's output slot may be one of its input slots. P stays in slots
-// past the scratch (pt_mul_shared), or is table entry 1 (pt_mul_windowed).
+// Both give each point a group for the whole chain, as the point kernels do
+// for one step, and walk the same schedules (Sched<kPtDouble, E>,
+// Sched<kPtAdd, E>) through run_levels on one scratch of slots in shared
+// memory; the groups never sync with each other. pt_mul_windowed's group is
+// kMulG1 / kMulG2 threads (kPoints points a block), a product on one
+// thread. pt_mul_shared's is G = kMulG1 / kMulG2 teams of T = kMulLanes1 /
+// kMulLanes2 lanes (at T = 4, 16 lanes a G1 point, two a warp, and 32 a G2
+// point, a warp each), kMulPoints1 / kMulPoints2 = 8 / 4 points a block, so
+// that at the main path's widths (1,024 G1 points, 1 and 64 G2 points) a
+// warp has its SM sub-partition to itself (16 points a block put four G2
+// warps on each); a product runs split over a team (fq_mul_split), a linear
+// operation whole on every lane of its team (split, it would add the lanes'
+// carry resolution); the whole warp runs the chain in step, so its syncs
+// take the whole warp's mask too (8% faster at E = 1 than the point's 16
+// lanes). The lane split adds no slot and no shared memory: the block's
+// slots are sized for 16 points as the point kernels' layout. Both stage
+// the schedule tables in shared memory (stage_tables: 1,856 B a block).
+//
+// The accumulator lives in slots 0..3E-1, the inputs of both schedules; a
+// double ends with the group copying the schedule's outputs into them, an
+// add starts by copying its addend into slots 3E..6E-1 and ends by copying
+// the slots that pt_add_kernel's selects choose (the P+P double where H = R
+// = 0, infinity, P or Q). Every copy goes through registers between two
+// group syncs, 16 bytes at a time, so a schedule's output slot may be one of
+// its input slots. P stays in slots past the scratch (pt_mul_shared), or is
+// table entry 1 (pt_mul_windowed).
 //
 // The windowed table: 15 entries (entry 0 is zeros, never stored) of 3E Fq
 // a point, 4,320 B at E = 2, in slots of shared memory past the scratch:
@@ -662,10 +854,13 @@ __global__ void __launch_bounds__(kPowBlock) fe_pow_kernel(const uint32_t* a, ui
 // What bounds them: latency. The chain has 635 + 304 steps for the cofactor
 // clear (one point, one group: nothing hides it), 143 for the G1 subgroup
 // check and 14 + 5 x windows for the windowed product, and a step waits
-// through its formula's dependent product levels (3 and 5 at E = 2, each one
-// fq_mul's carry chains, ~2 us at one point) and linear levels; the card's
-// rates bound none of them (the operations of all steps over the card's
-// integer rate are ~1 us for the cofactor clear and ~1 ms for the sweep).
+// through its formula's dependent product levels (3 and 5 at E = 2) and
+// linear levels (6 and 8); the card's rates bound none of them (the
+// operations of all steps over the card's integer rate are ~1 us for the
+// cofactor clear and ~1 ms for the sweep). A product level of
+// pt_mul_windowed waits through one fq_mul (~1,350 instructions on one
+// thread, ~2 us at one point); of pt_mul_shared through one split product
+// (PERF.md: its step's critical path and instructions from the SASS).
 // On the H100 a step in the chain costs about what its launch did less
 // ~2 us, not less the ~5.4 us that the point kernels' no-arithmetic build
 // (`chip_smoke.py --ab --diagnose`) took a launch: most of that was walking
@@ -673,15 +868,24 @@ __global__ void __launch_bounds__(kPowBlock) fe_pow_kernel(const uint32_t* a, ui
 // step loops are not unrolled (code size: fe_pow's unrolled squaring loop
 // was slower with every SM busy). Group sizes: 8 at E = 2 as the point
 // kernels (16 was 8% faster at one point, 18% slower at 64 and 79% at
-// 4,096), 4 at E = 1.
+// 4,096), 4 at E = 1. Lanes a product: 4 (2 was slower at every width of
+// the main path, 1 is pt_mul_windowed's; `chip_smoke.py --ab` with
+// kMulLanes1/2, PERF.md).
 constexpr int kMulG1 = 4;
 constexpr int kMulG2 = 8;
+constexpr int kMulLanes1 = 4;
+constexpr int kMulLanes2 = 4;
+constexpr int kMulPoints1 = 8;
+constexpr int kMulPoints2 = 4;
 constexpr int kMulMaxBits = 640;     // the largest scalar, H_EFF_G2, has 636 bits
 constexpr int kWinTable = 15;        // entries 1..15 of the window table
 
 template <int E>
 struct MulTraits {
     static constexpr int G = E == 1 ? kMulG1 : kMulG2;
+    // pt_mul_shared: lanes a product, points a block
+    static constexpr int T = E == 1 ? kMulLanes1 : kMulLanes2;
+    static constexpr int NP = E == 1 ? kMulPoints1 : kMulPoints2;
     // slots of the scratch: the larger of the two schedules
     static constexpr int kScratch = Sched<kPtDouble, E>::kSlots > Sched<kPtAdd, E>::kSlots
                                         ? Sched<kPtDouble, E>::kSlots
@@ -717,68 +921,82 @@ __device__ __forceinline__ void group_copy(Src src, Dst dst, int rank, unsigned 
     __syncwarp(mask);
 }
 
-// acc = 2 * acc (acc: slots 0..3E-1)
-template <int E>
-__device__ void mul_double(uint32_t* sm, int pt, int rank, unsigned mask) {
-    typedef Sched<kPtDouble, E> S;
-    run_levels<MulTraits<E>::G>(sm, S::kLevel0, S::kLevel0 + S::kLevels, pt, rank, mask);
-    group_copy<E, MulTraits<E>::G>(
-        [&](int i) -> const uint32_t* { return sm + sword(kSchedSlots[S::kOut + i], pt); },
-        [&](int i) { return sm + sword(i, pt); }, rank, mask);
-}
-
-// acc = acc + q, q(i) the addend's Fq i (null: zero): pt_add_kernel's
-// add_levels, then the selected slots copied into acc
-template <int E, class Q>
-__device__ __forceinline__ void mul_add(uint32_t* sm, Q q, int pt, int rank, unsigned mask) {
-    constexpr int G = MulTraits<E>::G;
-    group_copy<E, G>(q, [&](int i) { return sm + sword(3 * E + i, pt); }, rank, mask);
-    const int o = add_levels<E, G>(sm, pt, rank, mask);
-    group_copy<E, G>(
-        [&](int i) -> const uint32_t* { return o < 0 ? nullptr : sm + sword(kSchedSlots[o + i], pt); },
-        [&](int i) { return sm + sword(i, pt); }, rank, mask);
-}
-
-// X, Y, Z of each point of the block from slots c * E + e.
+// acc = 2 * acc (acc: slots 0..3E-1), by the point's G teams of T lanes (q:
+// this thread's lane in the point's G * T, g: its team, mask: the point's)
 template <int E, int T>
+__device__ void mul_double(const SchedTables& tab, uint32_t* sm, int pt, int q, const FqGroup<T>& g,
+                           unsigned mask) {
+    typedef Sched<kPtDouble, E> S;
+    constexpr int G = MulTraits<E>::G;
+    run_levels<G, T>(tab, sm, S::kLevel0, S::kLevel0 + S::kLevels, pt, q / T, g, mask);
+    group_copy<E, G * T>(
+        [&](int i) -> const uint32_t* { return sm + sword(tab.slots[S::kOut + i], pt); },
+        [&](int i) { return sm + sword(i, pt); }, q, mask);
+}
+
+// acc = acc + a, a(i) the addend's Fq i (null: zero): pt_add_kernel's
+// add_levels, then the selected slots copied into acc
+template <int E, int T, class A>
+__device__ __forceinline__ void mul_add(const SchedTables& tab, uint32_t* sm, A a, int pt, int q,
+                                        const FqGroup<T>& g, unsigned mask) {
+    constexpr int G = MulTraits<E>::G;
+    group_copy<E, G * T>(a, [&](int i) { return sm + sword(3 * E + i, pt); }, q, mask);
+    const int o = add_levels<E, G, T>(tab, sm, pt, q / T, g, mask);
+    group_copy<E, G * T>(
+        [&](int i) -> const uint32_t* {
+            return o < 0 ? nullptr : sm + sword(tab.slots[o + i], pt);
+        },
+        [&](int i) { return sm + sword(i, pt); }, q, mask);
+}
+
+// X, Y, Z of each of the block's NP points from slots c * E + e.
+template <int E, int T, int NP = kPoints>
 __device__ __forceinline__ void store_acc(uint32_t* const (&dst)[3], const uint32_t* sm,
                                           long long base, long long n) {
-    constexpr int W = E * FP_LIMBS * kPoints, K = (W + T - 1) / T;
+    constexpr int W = E * FP_LIMBS * NP, K = (W + T - 1) / T;
 #pragma unroll
     for (int c = 0; c < 3; ++c)
 #pragma unroll
         for (int k = 0; k < K; ++k) {
-            const int w = threadIdx.x + k * T, pt = w % kPoints, ej = w / kPoints;
+            const int w = threadIdx.x + k * T, pt = w % NP, ej = w / NP;
             if (w < W && base + pt < n)
                 dst[c][ej * n + base + pt] = sm[sword(c * E + ej / FP_LIMBS, pt) + ej % FP_LIMBS];
         }
 }
 
 template <int E>
-__global__ void __launch_bounds__(MulTraits<E>::G * kPoints)
+__global__ void __launch_bounds__(MulTraits<E>::G * MulTraits<E>::T * MulTraits<E>::NP)
     pt_mul_shared_kernel(const uint32_t* x, const uint32_t* y, const uint32_t* z, uint32_t* ox,
                          uint32_t* oy, uint32_t* oz, long long n, const __grid_constant__ MulBits k) {
-    constexpr int G = MulTraits<E>::G, kP = MulTraits<E>::kScratch;
-    static_assert((kP + 3 * E) * kSlotWords * 4 <= 48 * 1024, "static shared memory");
+    constexpr int T = MulTraits<E>::T, GT = MulTraits<E>::G * T, NP = MulTraits<E>::NP,
+                  kP = MulTraits<E>::kScratch;
+    static_assert((kP + 3 * E) * kSlotWords * 4 + sizeof(SchedStage) <= 48 * 1024,
+                  "static shared memory");
     __shared__ __align__(16) uint32_t sm[(kP + 3 * E) * kSlotWords];
-    const long long base = (long long)blockIdx.x * kPoints;
-    const int pt = threadIdx.x / G, rank = threadIdx.x % G;
+    __shared__ SchedStage stage;
+    const long long base = (long long)blockIdx.x * NP;
+    const int pt = threadIdx.x / GT, q = threadIdx.x % GT;
     const uint32_t* const src[3] = {x, y, z};
-    load_points<E, 3, G * kPoints>(sm + kP * kSlotWords, src, base, n);
+    load_points<E, 3, GT * NP, NP>(sm + kP * kSlotWords, src, base, n);
+    const SchedTables tab = stage_tables(stage);
     __syncthreads();
-    if (base + pt < n) {
-        const unsigned mask = group_mask<G>();
+    // for T > 1 every point of a warp with a point below n runs (the
+    // others on zeros, ∞, and store nothing): the split products' shuffles
+    // and the level syncs take the whole warp
+    if (base + (T > 1 ? (int)(threadIdx.x & ~31u) / GT : pt) < n) {
+        const unsigned mask = T > 1 ? FP_WARP : group_mask<GT>();
+        const FqGroup<T> g = fq_group<T>(q % T, threadIdx.x % 32 - q % T);
         auto P = [&](int i) -> const uint32_t* { return sm + sword(kP + i, pt); };
-        group_copy<E, G>(P, [&](int i) { return sm + sword(i, pt); }, rank, mask);
+        group_copy<E, GT>(P, [&](int i) { return sm + sword(i, pt); }, q, mask);
 #pragma unroll 1
         for (int b = 1; b < k.n; ++b) {
-            mul_double<E>(sm, pt, rank, mask);
-            if (k.w[b >> 5] >> (b & 31) & 1u) mul_add<E>(sm, P, pt, rank, mask);
+            mul_double<E, T>(tab, sm, pt, q, g, mask);
+            if (k.w[b >> 5] >> (b & 31) & 1u) mul_add<E, T>(tab, sm, P, pt, q, g, mask);
         }
     }
     __syncthreads();
     uint32_t* const dst[3] = {ox, oy, oz};
-    store_acc<E, G * kPoints>(dst, sm, base, n);
+    store_acc<E, GT * NP, NP>(dst, sm, base, n);
 }
 
 template <int E>
@@ -788,14 +1006,17 @@ __global__ void __launch_bounds__(MulTraits<E>::G * kPoints)
                            int n_win) {
     constexpr int G = MulTraits<E>::G, kT = MulTraits<E>::kScratch;
     extern __shared__ __align__(16) uint32_t sm[];
+    __shared__ SchedStage stage;
     const long long base = (long long)blockIdx.x * kPoints;
     const int pt = threadIdx.x / G, rank = threadIdx.x % G;
     const long long lane = base + pt;
     const uint32_t* const src[3] = {x, y, z};
     load_points<E, 3, G * kPoints>(sm, src, base, n);
+    const SchedTables tab = stage_tables(stage);
     __syncthreads();
     if (lane < n) {
         const unsigned mask = group_mask<G>();
+        const FqGroup<1> g = one_lane();
         // Fq i of table entry t (1..15)
         auto entry = [&](int t) {
             return [&, t](int i) { return sm + sword(kT + (t - 1) * 3 * E + i, pt); };
@@ -806,9 +1027,9 @@ __global__ void __launch_bounds__(MulTraits<E>::G * kPoints)
         for (int t = 2; t <= kWinTable; ++t) {    // acc holds entry t - 1
             if (t % 2 == 0) {
                 if (t > 2) group_copy<E, G>(entry(t / 2), acc, rank, mask);
-                mul_double<E>(sm, pt, rank, mask);
+                mul_double<E, 1>(tab, sm, pt, rank, g, mask);
             } else {
-                mul_add<E>(sm, entry(1), pt, rank, mask);
+                mul_add<E, 1>(tab, sm, entry(1), pt, rank, g, mask);
             }
             group_copy<E, G>(acc, entry(t), rank, mask);
         }
@@ -816,10 +1037,10 @@ __global__ void __launch_bounds__(MulTraits<E>::G * kPoints)
 #pragma unroll 1
         for (int w = 0; w < n_win; ++w) {
 #pragma unroll 1
-            for (int q = 0; q < 4; ++q) mul_double<E>(sm, pt, rank, mask);
+            for (int q = 0; q < 4; ++q) mul_double<E, 1>(tab, sm, pt, rank, g, mask);
             const int d = digits[(long long)w * n + lane] & 15;
             auto sel = [&](int i) -> const uint32_t* { return d ? entry(d)(i) : nullptr; };
-            mul_add<E>(sm, sel, pt, rank, mask);
+            mul_add<E, 1>(tab, sm, sel, pt, rank, g, mask);
         }
     }
     __syncthreads();
@@ -836,22 +1057,31 @@ typedef uint32_t* Out;
 // The table's shared memory is past the 48 KB a launch gets by default: the
 // opt-in belongs to the kernel on the current device, so it is set at every
 // launch (a cheap call).
-template <Layout L>
+template <Layout L, int T>
 int pow_launch(const void* a, void* o, long long n, const PowDigits& e, cudaStream_t s) {
-    const int smem = kPowTable * FP_LIMBS * (int)sizeof(uint32_t) * kPowBlock;
-    const cudaError_t err =
-        cudaFuncSetAttribute(fe_pow_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const int smem = kPowTable * FP_LIMBS / T * (int)sizeof(uint32_t) * kPowBlock;
+    const cudaError_t err = cudaFuncSetAttribute(
+        fe_pow_kernel<L, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    fe_pow_kernel<L><<<(unsigned)((n + kPowBlock - 1) / kPowBlock), kPowBlock, smem, s>>>(
+    const long long threads = n * T;
+    fe_pow_kernel<L, T><<<(unsigned)((threads + kPowBlock - 1) / kPowBlock), kPowBlock, smem, s>>>(
         (In)a, (Out)o, n, e);
     return (int)cudaGetLastError();
+}
+
+// T from the width: kPowLanes up to kPowSplitMax elements, one thread an
+// element past it
+template <Layout L>
+int pow_launch(const void* a, void* o, long long n, const PowDigits& e, cudaStream_t s) {
+    return n <= kPowSplitMax ? pow_launch<L, kPowLanes>(a, o, n, e, s)
+                             : pow_launch<L, 1>(a, o, n, e, s);
 }
 
 template <int E>
 int mul_shared_launch(const void* x, const void* y, const void* z, void* ox, void* oy, void* oz,
                       long long n, const MulBits& k, cudaStream_t s) {
-    constexpr int G = MulTraits<E>::G;
-    pt_mul_shared_kernel<E><<<point_blocks(n), G * kPoints, 0, s>>>(
+    constexpr int GT = MulTraits<E>::G * MulTraits<E>::T, NP = MulTraits<E>::NP;
+    pt_mul_shared_kernel<E><<<(unsigned)((n + NP - 1) / NP), GT * NP, 0, s>>>(
         (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n, k);
     return (int)cudaGetLastError();
 }

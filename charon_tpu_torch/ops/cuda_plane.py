@@ -15,13 +15,16 @@ ops/rows.py):
                                                   split and subtracts past it (n_add = 0:
                                                   a subtraction, also −a as 0 − a)
     fe_pow                                        a fixed-exponent power scan in one
-                                                  launch, a thread per element, over a
-                                                  (1, 12, n) plane or (n, 12) rows
+                                                  launch over a (1, 12, n) plane or
+                                                  (n, 12) rows: each product split over
+                                                  a group of 4 lanes up to 8,192
+                                                  elements, a thread an element past it
     pt_mul_shared, pt_mul_windowed                for E in {1, 2}: k·P for one host-known
                                                   scalar, and per-element k·P from 4-bit
                                                   digits, each in one launch, a group of
                                                   threads per point walking the point
-                                                  kernels' schedules
+                                                  kernels' schedules (pt_mul_shared's
+                                                  products split over 4 lanes each)
 
 Build: the point schedules' header into `build/charon_tpu_torch/`, then
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -I build/charon_tpu_torch`

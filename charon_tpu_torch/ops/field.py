@@ -395,6 +395,112 @@ def rows_sub_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _rows_sum(a, b, -1)
 
 
+# ---------------------------------------------------------------------------
+# The lane-split Montgomery product of fp.cuh (fq_mul_split), modelled on
+# Python ints word for word: the kernels' arithmetic, off the card.
+# ---------------------------------------------------------------------------
+
+
+def _lookahead(gen: list, prop: list) -> int:
+    """Carries of a group of lanes from their generate and propagate bits
+    (as __ballot_sync gives them): bit l of the result is the carry into
+    lane l, bit T the carry out of the group. A = G | P and B = G are two
+    numbers whose bitwise sum carries exactly where the lanes do."""
+    G = sum(g << lane for lane, g in enumerate(gen))
+    GP = G | sum(p << lane for lane, p in enumerate(prop))
+    return (GP + G) ^ GP ^ G
+
+
+def mont_mul_split(a, b, T: int, bounds: list | None = None, reduce: bool = True) -> list:
+    """a·b·R⁻¹ mod p on 12 canonical 32-bit limbs, as fq_mul_split runs it
+    on a group of T lanes (T divides 12), each lane l holding L = 12/T limbs
+    (Ll .. Ll + L − 1) of b and of the running value w, and a carry word c
+    of its own at limb Ll + L. Step i of the 12 (a_i the same on every lane):
+      1. w += a_i·b on each lane, a row of L 64-bit multiply-adds whose
+         carry out goes into c;
+      2. m = w_0·(−p⁻¹) mod 2^32 on lane 0, shuffled to the group;
+      3. w += m·p likewise (now lane 0's w_0 is 0);
+      4. the shift: each lane's w_0 moves down to the lane below (__shfl,
+         lane T−1 gets 0), w moves down a limb, and c, now at w's top limb,
+         is added to it: the top limb keeps the low word, c the rest.
+    No carry crosses lanes inside a step. At the end the carries resolve
+    once: lane l adds lane l−1's c, then the carry each lane passes up
+    comes from a lookahead over the group's generate (carry out) and
+    propagate (all ones) bits; one subtraction of p, its borrows from the
+    same lookahead (each lane's bits for either carry in, chosen once the
+    carries are known: one round of ballots), is kept unless the group
+    borrows out. Every step's
+    carry words are appended to `bounds`, as ("row", c) after its rows (c <
+    2^34: a u64 on the card) and ("shift", c) after its shift (c ≤ 3).
+    reduce=False stops after the carries (fq_mul_split<T, false>, which
+    fe_pow runs between its first and last product): the result is below 2p,
+    and inputs below 2p are as good as canonical ones (4p < R keeps CIOS's
+    value below 3p inside a product and 2p after it)."""
+    if 12 % T:
+        raise ValueError("T must divide 12")
+    L = 12 // T
+    p = [(P_INT >> (32 * i)) & _M32 for i in range(LIMBS)]
+    sl = [[b[L * lane + j] & _M32 for j in range(L)] for lane in range(T)]
+    pl = [p[L * lane:L * lane + L] for lane in range(T)]
+    w = [[0] * L for _ in range(T)]
+    c = [0] * T
+
+    def row(x, ys, lane):
+        carry = 0
+        for j in range(L):
+            s = x * ys[j] + w[lane][j] + carry
+            w[lane][j], carry = s & _M32, s >> 32
+        c[lane] += carry
+
+    for i in range(LIMBS):
+        ai = a[i] & _M32
+        for lane in range(T):
+            row(ai, sl[lane], lane)
+        m = (w[0][0] * N0_INV) & _M32
+        for lane in range(T):
+            row(m, pl[lane], lane)
+        if bounds is not None:
+            bounds.extend(("row", v) for v in c)
+        assert w[0][0] == 0
+        down = [w[lane + 1][0] if lane + 1 < T else 0 for lane in range(T)]
+        for lane in range(T):
+            s = c[lane] + down[lane]
+            w[lane] = w[lane][1:] + [s & _M32]
+            c[lane] = s >> 32
+        if bounds is not None:
+            bounds.extend(("shift", v) for v in c)
+    # resolve the carries in one round: lane l adds lane l−1's carry word
+    # (s, its carry out, all ones?); with k, the carry that then reaches it,
+    # its words s + k borrow against p's limbs or equal them, for k = 0 as
+    # d = s − p says, for k = 1 where s + 1 < p (all ones wraps to 0) and
+    # where d is all ones and borrows
+    full = (1 << (32 * L)) - 1
+    pv = [sum(v << (32 * j) for j, v in enumerate(pl[lane])) for lane in range(T)]
+    sv, gen, ones, borrow, zero, dones = [], [], [], [], [], []
+    for lane in range(T):
+        v = sum(x << (32 * j) for j, x in enumerate(w[lane])) + (c[lane - 1] if lane else 0)
+        sv.append(v & full)
+        gen.append(v >> (32 * L))
+        ones.append(int(v & full == full))
+        d = (v & full) - pv[lane]
+        borrow.append(int(d < 0))
+        zero.append(int(d == 0))
+        dones.append(int(d % (1 << (32 * L)) == full))
+    carries = _lookahead(gen, ones)
+    assert c[T - 1] == 0 and not carries >> T
+    k = [carries >> lane & 1 for lane in range(T)]
+    if not reduce:
+        out = [(sv[lane] + k[lane]) % (full + 1) for lane in range(T)]
+        return [(out[i // L] >> (32 * (i % L))) & _M32 for i in range(LIMBS)]
+    borrows = _lookahead(
+        [int(ones[i] or (borrow[i] and not dones[i])) if k[i] else borrow[i] for i in range(T)],
+        [int(not ones[i] and borrow[i] and dones[i]) if k[i] else zero[i] for i in range(T)])
+    keep = borrows >> T & 1
+    out = [(sv[lane] + k[lane] - (0 if keep else pv[lane] + (borrows >> lane & 1))) % (full + 1)
+           for lane in range(T)]
+    return [(out[i // L] >> (32 * (i % L))) & _M32 for i in range(LIMBS)]
+
+
 def pow_plain(a: torch.Tensor, digits, mul) -> torch.Tensor:
     """Plain version of the fe_pow kernel: a^e over a plain product `mul` of
     canonical elements (planes' or rows'), e given as MSB-first 4-bit window

@@ -9,6 +9,8 @@ against the native oracle.
     python3 chip_smoke.py --ab [--diagnose] [--slot-rounds N] [--widths 4096,...]
                                [NAME=DIR[:CONST=V,...] ...]
                                      # A/B of kernel builds, in turns (below)
+    python3 chip_smoke.py --sass [--out DIR] [NAME=DIR[:CONST=V,...] ...]
+                                     # each build's SASS to DIR (build/.../sass)
 
 Phases, any failure exits non-zero:
   1. device  — CUDA present; the card's name and power limit (nvidia-smi).
@@ -31,9 +33,10 @@ Phases, any failure exits non-zero:
                negation 0 - a), and fe_mul_rows<2> at 3, 18, 36 and 2304
                Fq2 products, general and squaring; fe_pow on a 4096-lane
                plane and on 1 row; pt_mul_shared<1,2> and pt_mul_windowed<1,2>
-               at 16 lanes (MUL_GATE) with the edge lanes inf, a point of
-               order 3 (through P+P and inf in the table and the scan), a G1
-               point plus one, an all-zero digit column, k = 1, and the
+               at 16 lanes and pt_mul_shared<1> at 15 (MUL_GATE) with the
+               edge lanes inf, a point of order 3 (through P+P and inf in
+               the table and the scan), a G1 point plus one, an all-zero
+               digit column, a padded point beside a real one, k = 1, and the
                scalars u^2, h_eff, 1 and 5, bit for bit (X, Y, Z words).
                Time per launch vs the plain version and the card's bound;
                the rows kernels', fe_pow's and the scalar multiplications'
@@ -82,9 +85,13 @@ made general, and at 4,096 lanes also with it), each variant held bit for
 bit against the plain versions, then the rows kernels (fe_mul_rows<1>,
 fe_add_rows, at n_add 0 too, at 108 and 6,912 rows; fe_mul_rows<2> at 36 and
 2,304 Fq2 products), then fe_pow (the (p-3)/4 scan on planes of 12,288,
-4,096 and 1,024 lanes, p-2 on 1 and 8 rows; `kPowBlock=64` sets another
-block size), then the scalar multiplications at the main path's cases
-(MUL_AB; `kMulG2=16` sets the E = 2 group size). --kernels
+4,096 and 1,024 lanes, p-2 on 1, 2 and 8 rows, the sqrt on 6; `kPowBlock=64`
+sets another block size, `kPowLanes=1` one thread a product), then the
+scalar multiplications at the main path's cases (MUL_AB; `kMulG2=16` sets
+the E = 2 group size, `kMulLanes2=2` the lanes of its products,
+`kMulPoints2=16` its points a block). POW_AB and MUL_AB cover every
+(layout or E, width) at which the headline slot launches fe_pow and
+pt_mul_shared: the whole check fails if they do not. --kernels
 points,rows,pow,mul picks the groups timed (all by default). Every variant
 must have this checkout's C interface; to compare with a tree whose
 interface differs, run that tree's own
@@ -105,6 +112,7 @@ Variants of one call are comparable; calls are not.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import json
 import os
@@ -197,13 +205,14 @@ def ptxas_summary(text: str) -> list[str]:
             k = re.search(r"((?:fe_mul|fe_add|fe_sub|pt_double|pt_add|pt_mul_shared"
                           r"|pt_mul_windowed)(?:_rows)?_kernel)"
                           r"(?:ILi(\d)E(?:Li(\d+)E)?E)?", name)
-            pw = re.search(r"fe_pow_kernelIL\w*?LayoutE(\d)EE", name)
+            pw = re.search(r"fe_pow_kernelIL\w*?LayoutE(\d)E(?:Li(\d+)E)?E", name)
             short = name
             if k:
                 short = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
                          + (f" (G={k.group(3)})" if k.group(3) else ""))
             elif pw:
-                short = f"fe_pow_kernel<{('plane', 'rows')[int(pw.group(1))]}>"
+                short = (f"fe_pow_kernel<{('plane', 'rows')[int(pw.group(1))]}>"
+                         + (f" (T={pw.group(2)})" if pw.group(2) else ""))
             smem = re.search(r"(\d+) bytes smem", line)
             rows.append(f"{short}: {m.group(1)} registers, {props}, static shared "
                         f"{smem.group(1) if smem else 0} B")
@@ -718,10 +727,13 @@ def pow_shape() -> str:
     """fe_pow's launch shape, from the constants of the kernel source."""
     with open(CP.SOURCES[0]) as f:
         src = f.read()
-    block, table = (int(re.search(rf"^constexpr int {name} = (\d+);", src, re.M).group(1))
-                    for name in ("kPowBlock", "kPowTable"))
-    return (f"fe_pow: {block} threads a block, a table of {table} entries: "
-            f"{table * 48 * block} B of dynamic shared memory a block")
+    block, lanes, most, table = (
+        int(re.search(rf"^constexpr int {name} = (\d+);", src, re.M).group(1))
+        for name in ("kPowBlock", "kPowLanes", "kPowSplitMax", "kPowTable"))
+    return (f"fe_pow: {block} threads a block, {lanes} lanes a product up to {most} elements "
+            f"(one past it), a table of {table} entries split over them: "
+            f"{table * 48 // lanes * block} B of dynamic shared memory a block "
+            f"({table * 48 * block} B at one lane)")
 
 
 # ---------------------------------------------------------------------------
@@ -731,12 +743,14 @@ def pow_shape() -> str:
 U2 = PF.X_ABS * PF.X_ABS               # the G1 subgroup check's [u²]P
 # the gates before the slot, at 16 lanes with every edge lane: (kernel, E,
 # width, k or windows); k = 5 takes an order-3 lane through P + P (P, 2P,
-# 4P = P, + P) and k = 1 through no step. pt_mul_windowed<1> is on no path
-# of this script and is held and timed at the width of the MSM's G1 half
+# 4P = P, + P) and k = 1 through no step; at 15 lanes pt_mul_shared<1>'s
+# last warp holds one real point, of order 3 in one case, beside a padded
+# one. pt_mul_windowed<1> is on no path of this script and is held and timed
+# at the width of the MSM's G1 half
 MUL_GATE = (("pt_mul_shared", 1, 16, U2), ("pt_mul_shared", 2, 16, PC.H_EFF_G2),
             ("pt_mul_shared", 1, 16, 1), ("pt_mul_shared", 1, 16, 5),
-            ("pt_mul_shared", 2, 16, 5), ("pt_mul_windowed", 1, 16, 4),
-            ("pt_mul_windowed", 2, 16, 4))
+            ("pt_mul_shared", 1, 15, 5), ("pt_mul_shared", 2, 16, 5),
+            ("pt_mul_windowed", 1, 16, 4), ("pt_mul_windowed", 2, 16, 4))
 MUL_OFF_PATH = (("pt_mul_windowed", 1, 1024, 16),)
 
 
@@ -812,14 +826,16 @@ def _mul_digits(n: int, nwin: int, seed: str, edges: bool) -> torch.Tensor:
 def _mul_cases(name: str, E: int, n: int, arg: int, device) -> list:
     """[(label, (X, Y, Z), digits or None)] at width n: the edge lanes
     (cycling through _mul_lanes; below 16 lanes from lane 0, ∞, and from
-    lane 1, order 3), and last the case that is timed: general lanes only,
+    lane 1, order 3, and at an odd width also so that lane 1 is the last),
+    and last the case that is timed: general lanes only,
     seeded multiples of the generator and random digits, as on the main
     path, where no point of small order reaches a kernel (no P+P double)."""
     pool = _mul_lanes(E)
     if n >= 16:
         cases = [("edge lanes", [i % 16 for i in range(n)])]
     else:
-        cases = [(f"edge lanes from {lo}", [(lo + i) % 16 for i in range(n)]) for lo in (0, 1)]
+        los = (0, 1) if n % 2 == 0 else (0, 1, (2 - n) % 16)
+        cases = [(f"edge lanes from {lo}", [(lo + i) % 16 for i in range(n)]) for lo in los]
     cases.append(("general lanes", [6 + i % 10 for i in range(n)]))
     out = []
     for label, lanes in cases:
@@ -1402,17 +1418,26 @@ def profile_slot(impl: TorchImpl, batches, pubkeys, datas) -> None:
 
 AB_DIR = os.path.join(CP.BUILD_DIR, "ab")
 # (pattern, replacement) in plane_kernels.cu's level loop, per diagnostic
-_OPERATION = """            operand(x, sm, op >> 8 & 0xff, op >> 16 & 0xff, flags & 1, pt);
-            operand(y, sm, op >> 24 & 0xff, op >> 32 & 0xff, flags & 2, pt);
-            if (mul)
-                fq_mul(z, x, y);
-            else
-                fq_addsub(z, x, y, flags & 4);"""
+_OPERATION = """            operand<T>(x, sm, op >> 8 & 0xff, op >> 16 & 0xff, flags & 1, pt);
+            operand<T>(y, sm, op >> 24 & 0xff, op >> 32 & 0xff, flags & 2, pt);
+            if (mul) {
+                fq_slice<T>(r, y, g);
+                mul_split<T>(r, x, r, g);
+                if (k < count) sstore_slice<T>(sm, op & 0xff, pt, r, g);
+            } else {
+                fq_addsub(z, x, y, flags & 4);
+                sstore(sm, op & 0xff, pt, z);
+            }"""
 DIAGNOSTICS = {
-    "no-arith": [(_OPERATION, "            sload(z, sm, op >> 8 & 0xff, pt);")],
-    "no-linear": [("for (int k = rank; k < count; k += G)",
-                   "for (int k = rank; mul && k < count; k += G)")],
-    "no-products": [("                fq_mul(z, x, y);", "                fq_addsub(z, x, y, false);")],
+    "no-arith": [(_OPERATION, """            sload(z, sm, op >> 8 & 0xff, pt);
+            sstore(sm, op & 0xff, pt, z);""")],
+    "no-linear": [("for (int k = rank; k < end; k += G)",
+                   "for (int k = rank; mul && k < end; k += G)")],
+    "no-products": [("""                fq_slice<T>(r, y, g);
+                mul_split<T>(r, x, r, g);
+                if (k < count) sstore_slice<T>(sm, op & 0xff, pt, r, g);""",
+                     """                fq_addsub(z, x, y, false);
+                sstore(sm, op & 0xff, pt, z);""")],
 }
 
 
@@ -1479,7 +1504,7 @@ def ab_rows(libs: dict, reps: int, dev) -> None:
 
 # fe_pow's A/B cases: (layout, width, exponent)
 POW_AB = (("plane", 12288, "e34"), ("plane", 4096, "e34"), ("plane", 1024, "e34"),
-          ("rows", 1, "inv"), ("rows", 8, "inv"))
+          ("rows", 1, "inv"), ("rows", 2, "inv"), ("rows", 6, "sqrt"), ("rows", 8, "inv"))
 
 
 def ab_pow(libs: dict, reps: int, dev) -> None:
@@ -1509,6 +1534,17 @@ def ab_pow(libs: dict, reps: int, dev) -> None:
 MUL_AB = (("pt_mul_windowed", 2, 4096, 64), ("pt_mul_windowed", 2, 2048, 16),
           ("pt_mul_shared", 1, 1024, U2), ("pt_mul_shared", 2, 1, PC.H_EFF_G2),
           ("pt_mul_shared", 2, 64, PC.H_EFF_G2))
+
+
+def ab_uncovered(cases: dict) -> list:
+    """The (kernel, layout or E, width) at which `cases` (path_counts()
+    ["cases"] of a run) launched fe_pow or pt_mul_shared and POW_AB /
+    MUL_AB time neither, in order."""
+    timed = {("fe_pow", lay, n) for lay, n, _e in POW_AB} | \
+        {(name, E, n) for name, E, n, _k in MUL_AB}
+    launched = ({("fe_pow", lay, n) for lay, n, _d in cases.get("fe_pow", {})}
+                | {("pt_mul_shared", E, n) for E, n, _k in cases.get("pt_mul_shared", {})})
+    return sorted(launched - timed, key=str)
 
 
 def ab_mul(libs: dict, reps: int, dev) -> None:
@@ -1609,6 +1645,17 @@ def ab_slots(libs: dict, rounds: int) -> None:
                             for name in (names[0], other)))
 
 
+def variant_jobs(specs: list[str]) -> list:
+    """NAME=DIR[:CONST=V,...] specs -> _ab_build's (name, dir, constants,
+    patches) jobs; none given: this checkout's source as "new"."""
+    jobs = []
+    for v in specs:
+        name, _, rest = v.partition("=")
+        src_dir, _, consts = rest.partition(":")
+        jobs.append((name, src_dir, dict(c.split("=", 1) for c in consts.split(",") if c), ()))
+    return jobs or [("new", CP.CSRC, {}, ())]
+
+
 def ab_main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py --ab")
     ap.add_argument("variants", nargs="*", help="NAME=DIR[:CONST=V,...]")
@@ -1618,12 +1665,7 @@ def ab_main(argv: list[str]) -> int:
     ap.add_argument("--kernels", default="points,rows,pow,mul")
     args = ap.parse_args(argv)
     groups = set(args.kernels.split(","))
-    jobs = []
-    for v in args.variants:
-        name, _, rest = v.partition("=")
-        src_dir, _, consts = rest.partition(":")
-        jobs.append((name, src_dir, dict(c.split("=", 1) for c in consts.split(",") if c), ()))
-    jobs = jobs or [("new", CP.CSRC, {}, ())]
+    jobs = variant_jobs(args.variants)
     if args.diagnose:
         jobs += [(name, CP.CSRC, {}, patches) for name, patches in DIAGNOSTICS.items()]
     log(nvidia_smi_line())
@@ -1651,12 +1693,62 @@ def ab_main(argv: list[str]) -> int:
     return 0
 
 
+def sass_opcodes(sass: str) -> dict:
+    """Per kernel of a `cuobjdump -sass` listing: its opcodes' counts (the
+    mnemonic without modifiers)."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = collections.Counter()
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and name:
+            out[name][m.group(1)] += 1
+    return out
+
+
+def sass_main(argv: list[str]) -> int:
+    """--sass [--out DIR] [NAME=DIR[:CONST=V,...] ...]: build each variant as
+    --ab does and write its `cuobjdump -sass` listing to DIR/NAME.sass;
+    print ptxas's registers and each fe_pow and scalar-multiplication
+    kernel's instruction count and commonest opcodes."""
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --sass")
+    ap.add_argument("variants", nargs="*", help="NAME=DIR[:CONST=V,...]")
+    ap.add_argument("--out", default=os.path.join(CP.BUILD_DIR, "sass"))
+    args = ap.parse_args(argv)
+    jobs = variant_jobs(args.variants)
+    log(nvidia_smi_line())
+    os.makedirs(AB_DIR, exist_ok=True)
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(AB_DIR, "point_schedule.h"), "w") as f:
+        f.write(PS.header())
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        built = list(ex.map(lambda job: _ab_build(*job), jobs))
+    tool = os.path.join(os.path.dirname(CP.nvcc()), "cuobjdump")
+    for name, path, text in built:
+        for row in ptxas_summary(text):
+            log(f"ptxas {name}: {row}")
+        sass = subprocess.run([tool if os.path.exists(tool) else "cuobjdump", "-sass", path],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        with open(os.path.join(args.out, f"{name}.sass"), "w") as f:
+            f.write(sass)
+        for fn, ops in sass_opcodes(sass).items():
+            if "fe_pow" in fn or "pt_mul_shared" in fn:
+                log(f"sass {name} {fn}: {sum(ops.values())} instructions; " + ", ".join(
+                    f"{op} {c}" for op, c in ops.most_common(14)))
+    return 0
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
         return 2
     if argv[:1] == ["--ab"]:
         return ab_main(argv[1:])
+    if argv[:1] == ["--sass"]:
+        return sass_main(argv[1:])
     device = torch.device("cuda:0")
     smi = nvidia_smi_line()
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}); torch {torch.__version__}, "
@@ -1700,6 +1792,9 @@ def main(argv: list[str]) -> int:
         impl = TorchImpl()
         datas = [MSG] * N_VALIDATORS
         slot = run_slot(impl, batches, pubkeys, datas, pool)
+        if ab_uncovered(slot["cases"]):
+            raise SystemExit(f"--ab times fe_pow / pt_mul_shared at none of "
+                             f"{ab_uncovered(slot['cases'])}, where the slot launched them")
         for (name, E), row in list(rows.items()):
             launched = {n: c for (e, n), c in slot["widths"][name].items() if e == E}
             if name in ("pt_double", "pt_add") and launched:
