@@ -63,8 +63,10 @@
 // each product split over a group of lanes (see "fe_pow" below). Every
 // kernel shares fp.cuh's carry-chain fq_mul, fq_sqr and fq_addsub, or its
 // lane-split fq_mul_split. The scalar multiplications keep each point's
-// group and scratch for the whole chain of steps (see "Scalar
-// multiplication" below). Later work: the reduction tree in one kernel.
+// scratch for the whole chain of steps: pt_mul_shared a group of threads a
+// point, pt_mul_windowed a point a lane, the block's ranks of lanes running
+// a level's operations (see "Scalar multiplication" below). Later work: the
+// reduction tree in one kernel.
 #include <cuda_runtime.h>
 
 #include "fp.cuh"
@@ -817,39 +819,35 @@ __global__ void __launch_bounds__(kPowBlock) fe_pow_kernel(const uint32_t* a, ui
 // per window 4 doubles and one unified add of the entry the digit selects,
 // digit 0 the all-zero infinity entry.
 //
-// Both give each point a group for the whole chain, as the point kernels do
-// for one step, and walk the same schedules (Sched<kPtDouble, E>,
-// Sched<kPtAdd, E>) through run_levels on one scratch of slots in shared
-// memory; the groups never sync with each other. pt_mul_windowed's group is
-// kMulG1 / kMulG2 threads (kPoints points a block), a product on one
-// thread. pt_mul_shared's is G = kMulG1 / kMulG2 teams of T = kMulLanes1 /
-// kMulLanes2 lanes (at T = 4, 16 lanes a G1 point, two a warp, and 32 a G2
-// point, a warp each), kMulPoints1 / kMulPoints2 = 8 / 4 points a block, so
-// that at the main path's widths (1,024 G1 points, 1 and 64 G2 points) a
-// warp has its SM sub-partition to itself (16 points a block put four G2
-// warps on each); a product runs split over a team (fq_mul_split), a linear
-// operation whole on every lane of its team (split, it would add the lanes'
-// carry resolution); the whole warp runs the chain in step, so its syncs
-// take the whole warp's mask too (8% faster at E = 1 than the point's 16
-// lanes). The lane split adds no slot and no shared memory: the block's
-// slots are sized for 16 points as the point kernels' layout. Both stage
-// the schedule tables in shared memory (stage_tables: 1,856 B a block).
+// pt_mul_shared gives each point a group for the whole chain, as the point
+// kernels do for one step, and walks the same schedules (Sched<kPtDouble,
+// E>, Sched<kPtAdd, E>) through run_levels on one scratch of slots in
+// shared memory; the groups never sync with each other. Its group is G =
+// kMulG1 / kMulG2 teams of T = kMulLanes1 / kMulLanes2 lanes (at T = 4, 16
+// lanes a G1 point, two a warp, and 32 a G2 point, a warp each),
+// kMulPoints1 / kMulPoints2 = 8 / 4 points a block, so that at the main
+// path's widths (1,024 G1 points, 1 and 64 G2 points) a warp has its SM
+// sub-partition to itself (16 points a block put four G2 warps on each); a
+// product runs split over a team (fq_mul_split), a linear operation whole
+// on every lane of its team (split, it would add the lanes' carry
+// resolution); the whole warp runs the chain in step, so its syncs take the
+// whole warp's mask too (8% faster at E = 1 than the point's 16 lanes). The
+// lane split adds no slot and no shared memory: the block's slots are sized
+// for 16 points as the point kernels' layout. It stages the schedule tables
+// in shared memory (stage_tables: 1,856 B a block). The accumulator lives in
+// slots 0..3E-1, the inputs of both schedules; a double ends with the group
+// copying the schedule's outputs into them, an add starts by copying its
+// addend into slots 3E..6E-1 and ends by copying the slots that
+// pt_add_kernel's selects choose (the P+P double where H = R = 0, infinity,
+// P or Q). Every copy goes through registers between two group syncs, 16
+// bytes at a time, so a schedule's output slot may be one of its input
+// slots. P stays in slots past the scratch.
 //
-// The accumulator lives in slots 0..3E-1, the inputs of both schedules; a
-// double ends with the group copying the schedule's outputs into them, an
-// add starts by copying its addend into slots 3E..6E-1 and ends by copying
-// the slots that pt_add_kernel's selects choose (the P+P double where H = R
-// = 0, infinity, P or Q). Every copy goes through registers between two
-// group syncs, 16 bytes at a time, so a schedule's output slot may be one of
-// its input slots. P stays in slots past the scratch (pt_mul_shared), or is
-// table entry 1 (pt_mul_windowed).
-//
-// The windowed table: 15 entries (entry 0 is zeros, never stored) of 3E Fq
-// a point, 4,320 B at E = 2, in slots of shared memory past the scratch:
-// (41 + 90) slots of kSlotWords words, a block of 16 points 102,704 B of
-// dynamic shared memory (opted into at every launch), two blocks an SM. A
-// table in device memory (17.7 MB at 4,096 lanes, read back through the L2)
-// timed within 1% of it on the H100 and needed a scratch buffer (PERF.md).
+// pt_mul_windowed walks the same schedules with the block's points as the
+// lanes and the block's ranks (groups of lanes) as the schedule's threads
+// (below, at its kernel): at the sweep's 4,096 points a group of 8 threads a
+// point left most lanes of a warp idle in the narrow levels and walked the
+// level tables per lane; a rank issues only where it has an operation.
 //
 // What bounds them: latency. The chain has 635 + 304 steps for the cofactor
 // clear (one point, one group: nothing hides it), 143 for the G1 subgroup
@@ -857,20 +855,15 @@ __global__ void __launch_bounds__(kPowBlock) fe_pow_kernel(const uint32_t* a, ui
 // through its formula's dependent product levels (3 and 5 at E = 2) and
 // linear levels (6 and 8); the card's rates bound none of them (the
 // operations of all steps over the card's integer rate are ~1 us for the
-// cofactor clear and ~1 ms for the sweep). A product level of
-// pt_mul_windowed waits through one fq_mul (~1,350 instructions on one
-// thread, ~2 us at one point); of pt_mul_shared through one split product
-// (PERF.md: its step's critical path and instructions from the SASS).
-// On the H100 a step in the chain costs about what its launch did less
-// ~2 us, not less the ~5.4 us that the point kernels' no-arithmetic build
-// (`chip_smoke.py --ab --diagnose`) took a launch: most of that was walking
-// the levels, which the chain still does (PERF.md). The level loops and the
-// step loops are not unrolled (code size: fe_pow's unrolled squaring loop
-// was slower with every SM busy). Group sizes: 8 at E = 2 as the point
+// cofactor clear and ~1 ms for the sweep). A product level waits through one
+// fq_mul (~1,320 instructions on one thread, IMAD and IADD3 in equal parts:
+// PERF.md, from the SASS) or one split product (its step's critical path and
+// instructions from the SASS, PERF.md). The level loops and the step loops
+// are not unrolled (code size: fe_pow's unrolled squaring loop was slower
+// with every SM busy). pt_mul_shared's group sizes: 8 at E = 2 as the point
 // kernels (16 was 8% faster at one point, 18% slower at 64 and 79% at
-// 4,096), 4 at E = 1. Lanes a product: 4 (2 was slower at every width of
-// the main path, 1 is pt_mul_windowed's; `chip_smoke.py --ab` with
-// kMulLanes1/2, PERF.md).
+// 4,096), 4 at E = 1. Lanes a product: 4 (2 was slower at every width of the
+// main path; `chip_smoke.py --ab` with kMulLanes1/2, PERF.md).
 constexpr int kMulG1 = 4;
 constexpr int kMulG2 = 8;
 constexpr int kMulLanes1 = 4;
@@ -879,6 +872,17 @@ constexpr int kMulPoints1 = 8;
 constexpr int kMulPoints2 = 4;
 constexpr int kMulMaxBits = 640;     // the largest scalar, H_EFF_G2, has 636 bits
 constexpr int kWinTable = 15;        // entries 1..15 of the window table
+// pt_mul_windowed's block shapes: points a block, lanes a product (P * T =
+// 32 past one lane) and ranks a block; at E = 2 the points a block up to
+// kWinNarrowMax points and past it
+constexpr int kWinNarrowMax = 2048;
+constexpr int kWin2NarrowPoints = 16;
+constexpr int kWin2WidePoints = 32;
+constexpr int kWin2Lanes = 1;
+constexpr int kWin2Ranks = 16;
+constexpr int kWin1Points = 8;
+constexpr int kWin1Lanes = 4;
+constexpr int kWin1Ranks = 8;
 
 template <int E>
 struct MulTraits {
@@ -999,53 +1003,265 @@ __global__ void __launch_bounds__(MulTraits<E>::G * MulTraits<E>::T * MulTraits<
     store_acc<E, GT * NP, NP>(dst, sm, base, n);
 }
 
-template <int E>
-__global__ void __launch_bounds__(MulTraits<E>::G * kPoints)
+// pt_mul_windowed: a rank a group of lanes, a point a lane (or T lanes).
+// A block holds P points and R ranks of P * T lanes, lanes l * T ..
+// l * T + T - 1 of a rank on point l (P * T = 32: a warp a rank; P = 16, T
+// = 1: two ranks a warp); operation j of a schedule level runs on rank j %
+// R for all P points at once, so a warp with no operation in a
+// level issues nothing there, the lanes of a rank run the same operation on
+// the same slots (the level tables' reads are uniform broadcasts, a warp's
+// branches on an operation's kind uniform), and the block syncs once a
+// level (__syncthreads). A product runs on one lane (T = 1: fq_mul) or split
+// over the point's T lanes (fq_mul_split<T>, whose shuffles take the rank's
+// whole warp), each lane storing its 12 / T limbs; a linear operation runs
+// whole on each of the T lanes, each storing its limbs. A slot is 12 words
+// for each of the P points, lane-minor: limbs 4q..4q+3 of slot s of point l
+// in the uint4 at (s * 3 + q) * P + l, so a rank reads a slot in three
+// 16-byte accesses a lane (the T lanes of a point read the same words),
+// without bank conflicts for any slot a lane picks. The window table's 16
+// entries (entry 0 zeros) sit past the scratch; the unified add reads its
+// addend Q in place from the entry the point's digit selects (the
+// schedule's Q slots, 3E..6E-1, are read-only inputs, mapped per lane). A
+// double ends with its outputs copied into the accumulator's slots
+// (0..3E-1), an add with each point's selected slots copied there (none
+// where Q is infinity), the copies spread over the block's lanes. The P+P
+// double of the add runs where any of the block's points needs it (every
+// warp holds all P points, so __any_sync agrees in every warp). Points past
+// n run on zeros (infinity, digit 0) and store nothing.
+//
+// What bounds it on the H100: the chain of levels and the SM's issue, not
+// the card's rates (their bound is ~1 ms for the sweep). A window is 19
+// product levels (3 a double, 5 the add at E = 2) and 32 linear ones; a
+// product on one lane is ~1,320 instructions (fq_mul, IMAD and IADD3 in
+// equal parts), so a level of 3 products keeps 3 of an SM's warps busy and
+// one of 13 fills every sub-partition's issue. Shapes, from `chip_smoke.py
+// --ab` (PERF.md, PR 8): at E = 2 32 points a block at the sweep's 4,096
+// (one block an SM; 16 points were 8% slower, products on 2 lanes 14%),
+// 16 points a block at the MSM's 2,048 (32 leave 68 SMs idle: 28% slower),
+// 16 ranks (8 were 1.5-4.7% slower); at E = 1 (1,024 points) products split
+// over 4 lanes, 8 points a block (one lane a product was 59% slower).
+template <int E, int P, int T, int R>
+struct WinTraits {
+    static_assert(32 % (P * T) == 0 && (T == 1 || P * T == 32) && FP_LIMBS % T == 0,
+                  "whole ranks a warp; a split product's rank a whole warp");
+    static constexpr int kScratch = MulTraits<E>::kScratch;
+    static constexpr int kEntry = 3 * E;                           // slots an entry
+    static constexpr int kSlots = kScratch + (kWinTable + 1) * kEntry;
+    static constexpr int kSmemBytes = kSlots * 3 * P * 16;
+    static constexpr int kThreads = P * T * R;
+};
+static_assert(WinTraits<2, 32, 1, 1>::kSmemBytes <= 227 * 1024, "the block's table fits an SM");
+
+// this thread's point in its block
+template <int P, int T>
+__device__ __forceinline__ int win_point() {
+    return threadIdx.x / T % P;
+}
+
+// the point's uint4 of slot s (its q-th at [q * P]); slots 3E..6E-1 map to
+// those from qb on (qb = 3E: no remap)
+template <int E, int P, int T>
+__device__ __forceinline__ uint4* win_slot(uint4* sm, int s, int qb) {
+    const int d = s - 3 * E;
+    return sm + ((unsigned)d < 3u * E ? qb + d : s) * 3 * P + win_point<P, T>();
+}
+
+template <int P>
+__device__ __forceinline__ void win_load(Fq& x, const uint4* p) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+        const uint4 v = p[q * P];
+        x.v[4 * q] = v.x;
+        x.v[4 * q + 1] = v.y;
+        x.v[4 * q + 2] = v.z;
+        x.v[4 * q + 3] = v.w;
+    }
+}
+
+// limbs L * t .. L * t + L - 1 (L = 12 / T) of a slot: x.v[j] of them, or,
+// T = 1, the whole slot in three 16-byte stores
+template <int P, int T, class X>
+__device__ __forceinline__ void win_store(uint4* p, const X& x) {
+    constexpr int L = FP_LIMBS / T;
+    if constexpr (T == 1) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+            p[q * P] = make_uint4(x.v[4 * q], x.v[4 * q + 1], x.v[4 * q + 2], x.v[4 * q + 3]);
+    } else {
+        uint32_t* const w = reinterpret_cast<uint32_t*>(p);
+        const int t = threadIdx.x % T;
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+            const int k = L * t + j;
+            w[k / 4 * 4 * P + k % 4] = x.v[sizeof(x.v) == 4 * L ? j : k];
+        }
+    }
+}
+
+// x = slot a, a + b or a - b (b = kSchedNone: a alone)
+template <int E, int P, int T>
+__device__ __forceinline__ void win_operand(Fq& x, uint4* sm, int a, int b, bool sub, int qb) {
+    win_load<P>(x, win_slot<E, P, T>(sm, a, qb));
+    if (b == kSchedNone) return;
+    Fq y;
+    win_load<P>(y, win_slot<E, P, T>(sm, b, qb));
+    fq_addsub(x, x, y, sub);
+}
+
+// One schedule operation for the rank's P points.
+template <int E, int P, int T>
+__device__ __forceinline__ void win_op(uint4* sm, uint64_t op, bool mul, int qb) {
+    const int flags = (int)(op >> 40);
+    Fq x, y, z;
+    win_operand<E, P, T>(x, sm, op >> 8 & 0xff, op >> 16 & 0xff, flags & 1, qb);
+    win_operand<E, P, T>(y, sm, op >> 24 & 0xff, op >> 32 & 0xff, flags & 2, qb);
+    uint4* const dst = win_slot<E, P, T>(sm, op & 0xff, qb);
+    if constexpr (T > 1) {
+        if (mul) {
+            const int t = threadIdx.x % T;
+            const FqGroup<T> g = fq_group<T>(t, threadIdx.x % 32 - t);
+            FqSlice<FP_LIMBS / T> ys, r;
+            fq_slice<T>(ys, y, g);
+            fq_mul_split<T>(r, x, ys, g);
+            win_store<P, T>(dst, r);
+            return;
+        }
+    }
+    if (mul)
+        fq_mul(z, x, y);
+    else
+        fq_addsub(z, x, y, flags & 4);
+    win_store<P, T>(dst, z);
+}
+
+// Levels [first, last) of the schedule tables: operations rank, rank +
+// R, ... of each level on this rank, then the block's sync. (Fetching the
+// rank's first operation of the next level during a level, as run_levels
+// does, was 7-12% slower here: PERF.md, PR 8.)
+template <int E, int P, int T, int R>
+__device__ void win_levels(uint4* sm, int first, int last, int rank, int qb) {
+#pragma unroll 1
+    for (int L = first; L < last; ++L) {
+        const uint32_t lv = kSchedLevels[L];
+        const int op0 = lv & 0xffff, count = lv >> 16 & 0xff;
+        const bool mul = lv >> 24;
+#pragma unroll 1
+        for (int k = rank; k < count; k += R)
+            win_op<E, P, T>(sm, kSchedOps[op0 + k], mul, qb);
+        __syncthreads();
+    }
+}
+
+template <int E, int P, int T>
+__device__ __forceinline__ bool win_zero(uint4* sm, int at, int qb) {
+    bool zero = true;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        Fq x;
+        win_load<P>(x, win_slot<E, P, T>(sm, kSchedSlots[at + e], qb));
+        zero = zero && fq_is_zero(x);
+    }
+    return zero;
+}
+
+// Slots dst..dst+3E-1 = slots src(i), i < 3E, each point its own src (src
+// < 0: zeros), the 9E uint4 of a point spread over the ranks and the
+// point's T lanes; then the sync.
+template <int E, int P, int T, int R, class Src>
+__device__ __forceinline__ void win_copy(uint4* sm, int dst, Src src, int rank) {
+    const int l = win_point<P, T>();
+#pragma unroll 1
+    for (int i = rank * T + threadIdx.x % T; i < 9 * E; i += R * T) {
+        const int s = src(i / 3);
+        sm[((dst + i / 3) * 3 + i % 3) * P + l] =
+            s < 0 ? make_uint4(0u, 0u, 0u, 0u) : sm[(s * 3 + i % 3) * P + l];
+    }
+    __syncthreads();
+}
+
+// acc = 2 acc
+template <int E, int P, int T, int R>
+__device__ void win_double(uint4* sm, int rank) {
+    typedef Sched<kPtDouble, E> S;
+    win_levels<E, P, T, R>(sm, S::kLevel0, S::kLevel0 + S::kLevels, rank, 3 * E);
+    win_copy<E, P, T, R>(sm, 0, [](int i) { return (int)kSchedSlots[S::kOut + i]; }, rank);
+}
+
+// acc = acc + the table entry at slot qb (each point its own), with
+// pt_add_kernel's selects
+template <int E, int P, int T, int R>
+__device__ void win_add(uint4* sm, int rank, int qb) {
+    typedef Sched<kPtAdd, E> S;
+    win_levels<E, P, T, R>(sm, S::kLevel0, S::kLevel0 + S::kMain, rank, qb);
+    const bool p_inf = win_zero<E, P, T>(sm, S::kIn + 2 * E, qb);
+    const bool q_inf = win_zero<E, P, T>(sm, S::kIn + 5 * E, qb);
+    const bool h_zero = win_zero<E, P, T>(sm, S::kH, qb);
+    const bool r_zero = win_zero<E, P, T>(sm, S::kR, qb);
+    __syncthreads();   // every rank has read P before the copy writes acc
+    if (__any_sync(FP_WARP, !p_inf && !q_inf && h_zero && r_zero))
+        win_levels<E, P, T, R>(sm, S::kLevel0 + S::kMain, S::kLevel0 + S::kLevels, rank, qb);
+    // the sum's slots: Q, P (acc itself: nothing to copy), the general sum,
+    // the double, or infinity
+    const int o = p_inf ? -2 : q_inf ? -3 : !h_zero ? S::kOut : r_zero ? S::kDblOut : -1;
+    win_copy<E, P, T, R>(sm, 0, [&](int i) {
+        return o == -2 ? qb + i : o == -3 ? i : o < 0 ? -1 : (int)kSchedSlots[o + i];
+    }, rank);
+}
+
+template <int E, int P, int T, int R>
+__global__ void __launch_bounds__(WinTraits<E, P, T, R>::kThreads)
     pt_mul_windowed_kernel(const uint32_t* x, const uint32_t* y, const uint32_t* z, uint32_t* ox,
                            uint32_t* oy, uint32_t* oz, long long n, const uint8_t* digits,
                            int n_win) {
-    constexpr int G = MulTraits<E>::G, kT = MulTraits<E>::kScratch;
-    extern __shared__ __align__(16) uint32_t sm[];
-    __shared__ SchedStage stage;
-    const long long base = (long long)blockIdx.x * kPoints;
-    const int pt = threadIdx.x / G, rank = threadIdx.x % G;
-    const long long lane = base + pt;
+    typedef WinTraits<E, P, T, R> W;
+    extern __shared__ __align__(16) uint4 smv[];
+    uint4* const sm = smv;
+    uint32_t* const smw = reinterpret_cast<uint32_t*>(smv);
+    const long long base = (long long)blockIdx.x * P;
+    const int rank = threadIdx.x / (P * T), l = win_point<P, T>();
+    const int first = rank * T + threadIdx.x % T, step = R * T;
+    const long long lane = base + l;
+    auto entry = [](int t) { return W::kScratch + t * W::kEntry; };
+    // P into slots 0..3E-1, word j of Fq c * E + e at ((s * 3 + j / 4) * P +
+    // l) * 4 + j % 4; entry 0 zeros
     const uint32_t* const src[3] = {x, y, z};
-    load_points<E, 3, G * kPoints>(sm, src, base, n);
-    const SchedTables tab = stage_tables(stage);
-    __syncthreads();
-    if (lane < n) {
-        const unsigned mask = group_mask<G>();
-        const FqGroup<1> g = one_lane();
-        // Fq i of table entry t (1..15)
-        auto entry = [&](int t) {
-            return [&, t](int i) { return sm + sword(kT + (t - 1) * 3 * E + i, pt); };
-        };
-        auto acc = [&](int i) { return sm + sword(i, pt); };
-        group_copy<E, G>(acc, entry(1), rank, mask);
 #pragma unroll 1
-        for (int t = 2; t <= kWinTable; ++t) {    // acc holds entry t - 1
-            if (t % 2 == 0) {
-                if (t > 2) group_copy<E, G>(entry(t / 2), acc, rank, mask);
-                mul_double<E, 1>(tab, sm, pt, rank, g, mask);
-            } else {
-                mul_add<E, 1>(tab, sm, entry(1), pt, rank, g, mask);
-            }
-            group_copy<E, G>(acc, entry(t), rank, mask);
-        }
-        group_copy<E, G>([](int) -> const uint32_t* { return nullptr; }, acc, rank, mask);
-#pragma unroll 1
-        for (int w = 0; w < n_win; ++w) {
-#pragma unroll 1
-            for (int q = 0; q < 4; ++q) mul_double<E, 1>(tab, sm, pt, rank, g, mask);
-            const int d = digits[(long long)w * n + lane] & 15;
-            auto sel = [&](int i) -> const uint32_t* { return d ? entry(d)(i) : nullptr; };
-            mul_add<E, 1>(tab, sm, sel, pt, rank, g, mask);
-        }
+    for (int w = first; w < 3 * E * FP_LIMBS; w += step) {
+        const int c = w / (E * FP_LIMBS), ej = w % (E * FP_LIMBS), j = ej % FP_LIMBS;
+        smw[(((c * E + ej / FP_LIMBS) * 3 + j / 4) * P + l) * 4 + j % 4] =
+            lane < n ? src[c][(long long)ej * n + lane] : 0u;
     }
+#pragma unroll 1
+    for (int i = first; i < 9 * E; i += step)
+        sm[((entry(0) + i / 3) * 3 + i % 3) * P + l] = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
+    win_copy<E, P, T, R>(sm, entry(1), [](int i) { return i; }, rank);
+#pragma unroll 1
+    for (int t = 2; t <= kWinTable; ++t) {        // acc holds entry t - 1
+        if (t % 2 == 0) {
+            if (t > 2) win_copy<E, P, T, R>(sm, 0, [&](int i) { return entry(t / 2) + i; }, rank);
+            win_double<E, P, T, R>(sm, rank);
+        } else {
+            win_add<E, P, T, R>(sm, rank, entry(1));
+        }
+        win_copy<E, P, T, R>(sm, entry(t), [](int i) { return i; }, rank);
+    }
+    win_copy<E, P, T, R>(sm, 0, [](int) { return -1; }, rank);
+#pragma unroll 1
+    for (int w = 0; w < n_win; ++w) {
+#pragma unroll 1
+        for (int q = 0; q < 4; ++q) win_double<E, P, T, R>(sm, rank);
+        const int d = lane < n ? digits[(long long)w * n + lane] & 15 : 0;
+        win_add<E, P, T, R>(sm, rank, entry(d));
+    }
     uint32_t* const dst[3] = {ox, oy, oz};
-    store_acc<E, G * kPoints>(dst, sm, base, n);
+#pragma unroll 1
+    for (int w = first; w < 3 * E * FP_LIMBS; w += step) {
+        const int c = w / (E * FP_LIMBS), ej = w % (E * FP_LIMBS), j = ej % FP_LIMBS;
+        if (lane < n)
+            dst[c][(long long)ej * n + lane] =
+                smw[(((c * E + ej / FP_LIMBS) * 3 + j / 4) * P + l) * 4 + j % 4];
+    }
 }
 
 inline unsigned grid_for(long long n) { return (unsigned)((n + kBlock - 1) / kBlock); }
@@ -1088,18 +1304,35 @@ int mul_shared_launch(const void* x, const void* y, const void* z, void* ox, voi
 
 // The table's slots take the block past the 48 KB a launch gets by default:
 // opted into at every launch, as fe_pow's.
+template <int E, int P, int T, int R>
+int mul_windowed_launch(const void* x, const void* y, const void* z, void* ox, void* oy, void* oz,
+                        long long n, const uint8_t* digits, int n_win, cudaStream_t s) {
+    typedef WinTraits<E, P, T, R> W;
+    const cudaError_t err = cudaFuncSetAttribute(
+        pt_mul_windowed_kernel<E, P, T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        W::kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    pt_mul_windowed_kernel<E, P, T, R><<<(unsigned)((n + P - 1) / P), W::kThreads,
+                                         W::kSmemBytes, s>>>((In)x, (In)y, (In)z, (Out)ox,
+                                                             (Out)oy, (Out)oz, n, digits, n_win);
+    return (int)cudaGetLastError();
+}
+
+// The block's shape: E = 2 kWin2NarrowPoints up to kWinNarrowMax points,
+// where blocks of 32 would leave SMs idle, kWin2WidePoints past it; E = 1
+// one shape
 template <int E>
 int mul_windowed_launch(const void* x, const void* y, const void* z, void* ox, void* oy, void* oz,
                         long long n, const uint8_t* digits, int n_win, cudaStream_t s) {
-    constexpr int G = MulTraits<E>::G;
-    const int slots = MulTraits<E>::kScratch + kWinTable * 3 * E;
-    const int smem = slots * kSlotWords * (int)sizeof(uint32_t);
-    const cudaError_t err = cudaFuncSetAttribute(
-        pt_mul_windowed_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    pt_mul_windowed_kernel<E><<<point_blocks(n), G * kPoints, smem, s>>>(
-        (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n, digits, n_win);
-    return (int)cudaGetLastError();
+    if constexpr (E == 1)
+        return mul_windowed_launch<1, kWin1Points, kWin1Lanes, kWin1Ranks>(x, y, z, ox, oy, oz, n,
+                                                                           digits, n_win, s);
+    else if (n <= kWinNarrowMax)
+        return mul_windowed_launch<2, kWin2NarrowPoints, kWin2Lanes, kWin2Ranks>(
+            x, y, z, ox, oy, oz, n, digits, n_win, s);
+    else
+        return mul_windowed_launch<2, kWin2WidePoints, kWin2Lanes, kWin2Ranks>(
+            x, y, z, ox, oy, oz, n, digits, n_win, s);
 }
 
 }  // namespace

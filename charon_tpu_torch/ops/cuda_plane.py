@@ -21,10 +21,12 @@ ops/rows.py):
                                                   elements, a thread an element past it
     pt_mul_shared, pt_mul_windowed                for E in {1, 2}: k·P for one host-known
                                                   scalar, and per-element k·P from 4-bit
-                                                  digits, each in one launch, a group of
-                                                  threads per point walking the point
-                                                  kernels' schedules (pt_mul_shared's
-                                                  products split over 4 lanes each)
+                                                  digits, each in one launch, walking the
+                                                  point kernels' schedules: pt_mul_shared
+                                                  a group of threads per point (products
+                                                  split over 4 lanes each), pt_mul_windowed
+                                                  a point a lane, a level's operations on
+                                                  the block's ranks of lanes
 
 Build: the point schedules' header into `build/charon_tpu_torch/`, then
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -I build/charon_tpu_torch`

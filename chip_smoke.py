@@ -87,19 +87,23 @@ fe_add_rows, at n_add 0 too, at 108 and 6,912 rows; fe_mul_rows<2> at 36 and
 2,304 Fq2 products), then fe_pow (the (p-3)/4 scan on planes of 12,288,
 4,096 and 1,024 lanes, p-2 on 1, 2 and 8 rows, the sqrt on 6; `kPowBlock=64`
 sets another block size, `kPowLanes=1` one thread a product), then the
-scalar multiplications at the main path's cases (MUL_AB; `kMulG2=16` sets
-the E = 2 group size, `kMulLanes2=2` the lanes of its products,
-`kMulPoints2=16` its points a block). POW_AB and MUL_AB cover every
+scalar multiplications at the main path's cases and the G1 MSM's
+(MUL_AB; `kMulG2=16` sets pt_mul_shared's E = 2 group size, `kMulLanes2=2`
+the lanes of its products, `kMulPoints2=16` its points a block;
+`kWin2Ranks=8` pt_mul_windowed's ranks a block at E = 2, `kWin1Lanes=1,
+kWin1Points=32` one lane a product at E = 1). POW_AB and MUL_AB cover every
 (layout or E, width) at which the headline slot launches fe_pow and
 pt_mul_shared: the whole check fails if they do not. --kernels
 points,rows,pow,mul picks the groups timed (all by default). Every variant
 must have this checkout's C interface; to compare with a tree whose
 interface differs, run that tree's own
 chip_smoke.py in turns with this one. --diagnose adds three builds of this
-checkout's source with part of the level loop's work taken out, to show
-where a launch's time goes: no-arith (each operation only copies a slot),
-no-linear (the linear levels run no operation) and no-products (each
-product is an add); their outputs are wrong by design and not checked.
+checkout's source with part of the level loops' work taken out (the point
+kernels' and pt_mul_shared's run_levels, pt_mul_windowed's win_op and
+win_levels), to show where a launch's time goes: no-arith (each operation
+only copies a slot), no-linear (the linear levels run no operation) and
+no-products (each product is an add); their outputs are wrong by design
+and not checked.
 --slot-rounds N then runs N rounds of the 1000 x 4-of-6 slot with each
 variant's library in turn, the order alternating by round: per variant a
 steady device-verified slot (and its verify phase), a steady native-verified
@@ -204,12 +208,14 @@ def ptxas_summary(text: str) -> list[str]:
         if m and name:
             k = re.search(r"((?:fe_mul|fe_add|fe_sub|pt_double|pt_add|pt_mul_shared"
                           r"|pt_mul_windowed)(?:_rows)?_kernel)"
-                          r"(?:ILi(\d)E(?:Li(\d+)E)?E)?", name)
+                          r"(?:ILi(\d)E((?:Li\d+E)*)E)?", name)
             pw = re.search(r"fe_pow_kernelIL\w*?LayoutE(\d)E(?:Li(\d+)E)?E", name)
             short = name
             if k:
+                args = re.findall(r"Li(\d+)E", k.group(3) or "")
+                what = "P, T, R" if "windowed" in k.group(1) else "G"
                 short = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
-                         + (f" (G={k.group(3)})" if k.group(3) else ""))
+                         + (f" ({what} = {', '.join(args)})" if args else ""))
             elif pw:
                 short = (f"fe_pow_kernel<{('plane', 'rows')[int(pw.group(1))]}>"
                          + (f" (T={pw.group(2)})" if pw.group(2) else ""))
@@ -1428,16 +1434,29 @@ _OPERATION = """            operand<T>(x, sm, op >> 8 & 0xff, op >> 16 & 0xff, f
                 fq_addsub(z, x, y, flags & 4);
                 sstore(sm, op & 0xff, pt, z);
             }"""
+# and in pt_mul_windowed's operation and level loop
+_WIN_OPERANDS = """    win_operand<E, P, T>(x, sm, op >> 8 & 0xff, op >> 16 & 0xff, flags & 1, qb);
+    win_operand<E, P, T>(y, sm, op >> 24 & 0xff, op >> 32 & 0xff, flags & 2, qb);
+"""
 DIAGNOSTICS = {
     "no-arith": [(_OPERATION, """            sload(z, sm, op >> 8 & 0xff, pt);
-            sstore(sm, op & 0xff, pt, z);""")],
+            sstore(sm, op & 0xff, pt, z);"""),
+                 (_WIN_OPERANDS, """    win_load<P>(z, win_slot<E, P, T>(sm, op >> 8 & 0xff, qb));
+    win_store<P, T>(win_slot<E, P, T>(sm, op & 0xff, qb), z);
+    return;
+""")],
     "no-linear": [("for (int k = rank; k < end; k += G)",
-                   "for (int k = rank; mul && k < end; k += G)")],
+                   "for (int k = rank; mul && k < end; k += G)"),
+                  ("for (int k = rank; k < count; k += R)",
+                   "for (int k = rank; mul && k < count; k += R)")],
     "no-products": [("""                fq_slice<T>(r, y, g);
                 mul_split<T>(r, x, r, g);
                 if (k < count) sstore_slice<T>(sm, op & 0xff, pt, r, g);""",
                      """                fq_addsub(z, x, y, false);
-                sstore(sm, op & 0xff, pt, z);""")],
+                sstore(sm, op & 0xff, pt, z);"""),
+                    ("    if constexpr (T > 1) {\n        if (mul) {",
+                     "    if constexpr (false) {\n        if (mul) {"),
+                    ("        fq_mul(z, x, y);", "        fq_addsub(z, x, y, false);")],
 }
 
 
@@ -1532,6 +1551,7 @@ def ab_pow(libs: dict, reps: int, dev) -> None:
 # the composites' A/B cases: (kernel, E, width, k or windows), the main
 # path's
 MUL_AB = (("pt_mul_windowed", 2, 4096, 64), ("pt_mul_windowed", 2, 2048, 16),
+          ("pt_mul_windowed", 1, 1024, 16),
           ("pt_mul_shared", 1, 1024, U2), ("pt_mul_shared", 2, 1, PC.H_EFF_G2),
           ("pt_mul_shared", 2, 64, PC.H_EFF_G2))
 
@@ -1703,7 +1723,7 @@ def sass_opcodes(sass: str) -> dict:
             name = m.group(1)
             out[name] = collections.Counter()
             continue
-        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
         if m and name:
             out[name][m.group(1)] += 1
     return out
@@ -1712,8 +1732,8 @@ def sass_opcodes(sass: str) -> dict:
 def sass_main(argv: list[str]) -> int:
     """--sass [--out DIR] [NAME=DIR[:CONST=V,...] ...]: build each variant as
     --ab does and write its `cuobjdump -sass` listing to DIR/NAME.sass;
-    print ptxas's registers and each fe_pow and scalar-multiplication
-    kernel's instruction count and commonest opcodes."""
+    print ptxas's registers and each fe_pow, scalar-multiplication and
+    fe_mul<1> kernel's instruction count and commonest opcodes."""
     ap = argparse.ArgumentParser(prog="chip_smoke.py --sass")
     ap.add_argument("variants", nargs="*", help="NAME=DIR[:CONST=V,...]")
     ap.add_argument("--out", default=os.path.join(CP.BUILD_DIR, "sass"))
@@ -1735,7 +1755,10 @@ def sass_main(argv: list[str]) -> int:
         with open(os.path.join(args.out, f"{name}.sass"), "w") as f:
             f.write(sass)
         for fn, ops in sass_opcodes(sass).items():
-            if "fe_pow" in fn or "pt_mul_shared" in fn:
+            # fe_mul_kernel<1> is one fq_mul with its loads and stores: the
+            # product's instructions
+            if any(k in fn for k in ("fe_pow", "pt_mul_shared", "pt_mul_windowed",
+                                     "fe_mul_kernelILi1E")):
                 log(f"sass {name} {fn}: {sum(ops.values())} instructions; " + ", ".join(
                     f"{op} {c}" for op, c in ops.most_common(14)))
     return 0
