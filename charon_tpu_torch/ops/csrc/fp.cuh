@@ -1,4 +1,4 @@
-// BLS12-381 Fq / Fq2 arithmetic for the port's CUDA kernels
+// BLS12-381 Fq arithmetic for the port's CUDA kernels
 // (plane_kernels.cu), the one field core every kernel shares. Every function
 // but the lane-split product's is __host__ __device__: on the card fq_add,
 // fq_sub, fq_addsub and fq_mul are PTX carry chains, and a host C++ compiler
@@ -7,11 +7,10 @@
 //
 // An Fq element is 12 little-endian 32-bit limbs, canonical in [0, p), in
 // Montgomery form with R = 2^384 (the reference's R, so residues are the same
-// integers as charon_tpu's 32 x 12-bit limbs). Fq2 = Fq[u]/(u^2 + 1).
-//
-// Formulas match the reference's in-kernel forms in
-// charon_tpu/ops/pallas_plane.py: Karatsuba Fq2 products (_e_mul_many). The
-// point formulas are schedules of these Fq operations
+// integers as charon_tpu's 32 x 12-bit limbs). The kernels build Fq2 =
+// Fq[u]/(u^2 + 1) from these: Karatsuba products of three Fq products, as the
+// reference's in-kernel forms in charon_tpu/ops/pallas_plane.py
+// (_e_mul_many), and the point formulas are schedules of Fq operations
 // (ops/point_schedule.py). Every result is canonical, so the kernels agree
 // bit for bit with the plain PyTorch versions in ops/field.py and
 // ops/curve.py.
@@ -40,10 +39,6 @@
 
 struct Fq {
     uint32_t v[FP_LIMBS];
-};
-
-struct Fq2 {
-    Fq c0, c1;
 };
 
 // ---------------------------------------------------------------------------
@@ -683,39 +678,3 @@ FP_WD void fq_reduce_split(FqSlice<FP_LIMBS / T>& r, const FqSlice<FP_LIMBS / T>
 }
 
 #endif  // __CUDACC__ || FP_WARP_FUNCTIONS
-
-// ---------------------------------------------------------------------------
-// Fq2
-// ---------------------------------------------------------------------------
-
-FP_HD void fq2_add(Fq2& r, const Fq2& a, const Fq2& b) {
-    fq_add(r.c0, a.c0, b.c0);
-    fq_add(r.c1, a.c1, b.c1);
-}
-
-FP_HD void fq2_sub(Fq2& r, const Fq2& a, const Fq2& b) {
-    fq_sub(r.c0, a.c0, b.c0);
-    fq_sub(r.c1, a.c1, b.c1);
-}
-
-// Karatsuba: 3 Fq products.
-FP_HD void fq2_mul(Fq2& r, const Fq2& a, const Fq2& b) {
-    Fq v0, v1, sa, sb, s;
-    fq_mul(v0, a.c0, b.c0);
-    fq_mul(v1, a.c1, b.c1);
-    fq_add(sa, a.c0, a.c1);
-    fq_add(sb, b.c0, b.c1);
-    fq_mul(s, sa, sb);
-    fq_sub(r.c0, v0, v1);
-    fq_sub(s, s, v0);
-    fq_sub(r.c1, s, v1);
-}
-
-// ---------------------------------------------------------------------------
-// Overloads that let one field-op template serve Fq and Fq2.
-// ---------------------------------------------------------------------------
-
-FP_HD void fadd(Fq& r, const Fq& a, const Fq& b) { fq_add(r, a, b); }
-FP_HD void fadd(Fq2& r, const Fq2& a, const Fq2& b) { fq2_add(r, a, b); }
-FP_HD void fsub(Fq& r, const Fq& a, const Fq& b) { fq_sub(r, a, b); }
-FP_HD void fsub(Fq2& r, const Fq2& a, const Fq2& b) { fq2_sub(r, a, b); }

@@ -8,9 +8,10 @@
 //     with no transpose, 16 bytes at a time.
 //
 // Each kernel replaces one Pallas body of charon_tpu/ops/pallas_plane.py:
-//   fe_mul<E>    -> _kern_mul    (Montgomery product; E=2 Karatsuba)
-//   fe_add<E>    -> _kern_addp   ((a + b) mod p per component)
-//   fe_sub<E>    -> _kern_sub    ((a - b) mod p per component; also -a)
+//   fe_mul<E>    -> _kern_mul    (Montgomery product; E=2 Karatsuba), a
+//                   level of independent products a launch
+//   fe_addsub    -> _kern_addp and _kern_sub ((a + b) or (a - b) mod p per
+//                   component; also -b), a level of them a launch
 //   pt_double<E> -> _kern_double (Jacobian dbl-2009-l, a = 0)
 //   pt_add<E>    -> _kern_add    (unified add with its selects)
 //   fe_mul_rows<E> -> _kern_mul as launched by _mont_rows_call (rows; E = 2
@@ -33,7 +34,7 @@
 // 132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7 T/s, from the Hopper white
 // paper's SM and the data sheet's boost clock; a 32x32->64-bit limb product
 // counts as 2 of them):
-//   fe_add / fe_sub: 3 x 48 B per Fq component moved, ~40 integer ops — bytes.
+//   fe_addsub: 3 x 48 B per Fq component moved, ~40 integer ops — bytes.
 //   fe_mul<1>: 144 B moved against 2 x 144 limb products = 576 multiply-adds
 //     — bytes, by 1.25x; fe_mul<2>: 288 B against 3 x 576 — operations, 1.2x.
 //   pt_double<1> / pt_add<1>: 6 or 9 x 48 B moved against 5 or 4 Fq squares
@@ -51,10 +52,11 @@
 // against ~36 integer ops, bound by bytes. At the pairing's widths (3-2,304
 // Fq2 products, 108-6,912 rows) each launch is a few dozen warps: latency-
 // and launch-bound like the rest (see "Rows kernels" below).
-// The field kernels run one thread per element in blocks of 128: at the
-// slot's widths (1,024-12,288 elements, 8-96 blocks, so at 4,096 elements
-// 32 blocks on 32 of the 132 SMs) each is far below either bound, latency-
-// and launch-bound. The point kernels were built the same way at first, and
+// The plane field kernels ran one thread per element at first: at the
+// slot's widths (1,024-12,288 elements) far below either bound, latency-
+// and launch-bound, one launch per operation. They now take a level of
+// independent operations a launch, each product split over lanes (see "The
+// plane field kernels" below). The point kernels were built the same way at first, and
 // one thread walking a whole formula waited through its 16 or 44 dependent
 // Fq products (~2.4 us each); they now give each point a group of G threads
 // that runs the formula as levels of independent Fq operations
@@ -75,17 +77,6 @@
 namespace {
 
 constexpr int kBlock = 128;
-
-template <int E>
-struct FieldOf;
-template <>
-struct FieldOf<1> {
-    typedef Fq T;
-};
-template <>
-struct FieldOf<2> {
-    typedef Fq2 T;
-};
 
 enum Layout { kPlane, kRows };
 
@@ -121,11 +112,6 @@ __device__ __forceinline__ void load(Fq& x, const uint32_t* b, long long n, long
     for (int j = 0; j < FP_LIMBS; ++j) x.v[j] = b[(long long)j * n + i];
 }
 
-__device__ __forceinline__ void load(Fq2& x, const uint32_t* b, long long n, long long i) {
-    load(x.c0, b, n, i);
-    load(x.c1, b + FP_LIMBS * n, n, i);
-}
-
 template <Layout L = kPlane>
 __device__ __forceinline__ void store(uint32_t* b, const Fq& x, long long n, long long i) {
     if (L == kRows) {
@@ -135,14 +121,6 @@ __device__ __forceinline__ void store(uint32_t* b, const Fq& x, long long n, lon
 #pragma unroll
     for (int j = 0; j < FP_LIMBS; ++j) b[(long long)j * n + i] = x.v[j];
 }
-
-__device__ __forceinline__ void store(uint32_t* b, const Fq2& x, long long n, long long i) {
-    store(b, x.c0, n, i);
-    store(b + FP_LIMBS * n, x.c1, n, i);
-}
-
-__device__ __forceinline__ void mul_inline(Fq& r, const Fq& a, const Fq& b) { fq_mul(r, a, b); }
-__device__ __forceinline__ void mul_inline(Fq2& r, const Fq2& a, const Fq2& b) { fq2_mul(r, a, b); }
 
 // r = this lane's limbs of x * y, y given as this lane's limbs (fp.cuh
 // fq_mul_split; T = 1 fq_mul)
@@ -165,47 +143,207 @@ __device__ __forceinline__ long long element() {
     return (long long)blockIdx.x * blockDim.x + threadIdx.x;
 }
 
-// Replaces _kern_mul (charon_tpu/ops/pallas_plane.py:458): a*b*R^-1 mod p,
-// CIOS for E=1, Karatsuba for E=2. Bound: bytes (E=1) / operations (E=2).
-template <int E>
-__global__ void __launch_bounds__(kBlock) fe_mul_kernel(const uint32_t* a, const uint32_t* b,
-                                                        uint32_t* o, long long n) {
-    const long long i = element();
-    if (i >= n) return;
-    typename FieldOf<E>::T x, y, r;
-    load(x, a, n, i);
-    load(y, b, n, i);
-    mul_inline(r, x, y);
-    store(o, r, n, i);
+// ---------------------------------------------------------------------------
+// The plane field kernels: a level of independent operations a launch
+// ---------------------------------------------------------------------------
+//
+// fe_mul<E> replaces _kern_mul (charon_tpu/ops/pallas_plane.py:458, through
+// _mul_call :657): a*b*R^-1 mod p, CIOS for E = 1, Karatsuba for E = 2.
+// fe_addsub replaces _kern_addp (:452, through _addp_call :559) and _kern_sub
+// (:446, through _sub_call :531): (a + b) or (a - b) mod p per component, and
+// -b as 0 - b (the reference's fe_neg), on one branch-free path (fq_addsub
+// with its sign), so the threads of a level that mixes them do not diverge.
+//
+// A launch takes a level: up to kLevelSegs segments of one kind and one E,
+// each its own a, b, o, element count n and limb strides, passed by value as
+// a __grid_constant__ struct (a struct indexed at run time would otherwise go
+// to a local stack). Limb j of component e of element i of an operand sits at
+// [(e * 12 + j) * ld + i], so a lane slice of a wider plane (roots[..., :n])
+// or one component of an Fq2 plane is read and written in place. The blocks
+// map to segments through a prefix of block counts (FeLevel::first): no block
+// straddles two segments, so every block finds its segment by the same few
+// uniform compares. A segment's output may be its own input, not another
+// segment's.
+//
+// What bounds them at the slot's widths (1,024-12,288 elements a level): not
+// the card's rates (fe_mul<1>: 144 B against 576 multiply-adds an element,
+// bytes by 1.25x; fe_mul<2>: 288 B against 3 x 576, operations by 1.2x;
+// fe_addsub: bytes) but latency: a launch, the loads, and one product's chain
+// on as many warps as the level has. One thread an Fq product (fq_mul,
+// ~1,320 instructions, PERF.md) put 8 blocks of 128 threads on the 132 SMs at
+// 1,024 elements, one warp issuing a whole product on each of 32 SM
+// sub-partitions. Here a level fills more of the card and waits through a
+// shorter chain:
+//   E = 1: a product split over kFeMul1Lanes = T = 4 lanes (fp.cuh
+//     fq_mul_split<T>, as fe_pow's) up to kFeMul1SplitMax = 8,192 elements
+//     a level; past it one thread a product (with every SM busy the split's
+//     extra instructions cost more than its shorter chain saves: at 12,288
+//     elements 4.4 against 3.6 us; T = 2 was slower than one thread at every
+//     width).
+//   E = 2: the three Karatsuba products on four teams of kFeMul2Lanes = T
+//     lanes each (fe_mul_rows<2> runs T = 1): team 0 v0 = a0*b0, 1 v1 =
+//     a1*b1, 2 and 3 s = (a0 + a1)(b0 + b1); v0 and v1 are shuffled to the
+//     product's lanes, team 0 stores c0 = v0 - v1 and team 2 c1 = s - v0 -
+//     v1, each lane of a team its 12/T limbs. T = 4 (16 lanes a product) up
+//     to kFeMul2SplitMax = 1,024 elements, T = 1 past it: at 1,024 elements
+//     3.7 against 4.1 us, at 4,096 5.2 against 4.1 (PERF.md).
+// Every lane of a warp reaches each shuffle and ballot: a group past n runs
+// on element n - 1 and stores nothing, and a warp wholly past n leaves at
+// once. Loads and stores stay coalesced: neighbouring groups of lanes on
+// neighbouring elements of a limb row. Every output word is canonical, the
+// plain versions' (ops/field.py fe_*_plain, segment by segment).
+constexpr int kFeBlock = 128;
+constexpr int kFeMul1Lanes = 4;
+constexpr int kFeMul1SplitMax = 8192;
+constexpr int kFeMul2Lanes = 4;
+constexpr int kFeMul2SplitMax = 1024;
+constexpr int kLevelSegs = 8;
+
+// One segment as the C interface takes it (cuda_plane.FeSeg): op 0 adds, 1
+// subtracts (fe_mul ignores it); a null a reads 0.
+struct FeSeg {
+    const uint32_t* a;
+    const uint32_t* b;
+    uint32_t* o;
+    long long n, lda, ldb, ldo;
+    int op;
+};
+
+struct FeLevel {
+    FeSeg s[kLevelSegs];
+    unsigned first[kLevelSegs];  // the segment's first block
+    int count;
+};
+
+__device__ __forceinline__ int level_segment(const FeLevel& L) {
+    int s = 0;
+#pragma unroll 1
+    for (int k = 1; k < L.count; ++k)
+        if (blockIdx.x >= L.first[k]) s = k;
+    return s;
 }
 
-// Replaces _kern_addp (pallas_plane.py:452): (a + b) mod p per component.
-// Bound: bytes.
-template <int E>
-__global__ void __launch_bounds__(kBlock) fe_add_kernel(const uint32_t* a, const uint32_t* b,
-                                                        uint32_t* o, long long n) {
-    const long long i = element();
-    if (i >= n) return;
-    typename FieldOf<E>::T x, y, r;
-    load(x, a, n, i);
-    load(y, b, n, i);
-    fadd(r, x, y);
-    store(o, r, n, i);
+// element i of a strided Fq operand: limb j at [j * ld + i]
+__device__ __forceinline__ void load_ld(Fq& x, const uint32_t* b, long long ld, long long i) {
+#pragma unroll
+    for (int j = 0; j < FP_LIMBS; ++j) x.v[j] = b[(long long)j * ld + i];
 }
 
-// Replaces _kern_sub (pallas_plane.py:446): (a - b) mod p per component
-// (fe_neg is fe_sub from 0). Bound: bytes.
-template <int E>
-__global__ void __launch_bounds__(kBlock) fe_sub_kernel(const uint32_t* a, const uint32_t* b,
-                                                        uint32_t* o, long long n) {
-    const long long i = element();
-    if (i >= n) return;
-    typename FieldOf<E>::T x, y, r;
-    load(x, a, n, i);
-    load(y, b, n, i);
-    fsub(r, x, y);
-    store(o, r, n, i);
+__device__ __forceinline__ void store_ld(uint32_t* b, const Fq& x, long long ld, long long i) {
+#pragma unroll
+    for (int j = 0; j < FP_LIMBS; ++j) b[(long long)j * ld + i] = x.v[j];
 }
+
+// this lane's W = 12 / T limbs of x: limbs W * lane .. W * lane + W - 1
+template <int T>
+__device__ __forceinline__ void store_slice_ld(uint32_t* b, const FqSlice<FP_LIMBS / T>& x,
+                                               int lane, long long ld, long long i) {
+    constexpr int W = FP_LIMBS / T;
+#pragma unroll
+    for (int j = 0; j < W; ++j) b[(long long)(W * lane + j) * ld + i] = x.v[j];
+}
+
+__device__ __forceinline__ void pick(Fq& r, bool c, const Fq& x, const Fq& y) {
+#pragma unroll
+    for (int j = 0; j < FP_LIMBS; ++j) r.v[j] = c ? x.v[j] : y.v[j];
+}
+
+__device__ __forceinline__ void shfl(Fq& r, const Fq& x, int src) {
+#pragma unroll
+    for (int j = 0; j < FP_LIMBS; ++j) r.v[j] = __shfl_sync(0xffffffffu, x.v[j], src);
+}
+
+template <int E, int T>
+__global__ void __launch_bounds__(kFeBlock) fe_mul_kernel(const __grid_constant__ FeLevel L) {
+    static_assert(kFeBlock % 32 == 0, "whole warps");
+    // the segment read in place in the parameter space (a copy in registers
+    // was 37% slower at 1,024 elements a level on the H100: PERF.md)
+    const int seg = level_segment(L);
+    const FeSeg& g = L.s[seg];
+    const long long t = (long long)(blockIdx.x - L.first[seg]) * blockDim.x + threadIdx.x;
+    constexpr int G = E == 1 ? T : 4 * T;  // lanes a product
+    static_assert(32 % G == 0, "a product's lanes lie in one warp");
+    if constexpr (E == 1 && T == 1) {
+        if (t >= g.n) return;
+        Fq x, y, r;
+        load_ld(x, g.a, g.lda, t);
+        load_ld(y, g.b, g.ldb, t);
+        fq_mul(r, x, y);
+        store_ld(g.o, r, g.ldo, t);
+    } else {
+        constexpr int W = FP_LIMBS / T;
+        if ((t & ~31ll) / G >= g.n) return;
+        const long long me = t / G, i = me < g.n ? me : g.n - 1;
+        const int lane = threadIdx.x % T;
+        const FqGroup<T> grp = fq_group<T>(lane, threadIdx.x % 32 - lane);
+        Fq x;
+        FqSlice<W> ys, rs;
+        int team = 0;
+        if constexpr (E == 1) {
+            load_ld(x, g.a, g.lda, i);
+#pragma unroll
+            for (int j = 0; j < W; ++j) ys.v[j] = g.b[(long long)(W * lane + j) * g.ldb + i];
+        } else {
+            // teams 0, 1, 2-3: (a0, b0), (a1, b1), (a0 + a1, b0 + b1)
+            team = threadIdx.x % G / T;
+            Fq a0, a1, b0, b1, xa, xb, ya, yb, y, zero;
+            load_ld(a0, g.a, g.lda, i);
+            load_ld(a1, g.a + FP_LIMBS * g.lda, g.lda, i);
+            load_ld(b0, g.b, g.ldb, i);
+            load_ld(b1, g.b + FP_LIMBS * g.ldb, g.ldb, i);
+#pragma unroll
+            for (int j = 0; j < FP_LIMBS; ++j) zero.v[j] = 0;
+            pick(xa, team == 1, a1, a0);
+            pick(xb, team >= 2, a1, zero);
+            pick(ya, team == 1, b1, b0);
+            pick(yb, team >= 2, b1, zero);
+            fq_addsub(x, xa, xb, false);
+            fq_addsub(y, ya, yb, false);
+            fq_slice<T>(ys, y, grp);
+        }
+        mul_split<T>(rs, x, ys, grp);
+        if constexpr (E == 1) {
+            if (me < g.n) store_slice_ld<T>(g.o, rs, lane, g.ldo, i);
+        } else {
+            // v0 and v1 to every lane of the product
+            const int base = threadIdx.x % 32 / G * G;
+            Fq r, v0, v1, d, c;
+            fq_gather<T>(r, rs, grp);
+            shfl(v0, r, base);
+            shfl(v1, r, base + T);
+            pick(d, team == 0, v1, v0);
+            fq_addsub(d, r, d, true);      // team 0: c0 = v0 - v1; team 2: s - v0
+            fq_addsub(c, d, v1, true);     // team 2: c1 = s - v0 - v1
+            pick(c, team == 0, d, c);
+            fq_slice<T>(rs, c, grp);
+            if (me < g.n && (team == 0 || team == 2))
+                store_slice_ld<T>(g.o + (team / 2) * FP_LIMBS * g.ldo, rs, lane, g.ldo, i);
+        }
+    }
+}
+
+// Fq segments only: the launcher splits an Fq2 segment into its components.
+__global__ void __launch_bounds__(kFeBlock) fe_addsub_kernel(const __grid_constant__ FeLevel L) {
+    // the segment copied to registers (0.05-0.2 us faster a launch than read
+    // in place on the H100, where fe_mul runs the other way round: PERF.md)
+    const int seg = level_segment(L);
+    const FeSeg g = L.s[seg];
+    const long long i = (long long)(blockIdx.x - L.first[seg]) * blockDim.x + threadIdx.x;
+    if (i >= g.n) return;
+    Fq x, y, r;
+    if (g.a) {
+        load_ld(x, g.a, g.lda, i);
+    } else {
+#pragma unroll
+        for (int j = 0; j < FP_LIMBS; ++j) x.v[j] = 0;
+    }
+    load_ld(y, g.b, g.ldb, i);
+    fq_addsub(r, x, y, g.op != 0);
+    store_ld(g.o, r, g.ldo, i);
+}
+
+// The launch floor: an empty kernel, timed as the field kernels are.
+__global__ void empty_kernel() {}
 
 // ---------------------------------------------------------------------------
 // Point kernels: a group of G threads per point, P = kPoints points per block
@@ -554,16 +692,6 @@ __global__ void __launch_bounds__(G * kPoints) pt_add_kernel(const uint32_t* x1,
 // thread per Fq2 product, timed against this group on the H100, was slower
 // at 36 and 2,304 products: PERF.md).
 constexpr int kMulRowsG = 4;
-
-__device__ __forceinline__ void pick(Fq& r, bool c, const Fq& x, const Fq& y) {
-#pragma unroll
-    for (int j = 0; j < FP_LIMBS; ++j) r.v[j] = c ? x.v[j] : y.v[j];
-}
-
-__device__ __forceinline__ void shfl(Fq& r, const Fq& x, int src) {
-#pragma unroll
-    for (int j = 0; j < FP_LIMBS; ++j) r.v[j] = __shfl_sync(0xffffffffu, x.v[j], src);
-}
 
 template <int E>
 __global__ void __launch_bounds__(kBlock) fe_mul_rows_kernel(const uint32_t* a, const uint32_t* b,
@@ -1335,45 +1463,91 @@ int mul_windowed_launch(const void* x, const void* y, const void* z, void* ox, v
             x, y, z, ox, oy, oz, n, digits, n_win, s);
 }
 
+// The level's table: its segments, each one's first block at `lanes`
+// threads an element; returns the blocks of the launch.
+inline unsigned level_table(FeLevel& L, const FeSeg* segs, int count, int lanes) {
+    unsigned blocks = 0;
+    for (int k = 0; k < count; ++k) {
+        L.s[k] = segs[k];
+        L.first[k] = blocks;
+        blocks += (unsigned)((segs[k].n * lanes + kFeBlock - 1) / kFeBlock);
+    }
+    L.count = count;
+    return blocks;
+}
+
+inline bool level_ok(const FeSeg* segs, int count, bool need_a) {
+    if (!segs || count < 1 || count > kLevelSegs) return false;
+    for (int k = 0; k < count; ++k) {
+        const FeSeg& g = segs[k];
+        if (g.n <= 0 || g.ldb < g.n || g.ldo < g.n || !g.b || !g.o ||
+            (g.a ? g.lda < g.n : need_a))
+            return false;
+    }
+    return true;
+}
+
+template <int E, int T>
+int mul_level_launch(const FeSeg* segs, int count, cudaStream_t s) {
+    FeLevel L;
+    const unsigned blocks = level_table(L, segs, count, E == 1 ? T : 4 * T);
+    fe_mul_kernel<E, T><<<blocks, kFeBlock, 0, s>>>(L);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launchers: plain C interface for ctypes. Each launches on the caller's
 // stream, synchronises nothing, and returns cudaGetLastError() (0 = launched).
 extern "C" {
 
-int charon_fe_mul(int E, const void* a, const void* b, void* o, long long n, void* stream) {
-    if (n <= 0) return (int)cudaErrorInvalidValue;
+// A level of count <= kLevelSegs segments (FeSeg; every n >= 1, each
+// stride at least its n, a and b and o not null, at E = 2 component 1 at
+// [12 * ld]): fe_mul over them all in one launch, T lanes a product as the
+// level's width and E take them.
+// (The table arrives as void*: a parameter of a type in the unnamed
+// namespace would give the entry internal linkage.)
+int charon_fe_mul_level(int E, const void* table, int count, void* stream) {
+    const FeSeg* segs = (const FeSeg*)table;
+    if (!level_ok(segs, count, true)) return (int)cudaErrorInvalidValue;
+    long long total = 0;
+    for (int k = 0; k < count; ++k) total += segs[k].n;
     cudaStream_t s = (cudaStream_t)stream;
     if (E == 1)
-        fe_mul_kernel<1><<<grid_for(n), kBlock, 0, s>>>((In)a, (In)b, (Out)o, n);
-    else if (E == 2)
-        fe_mul_kernel<2><<<grid_for(n), kBlock, 0, s>>>((In)a, (In)b, (Out)o, n);
-    else
+        return total <= kFeMul1SplitMax ? mul_level_launch<1, kFeMul1Lanes>(segs, count, s)
+                                        : mul_level_launch<1, 1>(segs, count, s);
+    if (E == 2)
+        return total <= kFeMul2SplitMax ? mul_level_launch<2, kFeMul2Lanes>(segs, count, s)
+                                        : mul_level_launch<2, 1>(segs, count, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// fe_addsub over a level: segment k adds (op 0) or subtracts (op 1), a null
+// a reads 0; an Fq2 segment runs as its two components, so count * E <=
+// kLevelSegs.
+int charon_fe_addsub_level(int E, const void* table, int count, void* stream) {
+    const FeSeg* segs = (const FeSeg*)table;
+    if ((E != 1 && E != 2) || count * E > kLevelSegs || !level_ok(segs, count, false))
         return (int)cudaErrorInvalidValue;
+    FeSeg comps[kLevelSegs];
+    for (int k = 0; k < count; ++k)
+        for (int e = 0; e < E; ++e) {
+            FeSeg c = segs[k];
+            if (c.op != 0 && c.op != 1) return (int)cudaErrorInvalidValue;
+            if (c.a) c.a += e * FP_LIMBS * c.lda;
+            c.b += e * FP_LIMBS * c.ldb;
+            c.o += e * FP_LIMBS * c.ldo;
+            comps[k * E + e] = c;
+        }
+    FeLevel L;
+    const unsigned blocks = level_table(L, comps, count * E, 1);
+    fe_addsub_kernel<<<blocks, kFeBlock, 0, (cudaStream_t)stream>>>(L);
     return (int)cudaGetLastError();
 }
 
-int charon_fe_add(int E, const void* a, const void* b, void* o, long long n, void* stream) {
-    if (n <= 0) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (E == 1)
-        fe_add_kernel<1><<<grid_for(n), kBlock, 0, s>>>((In)a, (In)b, (Out)o, n);
-    else if (E == 2)
-        fe_add_kernel<2><<<grid_for(n), kBlock, 0, s>>>((In)a, (In)b, (Out)o, n);
-    else
-        return (int)cudaErrorInvalidValue;
-    return (int)cudaGetLastError();
-}
-
-int charon_fe_sub(int E, const void* a, const void* b, void* o, long long n, void* stream) {
-    if (n <= 0) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (E == 1)
-        fe_sub_kernel<1><<<grid_for(n), kBlock, 0, s>>>((In)a, (In)b, (Out)o, n);
-    else if (E == 2)
-        fe_sub_kernel<2><<<grid_for(n), kBlock, 0, s>>>((In)a, (In)b, (Out)o, n);
-    else
-        return (int)cudaErrorInvalidValue;
+// One empty kernel: the launch floor.
+int charon_empty(void* stream) {
+    empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
     return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,12 @@ Kernels (ops/csrc/plane_kernels.cu, sm_90a, over `(E, 12, n)` int32 limb
 planes — see ops/field.py for the layout — or over `(n, 12)` rows, see
 ops/rows.py):
 
-    fe_mul, fe_add, fe_sub                        for E in {1, 2}, a thread per element
+    fe_mul                                        for E in {1, 2}, a level of independent
+                                                  products a launch: E = 1 each split over a
+                                                  group of lanes up to a width, E = 2 the
+                                                  three Karatsuba products on their own lanes
+    fe_addsub                                     a level of adds, subs and negations (0 − b)
+                                                  a launch, a thread per Fq component
     pt_double, pt_add                             for E in {1, 2}, a group of threads
                                                   per point (ops/point_schedule.py)
     fe_mul_rows                                   rows: E = 1 a thread per row; E = 2
@@ -38,6 +43,12 @@ Wrappers check device, dtype, shape and contiguity and raise on anything
 else. A CPU tensor runs the kernel's plain version (ops/field.py,
 ops/curve.py) and counts a plain call; a CUDA tensor launches the kernel on
 the current stream and counts a launch — or raises: there is no fallback.
+The field kernels take a level (`mul_level`, `addsub_level`): up to
+LEVEL_SEGS independent operations of one kind and one E, each on its own
+(E, 12, n) views whose lanes are contiguous and whose limb rows may be a
+wider plane's (a lane slice, or one component of an Fq2 plane), read and
+written in place; one launch, or one plain call on the CPU. `fe_mul`,
+`fe_add`, `fe_sub` and `fe_neg` are levels of one operation.
 
 Composites: `pow_scan` (_pow_scan :593) is one fe_pow launch, `shared_mul`
 (_shared_mul_call :625, and the cofactor clear of h2c._clear_cofactor) one
@@ -114,9 +125,9 @@ _lib: list = []
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _ARGS = {
-    "charon_fe_mul": [ctypes.c_int, _VP, _VP, _VP, _LL, _VP],
-    "charon_fe_add": [ctypes.c_int, _VP, _VP, _VP, _LL, _VP],
-    "charon_fe_sub": [ctypes.c_int, _VP, _VP, _VP, _LL, _VP],
+    "charon_fe_mul_level": [ctypes.c_int, _VP, ctypes.c_int, _VP],
+    "charon_fe_addsub_level": [ctypes.c_int, _VP, ctypes.c_int, _VP],
+    "charon_empty": [_VP],
     "charon_pt_double": [ctypes.c_int] + [_VP] * 6 + [_LL, _VP],
     "charon_pt_add": [ctypes.c_int] + [_VP] * 9 + [_LL, _VP],
     "charon_fe_mul_rows": [_VP, _VP, _VP, _LL, ctypes.c_int, _VP],
@@ -160,10 +171,13 @@ def build(force: bool = False) -> str:
         return LIB_PATH
 
 
-def bind(path: str) -> ctypes.CDLL:
-    """Load a built library and declare its C interface."""
+def bind(path: str, strict: bool = True) -> ctypes.CDLL:
+    """Load a built library and declare its C interface; strict=False skips
+    the launchers it lacks (an older tree's, for an A/B)."""
     lib = ctypes.CDLL(path)
     for name, argtypes in _ARGS.items():
+        if not strict and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -209,7 +223,9 @@ class Kernel:
         self.plain_calls = {E: 0 for E in self.variants}
         self.widths = collections.Counter()     # launches by (E, width)
         # calls (launches, or plain calls on the CPU) by (variant, width,
-        # extra): fe_add_rows' calls that subtract by (1, rows, n_add),
+        # extra): the field levels by (E, total width, the segments' widths
+        # (fe_mul) or (operation, width) pairs (fe_addsub)), fe_add_rows'
+        # calls that subtract by (1, rows, n_add),
         # fe_pow's by (layout, width, digits), pt_mul_shared's by (E, width,
         # k), pt_mul_windowed's by (E, width, windows)
         self.cases = collections.Counter()
@@ -217,8 +233,9 @@ class Kernel:
 
 KERNELS = {
     "fe_mul": Kernel("fe_mul", "charon_tpu/ops/pallas_plane.py:458"),        # _kern_mul
-    "fe_add": Kernel("fe_add", "charon_tpu/ops/pallas_plane.py:452"),        # _kern_addp
-    "fe_sub": Kernel("fe_sub", "charon_tpu/ops/pallas_plane.py:446"),        # _kern_sub
+    # _kern_addp and _kern_sub (fe_neg is 0 − b), one site an operation
+    "fe_addsub": Kernel("fe_addsub", {"add": "charon_tpu/ops/pallas_plane.py:452",
+                                      "sub": "charon_tpu/ops/pallas_plane.py:446"}),
     "pt_double": Kernel("pt_double", "charon_tpu/ops/pallas_plane.py:433"),  # _kern_double
     "pt_add": Kernel("pt_add", "charon_tpu/ops/pallas_plane.py:439"),        # _kern_add
     # _kern_mul as _mont_rows_call launches it (its pallas_call at :982);
@@ -307,33 +324,145 @@ def launch_rows(name: str, a: torch.Tensor, b: torch.Tensor, E: int, args=()) ->
     return out
 
 
+# ---------------------------------------------------------------------------
+# The field kernels: a level of independent operations a launch
+# ---------------------------------------------------------------------------
+
+LEVEL_SEGS = 8          # segments a level (kLevelSegs); an Fq2 add/sub takes two
+ADDSUB_OPS = {"add": 0, "sub": 1, "neg": 1}     # neg: 0 − b, no a
+
+
+class FeSeg(ctypes.Structure):
+    """One segment of a level, as charon_fe_*_level take it: limb j of
+    component e of element i of an operand at word [(e·12 + j)·ld + i]."""
+
+    _fields_ = [("a", _VP), ("b", _VP), ("o", _VP), ("n", _LL), ("lda", _LL), ("ldb", _LL),
+                ("ldo", _LL), ("op", ctypes.c_int)]
+
+
+def _operand(t: torch.Tensor, E: int, n: int | None, device) -> int:
+    """Check one operand view of a level; returns its limb stride."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"planes must be int32, got {t.dtype}")
+    if t.dim() != 3 or t.shape[0] != E or t.shape[1] != LIMBS or t.shape[2] < 1:
+        raise ValueError(f"expected an ({E}, {LIMBS}, n) plane, got {tuple(t.shape)}")
+    if n is not None and t.shape[2] != n:
+        raise ValueError(f"plane widths differ: {t.shape[2]} vs {n}")
+    if device is not None and t.device != device:
+        raise ValueError("planes are on different devices")
+    ld = t.stride(1)
+    if t.stride(2) != 1 or ld < t.shape[2] or (E == 2 and t.stride(0) != LIMBS * ld):
+        raise ValueError(f"planes must be contiguous along the lanes, limb rows at least a "
+                         f"row apart and Fq2 components 12 rows apart: strides {t.stride()}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return ld
+
+
+def level_args(kind: str, ops, E: int, outs):
+    """Check a level [(op, a, b)] (op None for fe_mul; a None for a
+    negation) and its outputs (None: new planes); returns (device, the
+    segment table, the outputs, the case key)."""
+    if E not in (1, 2):
+        raise ValueError(f"E must be 1 or 2, got {E}")
+    if not 1 <= len(ops) * (E if kind == "fe_addsub" else 1) <= LEVEL_SEGS:
+        raise ValueError(f"a level holds 1 to {LEVEL_SEGS} Fq{'' if E == 1 else '2'} segments "
+                         f"of {kind}, got {len(ops)}")
+    outs = list(outs) if outs is not None else [None] * len(ops)
+    if len(outs) != len(ops):
+        raise ValueError("one output a segment")
+    device, segs = None, []
+    for k, (op, a, b) in enumerate(ops):
+        if kind == "fe_addsub" and op not in ADDSUB_OPS:
+            raise ValueError(f"operation must be one of {tuple(ADDSUB_OPS)}, got {op!r}")
+        if (a is None) != (op == "neg"):
+            raise ValueError("a negation takes b alone, every other operation a and b")
+        ldb = _operand(b, E, None, device)
+        device, n = b.device, b.shape[2]
+        lda = _operand(a, E, n, device) if a is not None else ldb
+        if outs[k] is None:
+            outs[k] = torch.empty((E, LIMBS, n), dtype=torch.int32, device=device)
+        ldo = _operand(outs[k], E, n, device)
+        segs.append((a, b, outs[k], n, lda, ldb, ldo, ADDSUB_OPS.get(op, 0)))
+    shape = tuple(s[3] for s in segs) if kind == "fe_mul" else \
+        tuple((op, s[3]) for (op, _a, _b), s in zip(ops, segs))
+    return device, segs, outs, (E, sum(s[3] for s in segs), shape)
+
+
+def level_table(segs) -> ctypes.Array:
+    """The ctypes segment table of a checked level."""
+    return (FeSeg * len(segs))(*[
+        FeSeg(a.data_ptr() if a is not None else None, b.data_ptr(), o.data_ptr(), n, lda, ldb,
+              ldo, op) for a, b, o, n, lda, ldb, ldo, op in segs])
+
+
+def call_level(lib: ctypes.CDLL, kind: str, E: int, segs) -> None:
+    """Launch charon_<kind>_level of a bound library over a checked level's
+    CUDA segments on the current stream of their device, without counting."""
+    with torch.cuda.device(segs[0][1].device):
+        rc = getattr(lib, f"charon_{kind}_level")(E, level_table(segs), len(segs),
+                                                 torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {kind}<{E}> did not launch: error {rc}")
+
+
+def level_plain(op, a, b, E: int) -> torch.Tensor:
+    """One segment's plain version: the product (op None), (a + b), (a − b)
+    or −b (a None) mod p per component."""
+    a = torch.zeros_like(b) if a is None else a.contiguous()
+    if op is None:
+        return F.fe_mul_plain(a, b.contiguous(), E)
+    return (F.fe_add_plain if op == "add" else F.fe_sub_plain)(a, b.contiguous(), E)
+
+
+def _run_level(kind: str, ops, E: int, outs) -> list:
+    device, segs, outs, key = level_args(kind, ops, E, outs)
+    kern = KERNELS[kind]
+    kern.cases[key] += 1
+    if device.type == "cpu":
+        kern.plain_calls[E] += 1
+        for (op, a, b), o in zip(ops, outs):
+            o.copy_(level_plain(op, a, b, E))
+        return outs
+    call_level(_library(), kind, E, segs)
+    kern.launches[E] += 1
+    kern.widths[E, key[1]] += 1
+    return outs
+
+
+def mul_level(ops, E: int, outs=None) -> list:
+    """a·b·R⁻¹ mod p for each (a, b) of a level of independent products over
+    (E, 12, n) Montgomery views (E = 2: Fq2): one fe_mul launch (a plain
+    call on the CPU). `outs`, where given, holds each segment's output view
+    (None: a new plane). Returns the outputs."""
+    return _run_level("fe_mul", [(None, a, b) for a, b in ops], E, outs)
+
+
+def addsub_level(ops, E: int, outs=None) -> list:
+    """A level of independent (op, a, b): "add" (a + b) mod p, "sub" (a − b)
+    mod p, "neg" −b mod p (a None), per component: one fe_addsub launch (a
+    plain call on the CPU). Returns the outputs."""
+    return _run_level("fe_addsub", ops, E, outs)
+
+
 def fe_mul(a: torch.Tensor, b: torch.Tensor, E: int) -> torch.Tensor:
     """a·b·R⁻¹ mod p over (E, 12, n) Montgomery planes (E=2: Fq2)."""
-    if _check((a, b), E).type == "cpu":
-        KERNELS["fe_mul"].plain_calls[E] += 1
-        return F.fe_mul_plain(a, b, E)
-    return _launch("fe_mul", E, (a, b), 1)[0]
+    return mul_level([(a, b)], E)[0]
 
 
 def fe_add(a: torch.Tensor, b: torch.Tensor, E: int) -> torch.Tensor:
     """(a + b) mod p per component."""
-    if _check((a, b), E).type == "cpu":
-        KERNELS["fe_add"].plain_calls[E] += 1
-        return F.fe_add_plain(a, b, E)
-    return _launch("fe_add", E, (a, b), 1)[0]
+    return addsub_level([("add", a, b)], E)[0]
 
 
 def fe_sub(a: torch.Tensor, b: torch.Tensor, E: int) -> torch.Tensor:
     """(a − b) mod p per component."""
-    if _check((a, b), E).type == "cpu":
-        KERNELS["fe_sub"].plain_calls[E] += 1
-        return F.fe_sub_plain(a, b, E)
-    return _launch("fe_sub", E, (a, b), 1)[0]
+    return addsub_level([("sub", a, b)], E)[0]
 
 
 def fe_neg(a: torch.Tensor, E: int) -> torch.Tensor:
-    """−a mod p, as the reference: fe_sub(0, a)."""
-    return fe_sub(torch.zeros_like(a), a, E)
+    """−a mod p, as the reference's fe_sub(0, a), with no zeros plane."""
+    return addsub_level([("neg", None, a)], E)[0]
 
 
 def pt_double(X, Y, Z, E: int):

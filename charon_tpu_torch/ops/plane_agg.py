@@ -176,28 +176,21 @@ def const_plane(vals: tuple, E: int, n: int, device, raw: bool = False) -> torch
     return t
 
 
-def pack(x: torch.Tensor) -> torch.Tensor:
-    """(E, 12, n) -> (1, 12, E·n): components side by side for one Fq pass."""
-    return x[0][None] if x.shape[0] == 1 else torch.cat([x[0], x[1]], -1)[None].contiguous()
-
-
-def unpack(x: torch.Tensor, E: int) -> torch.Tensor:
-    if E == 1:
-        return x
-    n = x.shape[-1] // 2
-    return torch.stack([x[0, :, :n], x[0, :, n:]]).contiguous()
-
-
 def to_mont(plane: torch.Tensor) -> torch.Tensor:
     """Raw standard-form Fq limbs (1, 12, n) -> Montgomery form: one product
     by R²."""
     return CP.fe_mul(plane, const_plane((F.R2_INT,), 1, plane.shape[-1], plane.device, raw=True), 1)
 
 
-def to_std(plane: torch.Tensor, E: int) -> torch.Tensor:
-    """Montgomery -> standard form: one Fq product by raw 1 per component."""
-    p = pack(plane)
-    return unpack(CP.fe_mul(p, const_plane((1,), 1, p.shape[-1], p.device, raw=True), 1), E)
+def to_std(*planes: torch.Tensor) -> list:
+    """Montgomery -> standard form of each (E, 12, n) plane: one Fq product
+    by raw 1 per component, every component of every plane in one level
+    (the reference packs an Fq2 plane's components onto the lanes)."""
+    one = const_plane((1,), 1, planes[0].shape[-1], planes[0].device, raw=True)
+    outs = [torch.empty_like(p) for p in planes]
+    CP.mul_level([(p[e:e + 1], one) for p in planes for e in range(p.shape[0])], 1,
+                 [o[e:e + 1] for o in outs for e in range(o.shape[0])])
+    return outs
 
 
 _HALF = F.limbs_from_int((PF.P - 1) // 2).astype(np.int64) & 0xFFFFFFFF
@@ -219,19 +212,18 @@ def gt_half_std(plane: torch.Tensor) -> torch.Tensor:
     return gt
 
 
-def gt_half(plane: torch.Tensor) -> torch.Tensor:
-    return gt_half_std(to_std(plane, 1))
-
-
 def _all(mask: torch.Tensor) -> torch.Tensor:
     """(E, 12, n) bool -> (n,): true in every component and limb."""
     return mask.all(0).all(0)
 
 
-def fq_sqrt(a: torch.Tensor):
-    """Batched Fq sqrt candidate s = a^((p+1)/4) and its validity s² == a."""
+def fq_sqrt(a: torch.Tensor, more=()):
+    """Batched Fq sqrt candidate s = a^((p+1)/4) and its validity s² == a;
+    the check's product shares its level with s·m for each m in `more`.
+    Returns (s, ok, [s·m ...])."""
     s = CP.pow_scan(a, _EXP["sqrt"])
-    return s, _all(CP.fe_mul(s, s, 1) == a)
+    sq, *rest = CP.mul_level([(s, s)] + [(s, m) for m in more], 1)
+    return s, _all(sq == a), rest
 
 
 def _sel(mask: torch.Tensor, a: torch.Tensor, b) -> torch.Tensor:
@@ -251,13 +243,14 @@ def g1_decompress(Xr, sgn, lmask):
     xsq = CP.fe_mul(X, X, 1)
     xcube = CP.fe_mul(xsq, X, 1)
     y2 = CP.fe_add(xcube, const_plane((B_G1,), 1, n, X.device), 1)
-    y, ok = fq_sqrt(y2)
-    flip = (gt_half(y).to(torch.int32) != sgn) & lmask
+    # the root's standard form (for its sign) beside the check s² == y2
+    y, ok, (ystd,) = fq_sqrt(y2, [const_plane((1,), 1, n, X.device, raw=True)])
+    flip = (gt_half_std(ystd).to(torch.int32) != sgn) & lmask
     Y = _sel(flip, CP.fe_neg(y, 1), y)
     Y = _sel(lmask, Y, 0)
     X = _sel(lmask, X, 0)
     Z = _sel(lmask, const_plane((1,), 1, n, X.device), 0)
-    return X.contiguous(), Y.contiguous(), Z.contiguous(), ok | ~lmask
+    return X, Y, Z, ok | ~lmask
 
 
 def g2_decompress(X0r, X1r, sgn, lmask):
@@ -265,55 +258,57 @@ def g2_decompress(X0r, X1r, sgn, lmask):
     root by the complex method, branchless over the plane: one (p−3)/4 power
     scan serves the three candidates (δ+, δ−, −c0) and also yields 1/y0; the
     c1 == 0 fallback candidate is (0, sqrt(−c0)); the sign is lexicographic,
-    and its flip negates both components in one Fq2 pass."""
-    X0 = to_mont(X0r)
-    X1 = to_mont(X1r)
-    n = X0.shape[-1]
-    dev = X0.device
-    X = torch.cat([X0, X1], 0)
+    and its flip negates both components in one Fq2 pass. Independent
+    operations share a level: one launch each."""
+    n = X0r.shape[-1]
+    dev = X0r.device
+    X = torch.empty((2, LIMBS, n), dtype=torch.int32, device=dev)
+    r2 = const_plane((F.R2_INT,), 1, n, dev, raw=True)
+    CP.mul_level([(X0r, r2), (X1r, r2)], 1, [X[0:1], X[1:2]])
     Xsq = CP.fe_mul(X, X, 2)
     Xcb = CP.fe_mul(Xsq, X, 2)
     y2 = CP.fe_add(Xcb, const_plane(B_G2, 2, n, dev), 2)
     c0, c1 = y2[0:1], y2[1:2]
 
-    norm = CP.fe_add(CP.fe_mul(c0, c0, 1), CP.fe_mul(c1, c1, 1), 1)
-    alpha, _ = fq_sqrt(norm)
+    norm = CP.fe_add(*CP.mul_level([(c0, c0), (c1, c1)], 1), 1)
+    alpha = CP.pow_scan(norm, _EXP["sqrt"])
     inv2 = const_plane(((PF.P + 1) // 2,), 1, n, dev)
-    delta_p = CP.fe_mul(CP.fe_add(c0, alpha, 1), inv2, 1)
-    delta_m = CP.fe_mul(CP.fe_sub(c0, alpha, 1), inv2, 1)
-    neg_c0 = CP.fe_neg(c0, 1)
-    packed = torch.cat([delta_p, delta_m, neg_c0], -1)
+    # the candidates δ+ = (c0 + α)/2, δ− = (c0 − α)/2 and −c0 side by side
+    packed = torch.empty((1, LIMBS, 3 * n), dtype=torch.int32, device=dev)
+    delta_p, delta_m, neg_c0 = packed[..., :n], packed[..., n:2 * n], packed[..., 2 * n:]
+    c0pa, c0ma = CP.addsub_level([("add", c0, alpha), ("sub", c0, alpha), ("neg", None, c0)], 1,
+                                 [None, None, neg_c0])[:2]
+    c1h = CP.mul_level([(c0pa, inv2), (c0ma, inv2), (c1, inv2)], 1, [delta_p, delta_m, None])[2]
     s34 = CP.pow_scan(packed, _EXP["e34"])
     roots = CP.fe_mul(s34, packed, 1)
-    x0p, x0m, s2c = (roots[..., :n], roots[..., n:2 * n], roots[..., 2 * n:])
+    x0p, x0m, s2c = roots[..., :n], roots[..., n:2 * n], roots[..., 2 * n:]
     s_p, s_m = s34[..., :n], s34[..., n:2 * n]
-    x0p, x0m, s2c, s_p, s_m = (t.contiguous() for t in (x0p, x0m, s2c, s_p, s_m))
-    okp = _all(CP.fe_mul(x0p, x0p, 1) == delta_p)
+    # both candidates' s² (the one selected is the same words as the square
+    # of the selected s) and the fallback's check beside the δ+ check
+    x0psq, spsq, smsq, s2sq = CP.mul_level([(x0p, x0p), (s_p, s_p), (s_m, s_m), (s2c, s2c)], 1)
+    okp = _all(x0psq == delta_p)
     y0 = _sel(okp, x0p, x0m)
-    s_sel = _sel(okp, s_p, s_m)
-    y0inv = CP.fe_mul(y0, CP.fe_mul(s_sel, s_sel, 1), 1)
-    y1 = CP.fe_mul(CP.fe_mul(c1, inv2, 1), y0inv, 1)
+    y0inv = CP.fe_mul(y0, _sel(okp, spsq, smsq), 1)
+    y1 = CP.fe_mul(c1h, y0inv, 1)
 
-    m0 = CP.fe_mul(CP.fe_add(y0, y1, 1), CP.fe_sub(y0, y1, 1), 1)
-    m1 = CP.fe_mul(y0, y1, 1)
-    valid1 = _all(m0 == c0) & _all(CP.fe_add(m1, m1, 1) == c1)
-    s2sq = CP.fe_mul(s2c, s2c, 1)
-    c1zero = _all(c1 == 0)
-    valid2 = _all(CP.fe_neg(s2sq, 1) == c0) & c1zero
-    Y0 = _sel(valid1, y0, 0).contiguous()
-    Y1 = _sel(valid1, y1, s2c).contiguous()
+    ypy, ymy = CP.addsub_level([("add", y0, y1), ("sub", y0, y1)], 1)
+    m0, m1 = CP.mul_level([(ypy, ymy), (y0, y1)], 1)
+    m1x2, neg_s2sq = CP.addsub_level([("add", m1, m1), ("neg", None, s2sq)], 1)
+    valid1 = _all(m0 == c0) & _all(m1x2 == c1)
+    valid2 = _all(neg_s2sq == c0) & _all(c1 == 0)
+    Y = torch.cat([_sel(valid1, y0, 0), _sel(valid1, y1, s2c)], 0)
     ok = valid1 | valid2
 
-    y1nz = ~_all(Y1 == 0)
-    csign = torch.where(y1nz, gt_half(Y1), gt_half(Y0)).to(torch.int32)
+    ys = to_std(Y)[0]
+    csign = torch.where(~_all(Y[1:2] == 0), gt_half_std(ys[1:2]),
+                        gt_half_std(ys[0:1])).to(torch.int32)
     flip = (csign != sgn) & lmask
-    Y = torch.cat([Y0, Y1], 0)
     Y = _sel(flip, CP.fe_neg(Y, 2), Y)
 
-    Xp = _sel(lmask, X, 0).contiguous()
-    Yp = _sel(lmask, Y, 0).contiguous()
+    Xp = _sel(lmask, X, 0)
+    Yp = _sel(lmask, Y, 0)
     z0 = _sel(lmask, const_plane((1,), 1, n, dev), 0)
-    Z = torch.cat([z0, torch.zeros_like(z0)], 0).contiguous()
+    Z = torch.cat([z0, torch.zeros_like(z0)], 0)
     return Xp, Yp, Z, ok | ~lmask
 
 
@@ -342,17 +337,18 @@ def sweep_combine(X, Y, Z, digits, T: int, Wv: int):
 
 def g2_affine_std(X, Y, Z):
     """Jacobian G2 plane -> (standard-form affine x (2, 12, n), sign, inf):
-    1/z = conj(z)/|z|² with one p−2 power scan over the norm."""
+    1/z = conj(z)/|z|² with one p−2 power scan over the norm; independent
+    operations share a level."""
     z0, z1 = Z[0:1], Z[1:2]
-    norm = CP.fe_add(CP.fe_mul(z0, z0, 1), CP.fe_mul(z1, z1, 1), 1)
+    norm, nz1 = CP.addsub_level([("add", *CP.mul_level([(z0, z0), (z1, z1)], 1)),
+                                 ("neg", None, z1)], 1)
     ninv = CP.pow_scan(norm, _EXP["inv"])
-    zi = torch.cat([CP.fe_mul(z0, ninv, 1), CP.fe_mul(CP.fe_neg(z1, 1), ninv, 1)], 0)
+    zi = torch.empty_like(Z)
+    CP.mul_level([(z0, ninv), (nz1, ninv)], 1, [zi[0:1], zi[1:2]])
     zi2 = CP.fe_mul(zi, zi, 2)
-    zi3 = CP.fe_mul(zi2, zi, 2)
-    xa = CP.fe_mul(X, zi2, 2)
+    zi3, xa = CP.mul_level([(zi2, zi), (X, zi2)], 2)
     ya = CP.fe_mul(Y, zi3, 2)
-    xs = to_std(xa, 2)
-    ys = to_std(ya, 2)
+    xs, ys = to_std(xa, ya)
     inf = _all(Z == 0)
     y0s, y1s = ys[0:1], ys[1:2]
     y1nz = ~_all(y1s == 0)
@@ -406,17 +402,16 @@ def g1_endo_consts():
     raise RuntimeError("no beta/sign works for the G1 endomorphism")
 
 
-def jac_eq_mask(p, q, E: int) -> torch.Tensor:
-    """(n,) bool: per-element Jacobian equality (∞ == ∞, ∞ != finite)."""
+def jac_eq_mask(p, q, E: int, x1_by=None) -> torch.Tensor:
+    """(n,) bool: per-element Jacobian equality (∞ == ∞, ∞ != finite), in
+    three levels of products. With x1_by, p's X is X1·x1_by, its product in
+    the first level."""
     (X1, Y1, Z1), (X2, Y2, Z2) = p, q
-    z1z1 = CP.fe_mul(Z1, Z1, E)
-    z2z2 = CP.fe_mul(Z2, Z2, E)
-    lx = CP.fe_mul(X1, z2z2, E)
-    rx = CP.fe_mul(X2, z1z1, E)
-    z1c = CP.fe_mul(z1z1, Z1, E)
-    z2c = CP.fe_mul(z2z2, Z2, E)
-    ly = CP.fe_mul(Y1, z2c, E)
-    ry = CP.fe_mul(Y2, z1c, E)
+    first = CP.mul_level([(Z1, Z1), (Z2, Z2)] + ([(X1, x1_by)] if x1_by is not None else []), E)
+    z1z1, z2z2 = first[:2]
+    X1 = first[2] if x1_by is not None else X1
+    lx, rx, z1c, z2c = CP.mul_level([(X1, z2z2), (X2, z1z1), (z1z1, Z1), (z2z2, Z2)], E)
+    ly, ry = CP.mul_level([(Y1, z2c), (Y2, z1c)], E)
     eq = _all((lx == rx) & (ly == ry))
     inf1 = _all(Z1 == 0)
     inf2 = _all(Z2 == 0)
@@ -425,13 +420,14 @@ def jac_eq_mask(p, q, E: int) -> torch.Tensor:
 
 def g1_subgroup_ok(X, Y, Z) -> bool:
     """True iff every loaded element is in the r-subgroup (∞ passes):
-    phi(P) == [s·u²]P, with [u²]P by the shared-scalar double-and-add."""
+    phi(P) == [s·u²]P, with [u²]P by the shared-scalar double-and-add and
+    phi(P)'s product in the comparison's first level."""
     beta, sign = g1_endo_consts()
-    phiX = CP.fe_mul(X, const_plane((beta,), 1, X.shape[-1], X.device), 1)
     uX, uY, uZ = CP.shared_mul(X, Y, Z, PF.X_ABS * PF.X_ABS, 1)
     if sign < 0:
         uY = CP.fe_neg(uY, 1)
-    return bool(jac_eq_mask((phiX, Y, Z), (uX, uY, uZ), 1).all())
+    beta_plane = const_plane((beta,), 1, X.shape[-1], X.device)
+    return bool(jac_eq_mask((X, Y, Z), (uX, uY, uZ), 1, x1_by=beta_plane).all())
 
 
 def g1_plane(pks: list[bytes], Bp: int, device):

@@ -17,9 +17,14 @@ Phases, any failure exits non-zero:
   2. build   — nvcc for sm_90a from ops/csrc and the point schedules'
                header; build time, registers, spills.
   3. kernels — every kernel x E bit-equal to its plain version on seeded
-               inputs: the field kernels at the slot's widths (4096 G2
-               partials, 2048 combined MSM elements, 12288 packed Fq
-               elements) with the edges 0, 1, p-1; the point kernels at
+               inputs: the field kernels (fe_mul<E>, fe_addsub<E>, a level
+               of independent operations a launch) at FE_GATE's levels
+               (one element, ragged and strided segments, eight segments,
+               both sides of the products' split, add, sub and neg in one
+               level) with the edges 0, 1, p-1, R mod p in every segment,
+               and after the slot at every level (E, segment widths and
+               operations) that the slot and the committee phase launched,
+               timed beside an empty kernel (the launch floor); the point kernels at
                every width the main path launches them (4096 sweep, 2048
                MSM, 1024 combine and pk subgroup check, 512-128 the MSM's
                reduction tree, 64 and 1 cofactor clear) with the edge lanes
@@ -52,7 +57,8 @@ Phases, any failure exits non-zero:
                hash-to-G2 of the message, device pairing), median of 3 timed
                slots, all 1000 aggregates byte-identical to native
                ct_lincomb_g2, the launches and time of each step of
-               plane_agg.fused_slot (its step hook), a tampered partial
+               plane_agg.fused_slot (its step hook; the dispatch's launches
+               by step must be DISPATCH_STEPS), a tampered partial
                gives False, bad encodings raise the reference's ValueError
                texts; the same slots with verify="native" give the same
                verdicts; the steps of a first and a steady slot (launches,
@@ -91,12 +97,18 @@ scalar multiplications at the main path's cases and the G1 MSM's
 (MUL_AB; `kMulG2=16` sets pt_mul_shared's E = 2 group size, `kMulLanes2=2`
 the lanes of its products, `kMulPoints2=16` its points a block;
 `kWin2Ranks=8` pt_mul_windowed's ranks a block at E = 2, `kWin1Lanes=1,
-kWin1Points=32` one lane a product at E = 1). POW_AB and MUL_AB cover every
-(layout or E, width) at which the headline slot launches fe_pow and
-pt_mul_shared: the whole check fails if they do not. --kernels
-points,rows,pow,mul picks the groups timed (all by default). Every variant
-must have this checkout's C interface; to compare with a tree whose
-interface differs, run that tree's own
+kWin1Points=32` one lane a product at E = 1), and first the field kernels at
+every level of the headline slot and at single products of 2,048-12,288
+elements (FE_AB; `kFeMul1Lanes=1` one thread an Fq product, `kFeMul2Lanes=4`
+the Karatsuba products each split over 4 lanes, `kFeMul1SplitMax` the width
+past which a level takes one thread a product, `kFeBlock` the block). POW_AB,
+MUL_AB and FE_AB cover every (layout or E, width or level) at which the
+headline slot launches fe_pow, pt_mul_shared and the field kernels: the
+whole check fails if they do not. --kernels points,rows,pow,mul,fe picks the
+groups timed (all by default). Every variant must have this checkout's C
+interface, except that a tree from before the level kernels runs the field
+levels one launch an operation (charon_fe_mul / fe_add / fe_sub); to compare
+with a tree whose interface differs otherwise, run that tree's own
 chip_smoke.py in turns with this one. --diagnose adds three builds of this
 checkout's source with part of the level loops' work taken out (the point
 kernels' and pt_mul_shared's run_levels, pt_mul_windowed's win_op and
@@ -206,14 +218,15 @@ def ptxas_summary(text: str) -> list[str]:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = re.search(r"((?:fe_mul|fe_add|fe_sub|pt_double|pt_add|pt_mul_shared"
+            k = re.search(r"((?:fe_mul|fe_addsub|fe_add|pt_double|pt_add|pt_mul_shared"
                           r"|pt_mul_windowed)(?:_rows)?_kernel)"
                           r"(?:ILi(\d)E((?:Li\d+E)*)E)?", name)
             pw = re.search(r"fe_pow_kernelIL\w*?LayoutE(\d)E(?:Li(\d+)E)?E", name)
             short = name
             if k:
                 args = re.findall(r"Li(\d+)E", k.group(3) or "")
-                what = "P, T, R" if "windowed" in k.group(1) else "G"
+                what = ("P, T, R" if "windowed" in k.group(1) else
+                        "T" if k.group(1) == "fe_mul_kernel" else "G")
                 short = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
                          + (f" ({what} = {', '.join(args)})" if args else ""))
             elif pw:
@@ -312,42 +325,159 @@ def _max_abs_err(got, want) -> int:
     return int(max(errs))
 
 
-def check_kernels(device, widths: dict, reps: int) -> dict:
-    """Every kernel x E against its plain version; returns per-variant rows."""
-    rng = random.Random(1234)
-    rows = {}
-    for E in (1, 2):
-        n = widths[("fe", E)]
-        a, b = _rand_plane(rng, E, n, device), _rand_plane(rng, E, n, device)
-        nbytes_fe = 3 * E * 48 * n
-        cases = {
-            "fe_mul": (lambda: (CP.fe_mul(a, b, E),), lambda: (F.fe_mul_plain(a, b, E),),
-                       nbytes_fe, n * OPS_PER_FQ_PRODUCT * (1 if E == 1 else 3)),
-            "fe_add": (lambda: (CP.fe_add(a, b, E),), lambda: (F.fe_add_plain(a, b, E),),
-                       nbytes_fe, n * E * OPS_PER_FQ_ADD),
-            "fe_sub": (lambda: (CP.fe_sub(a, b, E),), lambda: (F.fe_sub_plain(a, b, E),),
-                       nbytes_fe, n * E * OPS_PER_FQ_ADD),
-        }
-        for name, (kern, plain, nbytes, ops) in cases.items():
-            got = kern()
-            torch.cuda.synchronize()
-            want = plain()
-            err = _max_abs_err(got, want)
-            if err != 0:
-                raise SystemExit(f"kernel {name}<{E}> disagrees with its plain version: "
-                                 f"max abs limb difference {err}")
-            ms = _time_ms(kern, reps)
-            plain_ms = _wall_ms(plain, 2)
-            bound_ms, by = _bound(nbytes, ops)
-            rows[(name, E)] = {
-                "name": f"{name}<{E}>", "route": "cuda",
-                "source": CP.KERNELS[name].source, "replaces": CP.KERNELS[name].replaces,
-                "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": by, "library_ms": None, "width": n,
-            }
-            log(f"kernel {name}<{E}> n={rows[(name, E)]['width']}: bit-equal to plain "
-                f"(max_abs_err 0); {ms * 1e3:.2f} us/launch, plain {plain_ms * 1e3:.1f} us, "
-                f"bound {rows[(name, E)]['bound_ms'] * 1e3:.3f} us ({rows[(name, E)]['bound_by']})")
+# ---------------------------------------------------------------------------
+# The plane field kernels: a level of independent operations a launch
+# ---------------------------------------------------------------------------
+
+FE_KERNELS = ("fe_mul", "fe_addsub")
+
+
+def slot_levels(vp: int, n: int) -> dict:
+    """The field levels of a first slot's dispatch, (kernel, E, shape) ->
+    launches, at vp validators a bucket (the pk plane, the aggregates) and n
+    partials (G2 decompression); a shape is the segments' widths (fe_mul) or
+    (operation, width) pairs (fe_addsub). A steady slot has all but the pk
+    plane's."""
+    m, a = "fe_mul", "fe_addsub"
+    levels = collections.Counter({
+        # pk plane: to_mont, x², x³ and the root's check beside its standard
+        # form; the subgroup check's comparison in 3 levels (phi(P)'s x beside
+        # the first); y² = x³ + 4, the sign's and [u²]P's negations
+        (m, 1, (vp,)): 3, (m, 1, (vp, vp)): 2, (m, 1, (vp, vp, vp)): 1, (m, 1, (vp,) * 4): 1,
+        (a, 1, (("add", vp),)): 1, (a, 1, (("neg", vp),)): 2,
+        # G2 decompression
+        (m, 1, (n, n)): 4, (m, 2, (n,)): 2, (a, 2, (("add", n),)): 1, (a, 1, (("add", n),)): 1,
+        (a, 1, (("add", n), ("sub", n), ("neg", n))): 1, (m, 1, (n, n, n)): 1,
+        (m, 1, (3 * n,)): 1, (m, 1, (n,) * 4): 1, (m, 1, (n,)): 2,
+        (a, 1, (("add", n), ("sub", n))): 1, (a, 1, (("add", n), ("neg", n))): 1,
+        (a, 2, (("neg", n),)): 1})
+    # the affine standard form
+    levels.update({(m, 1, (vp, vp)): 2, (a, 1, (("add", vp), ("neg", vp))): 1, (m, 2, (vp,)): 2,
+                   (m, 2, (vp, vp)): 1, (m, 1, (vp,) * 4): 1})
+    return dict(levels)
+
+
+def fe_cases(cases: dict) -> dict:
+    """The field levels of a run, from path_counts()["cases"]: (kernel, E,
+    shape) -> launches."""
+    return {(name, E, shape): c for name in FE_KERNELS
+            for (E, _total, shape), c in cases.get(name, {}).items()}
+
+
+# the gate before the slot, edges in every segment: one element, ragged
+# widths in a block, segments of several widths (lane slices of one wider
+# plane), a level past the split's width (one thread a product), a level of
+# the most segments, and add, sub and neg side by side
+FE_GATE = (("fe_mul", 1, (1,)), ("fe_mul", 1, (33, 7, 300)), ("fe_mul", 1, (12288,)),
+           ("fe_mul", 1, (5,) * 8), ("fe_mul", 2, (1,)), ("fe_mul", 2, (5, 300)),
+           ("fe_mul", 2, (9000,)),
+           ("fe_addsub", 1, (("add", 3), ("sub", 300), ("neg", 33), ("add", 1))),
+           ("fe_addsub", 2, (("add", 17), ("neg", 5), ("sub", 64), ("neg", 1))))
+
+
+def _seg_width(seg) -> int:
+    return seg if isinstance(seg, int) else seg[1]
+
+
+def fe_level(kernel: str, E: int, shape, device, seed: str) -> list:
+    """Seeded operands of one level, as mul_level / addsub_level take them:
+    each segment's a and b lane slices of one plane as wide as the level
+    (one segment: the whole plane), each segment's first lanes the edges 0,
+    1, p-1, R mod p in a and reversed in b."""
+    rng = random.Random(seed)
+    widths = [_seg_width(seg) for seg in shape]
+    A, B = (torch.cat([_rand_plane(rng, E, max(n, 4), device)[..., :n] for n in widths], -1)
+            for _ in range(2))
+    ops, off = [], 0
+    for seg, n in zip(shape, widths):
+        a, b = A[..., off:off + n], B[..., off:off + n]
+        k = min(n, 4)
+        b[..., :k] = a[..., :k].flip(-1)
+        off += n
+        ops.append((a, b) if kernel == "fe_mul" else (seg[0], None if seg[0] == "neg" else a, b))
+    return ops
+
+
+def fe_plain(kernel: str, E: int, ops) -> list:
+    """The level's plain versions, segment by segment."""
+    return [CP.level_plain(*(op if kernel == "fe_addsub" else (None, *op)), E) for op in ops]
+
+
+def fe_run(kernel: str, E: int, ops):
+    """The wrapper: one launch of the level."""
+    return (CP.mul_level if kernel == "fe_mul" else CP.addsub_level)(ops, E)
+
+
+def fe_label(kernel: str, E: int, shape) -> str:
+    segs = ", ".join(str(s) if isinstance(s, int) else f"{s[0]} {s[1]}" for s in shape)
+    return f"{kernel}<{E}> [{segs}]"
+
+
+def fe_bound(kernel: str, E: int, shape) -> tuple:
+    """The level's bound: its operands and outputs once (a negation reads
+    no a), against 576 multiply-adds an Fq product (3 an Fq2 product) or 36
+    integer operations an Fq add."""
+    if kernel == "fe_mul":
+        n = sum(shape)
+        return _bound(3 * E * 48 * n, n * OPS_PER_FQ_PRODUCT * (1 if E == 1 else 3))
+    words = sum((2 if op == "neg" else 3) * n for op, n in shape)
+    return _bound(words * E * 48, sum(n for _op, n in shape) * E * OPS_PER_FQ_ADD)
+
+
+def launch_floor_ms(reps: int = 50) -> float:
+    """Device ms of an empty kernel, timed as the kernels are (behind the
+    sleep, back to back)."""
+    lib = CP._library()
+    return _time_ms(lambda: lib.charon_empty(torch.cuda.current_stream().cuda_stream), reps)
+
+
+def check_fe(device, cases: dict, reps: int = 0, floor_ms: float | None = None) -> dict:
+    """fe_mul and fe_addsub bit for bit against their plain versions at each
+    level case (kernel, E, shape) -> the main path's launches, on fe_level's
+    inputs. With reps each case is also timed; returns per (fe_mul, E) and
+    per (fe_addsub, E, operation) the JSON row of its most launched case
+    (an add/sub level counts for each operation it holds; a negation is a
+    subtraction), with every case in by_width."""
+    timed = []
+    for (kernel, E, shape), launches in sorted(cases.items(), key=lambda kv: (-kv[1], str(kv[0]))):
+        label = fe_label(kernel, E, shape)
+        ops = fe_level(kernel, E, shape, device, label)
+        err = _hold(label, fe_run(kernel, E, ops), fe_plain(kernel, E, ops))
+        if not reps:
+            continue
+        bound_ms, by = fe_bound(kernel, E, shape)
+        row = {"kernel": kernel, "E": E, "width": sum(_seg_width(s) for s in shape),
+               "level": [s if isinstance(s, int) else list(s) for s in shape],
+               "launches": launches, "ms": _time_ms(lambda: fe_run(kernel, E, ops), reps),
+               "plain_ms": _wall_ms(lambda: fe_plain(kernel, E, ops), 2),
+               "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+        timed.append(row)
+        log(f"kernel {label}: bit-equal to plain (max_abs_err 0); {launches} launches on the main "
+            f"path; {row['ms'] * 1e3:.2f} us/launch, plain {row['plain_ms'] * 1e3:.1f} us, bound "
+            f"{bound_ms * 1e3:.3f} us ({by})")
+    if not reps:
+        log("field levels bit-equal to plain: " + "; ".join(fe_label(*c) for c in cases))
+        return {}
+    rows, site_of = {}, {"add": "add", "sub": "sub", "neg": "sub"}
+    for key in [("fe_mul", 1), ("fe_mul", 2)] + [("fe_addsub", E, op) for E in (1, 2)
+                                                 for op in ("add", "sub")]:
+        kernel, E = key[:2]
+        mine = [r for r in timed if (r["kernel"], r["E"]) == (kernel, E)
+                and (kernel == "fe_mul" or key[2] in {site_of[s[0]] for s in r["level"]})]
+        if not mine:
+            continue
+        top = mine[0]
+        rows[key] = {
+            "name": f"{kernel}<{E}>" + (f" ({key[2]})" if kernel == "fe_addsub" else ""),
+            "route": "cuda", "source": CP.KERNELS[kernel].source,
+            "replaces": CP.KERNELS[kernel].site(key[-1]),
+            "launches": sum(r["launches"] for r in mine), "library_ms": None,
+            **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "width", "level")},
+            "floor_ms": floor_ms,
+            "by_width": [{k: v for k, v in r.items() if k not in ("kernel", "E", "bound_by",
+                                                                  "max_abs_err")}
+                         for r in mine]}
     torch.cuda.synchronize()
     return rows
 
@@ -624,7 +754,9 @@ def pow_loop(lib, layout: str, a: torch.Tensor, e: int, one) -> torch.Tensor:
     for rows."""
     if layout == "plane":
         def mul(x, y):
-            return CP.call(lib, "fe_mul", 1, (x, y), 1)[0]
+            _dev, segs, outs, _key = CP.level_args("fe_mul", [(None, x, y)], 1, None)
+            CP.call_level(lib, "fe_mul", 1, segs)
+            return outs[0]
 
         tab = [one, a]
         for _ in range(2, 16):
@@ -1110,8 +1242,16 @@ def first_slot_steps(batches, pubkeys, datas, device, pk_cache=None, h2c=None,
     return rows
 
 
+# a slot's dispatch by step (plane_agg.fused_slot's marks: parse, pk plane,
+# randomizers, G2 decompression, sweep + combine, affine, MSM + trees): the
+# exact counts of tests/test_torch_slice.py; a steady slot's pk plane is a
+# cache hit
+DISPATCH_STEPS = {"first": [0, 12, 0, 19, 4, 8, 7], "steady": [0, 0, 0, 19, 4, 8, 7]}
+
+
 def slot_steps(batches, pubkeys, datas, device, total: int) -> None:
-    """Log the steps of a first and a steady slot on each verify rung; the
+    """Log the steps of a first and a steady slot on each verify rung, and
+    the dispatch's launches by step, which must be DISPATCH_STEPS; the
     first device-verified slot's launches must add up to `total`, the first
     slot's count."""
     for verify in ("device", "native"):
@@ -1121,6 +1261,13 @@ def slot_steps(batches, pubkeys, datas, device, total: int) -> None:
             for name, n, ms in rows:
                 log(f"step ({kind} slot, verify={verify}) {name}: {n} launches, {ms:.2f} ms "
                     f"(synchronised wall)")
+            dispatch = [n for _name, n, _ms in rows[1:8]]
+            log(f"dispatch launches by step ({kind} slot, verify={verify}): "
+                + ", ".join(f"{name} {n}" for name, n, _ms in rows[1:8])
+                + f"; {sum(dispatch)} in all")
+            if dispatch != DISPATCH_STEPS[kind]:
+                raise SystemExit(f"the {kind} slot's dispatch launched {dispatch} by step, "
+                                 f"not {DISPATCH_STEPS[kind]}")
             if (verify, kind) == ("device", "first") and sum(n for _, n, _ in rows) != total:
                 raise SystemExit(f"steps launched {sum(n for _, n, _ in rows)}, the slot {total}")
 
@@ -1557,13 +1704,14 @@ MUL_AB = (("pt_mul_windowed", 2, 4096, 64), ("pt_mul_windowed", 2, 2048, 16),
 
 
 def ab_uncovered(cases: dict) -> list:
-    """The (kernel, layout or E, width) at which `cases` (path_counts()
-    ["cases"] of a run) launched fe_pow or pt_mul_shared and POW_AB /
-    MUL_AB time neither, in order."""
+    """The (kernel, layout or E, width or level shape) at which `cases`
+    (path_counts()["cases"] of a run) launched fe_pow, pt_mul_shared or a
+    field kernel and POW_AB / MUL_AB / FE_AB time none, in order."""
     timed = {("fe_pow", lay, n) for lay, n, _e in POW_AB} | \
-        {(name, E, n) for name, E, n, _k in MUL_AB}
+        {(name, E, n) for name, E, n, _k in MUL_AB} | set(FE_AB)
     launched = ({("fe_pow", lay, n) for lay, n, _d in cases.get("fe_pow", {})}
-                | {("pt_mul_shared", E, n) for E, n, _k in cases.get("pt_mul_shared", {})})
+                | {("pt_mul_shared", E, n) for E, n, _k in cases.get("pt_mul_shared", {})}
+                | set(fe_cases(cases)))
     return sorted(launched - timed, key=str)
 
 
@@ -1589,6 +1737,69 @@ def ab_mul(libs: dict, reps: int, dev) -> None:
         log(f"{name}<{E}> A/B n={n} {'windows' if digits is not None else 'bits'}="
             f"{arg if digits is not None else arg.bit_length()}: " + "; ".join(
                 f"{nm} {sum(t) / len(t):.1f}" for nm, t in times.items()) + " us")
+
+
+# the field kernels' A/B cases: every level of the headline slot (1,024
+# validators a bucket, 4,096 partials), and single products at the widths
+# where the split and one thread a product may cross
+FE_AB = tuple(sorted(slot_levels(1024, 4096), key=str)) + (
+    ("fe_mul", 1, (2048,)), ("fe_mul", 1, (8192,)), ("fe_mul", 1, (12288,)),
+    ("fe_mul", 2, (2048,)), ("fe_mul", 2, (8192,)))
+_LEGACY = {"add": "fe_add", "sub": "fe_sub", "neg": "fe_sub"}
+
+
+def _legacy_fe(lib, kernel: str, E: int, ops):
+    """A level on a library from before the level kernels: one launch an
+    operation, charon_fe_mul / fe_add / fe_sub(E, a, b, o, n, stream) on
+    contiguous copies of the operands (a negation 0 - b), made here, outside
+    the timed launches. Returns (a launch-only fn, the outputs)."""
+    calls, outs = [], []
+    for op in ops:
+        a, b = op if kernel == "fe_mul" else op[1:]
+        a = torch.zeros_like(b) if a is None else a.contiguous()
+        b, o = b.contiguous(), torch.empty_like(b.contiguous())
+        fn = getattr(lib, "charon_" + ("fe_mul" if kernel == "fe_mul" else _LEGACY[op[0]]))
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+        calls.append((fn, a, b, o))
+        outs.append(o)
+
+    def run():
+        stream = torch.cuda.current_stream().cuda_stream
+        for fn, a, b, o in calls:
+            if fn(E, a.data_ptr(), b.data_ptr(), o.data_ptr(), b.shape[2], stream):
+                raise SystemExit(f"{kernel}<{E}> did not launch")
+    return run, outs
+
+
+def ab_fe(libs: dict, reps: int, dev) -> None:
+    """fe_mul and fe_addsub of every variant in turns at FE_AB, each held
+    bit for bit against its plain version: a level launch through the
+    library's C interface (call_level, no counting), or on a library from
+    before the level kernels one launch an operation on contiguous copies
+    made outside the timed launches."""
+    names = [n for n in libs if n not in DIAGNOSTICS]
+    for kernel, E, shape in FE_AB:
+        label = fe_label(kernel, E, shape)
+        ops = fe_level(kernel, E, shape, dev, f"ab {label}")
+        want = fe_plain(kernel, E, ops)
+        times = {name: [] for name in names}
+        for name in names + names[::-1]:
+            lib = libs[name]
+            if hasattr(lib, "charon_fe_mul_level"):
+                full = ops if kernel == "fe_addsub" else [(None, a, b) for a, b in ops]
+                _d, segs, outs, _key = CP.level_args(kernel, full, E, None)
+
+                def fn(lib=lib, segs=segs):
+                    CP.call_level(lib, kernel, E, segs)
+            elif hasattr(lib, "charon_fe_mul"):
+                fn, outs = _legacy_fe(lib, kernel, E, ops)
+            else:
+                raise SystemExit(f"{name}: the library has no field kernel launcher")
+            fn()
+            _hold(f"{name} {label}", outs, want)
+            times[name].append(_time_ms(fn, reps) * 1e3)
+        log(f"fe A/B {label}: " + "; ".join(
+            f"{name} {sum(t) / len(t):.2f}" for name, t in times.items()) + " us")
 
 
 def _quartiles(xs: list) -> str:
@@ -1682,7 +1893,7 @@ def ab_main(argv: list[str]) -> int:
     ap.add_argument("--diagnose", action="store_true")
     ap.add_argument("--slot-rounds", type=int, default=0)
     ap.add_argument("--widths", default=",".join(map(str, POINT_WIDTHS)))
-    ap.add_argument("--kernels", default="points,rows,pow,mul")
+    ap.add_argument("--kernels", default="points,rows,pow,mul,fe")
     args = ap.parse_args(argv)
     groups = set(args.kernels.split(","))
     jobs = variant_jobs(args.variants)
@@ -1698,7 +1909,9 @@ def ab_main(argv: list[str]) -> int:
     for name, path, text in built:
         for row in ptxas_summary(text):
             log(f"ptxas {name}: {row}")
-        libs[name] = CP.bind(path)
+        libs[name] = CP.bind(path, strict=False)
+    if "fe" in groups:
+        ab_fe(libs, 50, torch.device("cuda:0"))
     if "points" in groups:
         ab_points(libs, [int(w) for w in args.widths.split(",")], reps=50)
     if "rows" in groups:
@@ -1782,11 +1995,14 @@ def main(argv: list[str]) -> int:
     for row in ptxas_summary(CP.BUILD.log):
         log(f"  ptxas {row}")
 
-    # the slot's widths: 12288 packed Fq (the (p-3)/4 scan) and 4096 G2
-    # partials for the field ops
-    rows = check_kernels(device, {("fe", 1): 12288, ("fe", 2): 4096}, reps=50)
-    # the combined MSM plane's width as well
-    check_kernels(device, {("fe", 1): 2048, ("fe", 2): 2048}, reps=5)
+    # the field levels' gate: edges, ragged and strided segments, both
+    # widths of the products' split; they are timed at the main path's
+    # levels below, beside the launch floor
+    check_fe(device, {c: 0 for c in FE_GATE})
+    floor_ms = launch_floor_ms()
+    log(f"launch floor: an empty kernel {floor_ms * 1e3:.2f} us/launch (back to back behind "
+        f"the sleep, as every kernel is timed)")
+    rows = {}
     # the point ops at every width the main path launched them before the
     # scalar multiplications took their chains: the sweep (4096), the MSM
     # (2048), the combine and the pk subgroup check (1024), the MSM's
@@ -1823,6 +2039,7 @@ def main(argv: list[str]) -> int:
             if name in ("pt_double", "pt_add") and launched:
                 top = max(launched, key=launched.get)
                 rows[(name, E)] = dict(pt_rows[(name, E, top)], by_width=row["by_width"])
+        rows.update(check_fe(device, fe_cases(slot["cases"]), reps=50, floor_ms=floor_ms))
         rows.update(check_rows_kernels(device, path_rows_cases(slot), reps=50))
         rows.update(check_pow(device, {**{pow_case(*c): 0 for c in POW_GATE},
                                        **slot["cases"]["fe_pow"]}, reps=20))
@@ -1842,7 +2059,8 @@ def main(argv: list[str]) -> int:
         # clear at 64 messages, the pairing at 65 and 1,040 pairs), held and
         # timed too
         more_rows, more = other_cases(committee_slot(pool, jobs, pubkeys), slot)
-        for key, row in {**check_rows_kernels(device, more_rows, reps=50),
+        for key, row in {**check_fe(device, fe_cases(more), reps=50, floor_ms=floor_ms),
+                         **check_rows_kernels(device, more_rows, reps=50),
                          **check_pow(device, more["fe_pow"], reps=20),
                          **check_mul(device, mul_cases(more), reps=3)}.items():
             rows[key]["committee_by_width"] = row["by_width"]
@@ -1851,10 +2069,14 @@ def main(argv: list[str]) -> int:
     if "--profile" in argv:
         profile_slot(impl, batches, pubkeys, [MSG] * N_VALIDATORS)
 
-    kernels = [dict(row, launches=slot["launches"][key]) for key, row in rows.items()]
-    for (name, E), row in zip(rows, kernels):
+    # a row keyed (kernel, E) takes the kernel's launches under E; an
+    # fe_addsub row, keyed by its operation too, the launches of the levels
+    # that hold it, which check_fe counted
+    kernels = [dict(row, launches=slot["launches"][key]) if key in slot["launches"] else row
+               for key, row in rows.items()]
+    for key, row in zip(rows, kernels):
         for w in row.get("by_width", ()):
-            w.setdefault("launches", slot["widths"][name].get((E, w["width"]), 0))
+            w.setdefault("launches", slot["widths"][key[0]].get((key[1], w["width"]), 0))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,6 +9,8 @@ degenerate pairing rules and the absence of any fallback; and the
 plain-path call counts of one slot and of one verify, which pin that the
 slot goes through every kernel and the verify through the rows kernels."""
 
+import importlib.util
+import os
 import random
 
 import numpy as np
@@ -77,7 +79,8 @@ def slot():
         aggs, ok = impl.threshold_aggregate_verify_batch(batches, pks, datas)
     calls = {k: dict(v.plain_calls) for k, v in CP.KERNELS.items()}
     launches = {k: dict(v.launches) for k, v in CP.KERNELS.items()}
-    cases = {k: dict(CP.KERNELS[k].cases) for k in ("pt_mul_shared", "pt_mul_windowed")}
+    cases = {k: dict(CP.KERNELS[k].cases)
+             for k in ("pt_mul_shared", "pt_mul_windowed", "fe_mul", "fe_addsub")}
     return dict(impl=impl, native=native, batches=batches, pks=pks, datas=datas,
                 aggs=aggs, ok=ok, calls=calls, launches=launches, cases=cases, pairs=seen[0],
                 pairing_path=dict(impl.pairing_path))
@@ -204,11 +207,13 @@ def test_one_slot_goes_through_every_kernel(slot):
     + 3·(1 + 2) reduction trees (Vp = 128, G = 2 groups) + hash-to-G2's
     q0 + q1 = 13. Everything else of the verify runs on the rows kernels.
     The four plane power scans (the G2 partials' sqrt and (p−3)/4, the
-    affine p−2, the G1 sqrt) are one fe_pow<plane> call each."""
+    affine p−2, the G1 sqrt) are one fe_pow<plane> call each. The plane
+    field kernels take a level of independent operations a call: fe_mul 19
+    levels at E = 1 and 5 at E = 2, fe_addsub 8 and 2."""
     rows = {k: {E: c + H2C_CALLS[k][E] for E, c in v.items()} for k, v in VERIFY_CALLS.items()}
     rows["fe_pow"]["plane"] = 4
     assert slot["calls"] == {
-        "fe_mul": {1: 38, 2: 6}, "fe_add": {1: 6, 2: 1}, "fe_sub": {1: 7, 2: 1},
+        "fe_mul": {1: 19, 2: 5}, "fe_addsub": {1: 8, 2: 2},
         "pt_double": {1: 0, 2: 0}, "pt_add": {1: 0, 2: 13}, **rows,
         "pt_mul_shared": {1: 1, 2: 1}, "pt_mul_windowed": {1: 0, 2: 2}}
     assert slot["cases"]["pt_mul_shared"] == {(1, 128, RPF.X_ABS * RPF.X_ABS): 1,
@@ -219,12 +224,14 @@ def test_one_slot_goes_through_every_kernel(slot):
 
 def test_first_slot_dispatch_steps(slot):
     """The launches of a first slot's dispatch by step (pk plane decoded),
-    one message as the 1000 × 4-of-6 headline: 75, of which pk plane 19
-    (G1 decompression and the subgroup check's one pt_mul_shared<1>), sweep
-    + combine 4 (one pt_mul_windowed<2>, 3 pt_add<2>) and MSM + trees 7 (one
-    pt_mul_windowed<2>, 2 trees of 3 pt_add<2> levels). Vp = 128 here and
-    1,024 at the headline reduce in the same 3 levels, so the counts are
-    the headline's."""
+    one message as the 1000 × 4-of-6 headline: 50, of which pk plane 12
+    (G1 decompression in 7 launches and the subgroup check's one
+    pt_mul_shared<1>, a negation and 3 product levels), G2 decompression 19
+    (17 field levels and 2 fe_pow), sweep + combine 4 (one
+    pt_mul_windowed<2>, 3 pt_add<2>), the affine standard form 8 (7 field
+    levels and one fe_pow) and MSM + trees 7 (one pt_mul_windowed<2>, 2
+    trees of 3 pt_add<2> levels). Vp = 128 here and 1,024 at the headline
+    reduce in the same 3 levels, so the counts are the headline's."""
     steps = []
 
     def mark(name):
@@ -235,8 +242,21 @@ def test_first_slot_dispatch_steps(slot):
     state = PA.fused_slot(PA.layout_slots(slot["batches"]), slot["pks"], [MSGS[0]] * V,
                           torch.device("cpu"), PA.PkPlaneCache(), mark=mark)
     assert state[0] == "pending"
-    assert [c for _name, c in steps] == [0, 19, 0, 32, 4, 13, 7]
+    assert [c for _name, c in steps] == [0, 12, 0, 19, 4, 8, 7]
     assert steps[1][0].startswith("pk plane") and steps[4][0] == "Lagrange sweep + combine"
+
+
+def test_the_field_levels_are_chip_smokes(slot):
+    """The first slot's field levels, (kernel, E, shape) -> calls, are
+    chip_smoke.slot_levels at this slot's widths (Vp = 128 validators a
+    bucket, 512 partials), which FE_AB takes at the headline's to time every
+    level the card launches."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                   "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert chip_smoke.fe_cases(slot["cases"]) == chip_smoke.slot_levels(128, 512)
 
 
 def test_one_verify_goes_through_the_rows_kernels(slot):
@@ -245,7 +265,7 @@ def test_one_verify_goes_through_the_rows_kernels(slot):
     CP.reset_counts()
     assert PA.pairing_finish(S, pts, slot["impl"].h2c, {}, "device", torch.device("cpu"))
     calls = {k: dict(v.plain_calls) for k, v in CP.KERNELS.items()}
-    assert calls == {"fe_mul": {1: 0, 2: 0}, "fe_add": {1: 0, 2: 0}, "fe_sub": {1: 0, 2: 0},
+    assert calls == {"fe_mul": {1: 0, 2: 0}, "fe_addsub": {1: 0, 2: 0},
                      "pt_double": {1: 0, 2: 0}, "pt_add": {1: 0, 2: 0}, **VERIFY_CALLS,
                      "pt_mul_shared": {1: 0, 2: 0}, "pt_mul_windowed": {1: 0, 2: 0}}
 
