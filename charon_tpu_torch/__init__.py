@@ -10,8 +10,10 @@ Every device step runs on hand-written CUDA kernels for Hopper
 
 Package layout:
   crypto/    own copies of the BLS12-381 host primitives the slice needs
-  native.py  ctypes loader for native/libbls12381.so (pairing, hash-to-G2)
+  native.py  ctypes loader for native/libbls12381.so (pairing, hash-to-G2,
+             key material)
   ops/       limb layout and plain versions, CUDA kernels and wrappers,
-             the slot (plane_agg), JAX-plane <-> tensor conversion
-  tbls/      TorchImpl, the tbls-seam entry points
+             the slot and the bulk verify (plane_agg), the H(m) cache cap
+             from the environment (policy), JAX-plane <-> tensor conversion
+  tbls/      TorchImpl, the whole tbls backend
 """

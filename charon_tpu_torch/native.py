@@ -1,10 +1,14 @@
 """ctypes loader for the repo's native BLS12-381 library (native/).
 
 The port's verify step calls the native multi-pairing (`ct_pairing_check`)
-and hash-to-G2 (`ct_hash_to_g2`); `chip_smoke.py` also builds its inputs and
-oracle with `ct_pubkey`, `ct_sign` and `ct_lincomb_g2`. Only those symbols are
-declared. Like the reference loader, `load_library()` first runs
-`make -C native` (a no-op when the library is fresh).
+and hash-to-G2 (`ct_hash_to_g2`); TorchImpl's key-material calls go through
+`ct_pubkey`, `ct_sign`, `ct_verify`, `ct_aggregate_g1` and `ct_aggregate_g2`,
+as the reference's NativeImpl does (charon_tpu/tbls/native_impl.py:131-227);
+`chip_smoke.py` also builds its inputs and oracles with `ct_lincomb_g2`,
+`ct_verify_batch` and `ct_g2_check`. Only those symbols are declared, with
+the reference's argtypes (native_impl.py:37-75). Like the reference loader,
+`load_library()` first runs `make -C native` (a no-op when the library is
+fresh) and then the library's selftest.
 """
 
 from __future__ import annotations
@@ -26,11 +30,17 @@ _N = ctypes.c_size_t
 # name -> (argtypes, restype): pointers as c_void_p / c_char_p, sizes as
 # c_size_t, so no argument is narrowed to a 32-bit c_int.
 _SIG = {
+    "ct_selftest": ([], ctypes.c_int),
     "ct_pairing_check": ([_S, _S, _S, _N, ctypes.c_int], ctypes.c_int),
     "ct_hash_to_g2": ([_S, _N, _P], ctypes.c_int),
     "ct_pubkey": ([_S, _P], ctypes.c_int),
     "ct_sign": ([_S, _S, _N, _P], ctypes.c_int),
+    "ct_verify": ([_S, _S, _N, _S], ctypes.c_int),
+    "ct_aggregate_g2": ([_S, _N, _P], ctypes.c_int),
+    "ct_aggregate_g1": ([_S, _N, _P], ctypes.c_int),
     "ct_lincomb_g2": ([_S, _S, _N, _P], ctypes.c_int),
+    "ct_verify_batch": ([_S, _S, ctypes.POINTER(ctypes.c_uint64), _S, _S, _N], ctypes.c_int),
+    "ct_g2_check": ([_S], ctypes.c_int),
 }
 
 _lock = threading.Lock()
@@ -38,9 +48,10 @@ _lib: list = []
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (when stale), load and declare the native library. Raises
-    subprocess.CalledProcessError / OSError when it cannot be built or
-    loaded: the verify step has no other path."""
+    """Build (when stale), load, declare and selftest the native library.
+    Raises subprocess.CalledProcessError / OSError when it cannot be built,
+    loaded or passes no selftest: the calls that use it have no other
+    path."""
     with _lock:
         if _lib:
             return _lib[0]
@@ -51,6 +62,8 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = restype
+        if lib.ct_selftest() != 1:
+            raise OSError("native selftest failed")
         _lib.append(lib)
         return lib
 
@@ -69,3 +82,59 @@ def pairing_check(g1_cat: bytes, g2_cat: bytes, negs: bytes) -> bool:
     if rc < 0:
         raise ValueError("native pairing check could not decode its inputs")
     return rc == 1
+
+
+def pubkey(secret: bytes) -> bytes:
+    """The compressed G1 public key of a 32-byte secret scalar."""
+    out = (ctypes.c_uint8 * 48)()
+    load_library().ct_pubkey(bytes(secret), out)
+    return bytes(out)
+
+
+def sign(secret: bytes, data: bytes) -> bytes:
+    """The compressed signature [secret]·H(data)."""
+    out = (ctypes.c_uint8 * 96)()
+    load_library().ct_sign(bytes(secret), data, len(data), out)
+    return bytes(out)
+
+
+def verify(pk: bytes, data: bytes, sig: bytes) -> bool:
+    """One signature, with the native decoders' curve, subgroup and
+    infinity checks: False on any invalid input."""
+    return load_library().ct_verify(bytes(pk), data, len(data), bytes(sig)) == 1
+
+
+def aggregate_g2(sigs: list[bytes]) -> bytes | None:
+    """The sum of compressed G2 points; None when one does not decode."""
+    out = (ctypes.c_uint8 * 96)()
+    rc = load_library().ct_aggregate_g2(b"".join(bytes(s) for s in sigs), len(sigs), out)
+    return bytes(out) if rc == 0 else None
+
+
+def aggregate_g1(pks: list[bytes]) -> bytes | None:
+    """The sum of compressed G1 points; None when one does not decode."""
+    out = (ctypes.c_uint8 * 48)()
+    rc = load_library().ct_aggregate_g1(b"".join(bytes(p) for p in pks), len(pks), out)
+    return bytes(out) if rc == 0 else None
+
+
+def verify_batch(pks: list[bytes], msgs: list[bytes], sigs: list[bytes],
+                 coefs: list[int]) -> bool:
+    """Native RLC batch verify (ct_verify_batch) with the given nonzero
+    randomizers, each below 2^128."""
+    n = len(pks)
+    offs = (ctypes.c_uint64 * (n + 1))()
+    pos = 0
+    for i, m in enumerate(msgs):
+        offs[i] = pos
+        pos += len(m)
+    offs[n] = pos
+    return load_library().ct_verify_batch(
+        b"".join(bytes(p) for p in pks), b"".join(bytes(m) for m in msgs), offs,
+        b"".join(bytes(s) for s in sigs), b"".join(c.to_bytes(16, "big") for c in coefs), n) == 1
+
+
+def g2_check(sig: bytes) -> bool:
+    """True iff the compressed G2 point decodes onto the curve and lies in
+    the r-subgroup (infinity passes)."""
+    return load_library().ct_g2_check(bytes(sig)) == 1

@@ -219,17 +219,35 @@ class Kernel:
         return self.replaces[variant] if isinstance(self.replaces, dict) else self.replaces
 
     def reset(self) -> None:
-        self.launches = {E: 0 for E in self.variants}
-        self.plain_calls = {E: 0 for E in self.variants}
-        self.widths = collections.Counter()     # launches by (E, width)
-        # calls (launches, or plain calls on the CPU) by (variant, width,
-        # extra): the field levels by (E, total width, the segments' widths
-        # (fe_mul) or (operation, width) pairs (fe_addsub)), fe_add_rows'
-        # calls that subtract by (1, rows, n_add),
-        # fe_pow's by (layout, width, digits), pt_mul_shared's by (E, width,
-        # k), pt_mul_windowed's by (E, width, windows)
-        self.cases = collections.Counter()
+        with _count_lock:
+            self.launches = {E: 0 for E in self.variants}
+            self.plain_calls = {E: 0 for E in self.variants}
+            self.widths = collections.Counter()     # launches by (E, width)
+            # calls (launches, or plain calls on the CPU) by (variant, width,
+            # extra): the field levels by (E, total width, the segments'
+            # widths (fe_mul) or (operation, width) pairs (fe_addsub)),
+            # fe_add_rows' calls that subtract by (1, rows, n_add), fe_pow's
+            # by (layout, width, digits), pt_mul_shared's by (E, width, k),
+            # pt_mul_windowed's by (E, width, windows)
+            self.cases = collections.Counter()
 
+    def count(self, variant, width: int | None = None, case=None, plain: bool = False) -> None:
+        """Count one call: a plain call (plain=True) or a launch at `width`,
+        and, where given, its case. Device work runs on several threads
+        (the slot thread of the submit front door beside the callers' own),
+        so every read-modify-write of the counters holds one lock: the exact
+        counts that tests and chip_smoke.py pin stay exact."""
+        with _count_lock:
+            if case is not None:
+                self.cases[case] += 1
+            if plain:
+                self.plain_calls[variant] += 1
+            elif width is not None:
+                self.launches[variant] += 1
+                self.widths[variant, width] += 1
+
+
+_count_lock = threading.Lock()
 
 KERNELS = {
     "fe_mul": Kernel("fe_mul", "charon_tpu/ops/pallas_plane.py:458"),        # _kern_mul
@@ -298,10 +316,9 @@ def call(lib: ctypes.CDLL, name: str, E: int, ins, n_out: int, args=()):
     return outs
 
 
-def _launch(name: str, E: int, ins, n_out: int, args=()):
+def _launch(name: str, E: int, ins, n_out: int, args=(), case=None):
     outs = call(_library(), name, E, ins, n_out, args)
-    KERNELS[name].launches[E] += 1
-    KERNELS[name].widths[E, ins[0].shape[2]] += 1
+    KERNELS[name].count(E, ins[0].shape[2], case)
     return outs
 
 
@@ -319,8 +336,7 @@ def launch_rows(name: str, a: torch.Tensor, b: torch.Tensor, E: int, args=()) ->
                                                *args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name}<{E}> did not launch: error {rc}")
-    KERNELS[name].launches[E] += 1
-    KERNELS[name].widths[E, n] += 1
+    KERNELS[name].count(E, n)
     return out
 
 
@@ -418,15 +434,13 @@ def level_plain(op, a, b, E: int) -> torch.Tensor:
 def _run_level(kind: str, ops, E: int, outs) -> list:
     device, segs, outs, key = level_args(kind, ops, E, outs)
     kern = KERNELS[kind]
-    kern.cases[key] += 1
     if device.type == "cpu":
-        kern.plain_calls[E] += 1
+        kern.count(E, case=key, plain=True)
         for (op, a, b), o in zip(ops, outs):
             o.copy_(level_plain(op, a, b, E))
         return outs
     call_level(_library(), kind, E, segs)
-    kern.launches[E] += 1
-    kern.widths[E, key[1]] += 1
+    kern.count(E, key[1], case=key)
     return outs
 
 
@@ -468,7 +482,7 @@ def fe_neg(a: torch.Tensor, E: int) -> torch.Tensor:
 def pt_double(X, Y, Z, E: int):
     """Jacobian doubling (dbl-2009-l, a = 0) of a plane of points."""
     if _check((X, Y, Z), E).type == "cpu":
-        KERNELS["pt_double"].plain_calls[E] += 1
+        KERNELS["pt_double"].count(E, plain=True)
         return C.pt_double_plain(X, Y, Z, E)
     return tuple(_launch("pt_double", E, (X, Y, Z), 3))
 
@@ -476,7 +490,7 @@ def pt_double(X, Y, Z, E: int):
 def pt_add(X1, Y1, Z1, X2, Y2, Z2, E: int):
     """Branchless unified Jacobian add of two planes of points."""
     if _check((X1, Y1, Z1, X2, Y2, Z2), E).type == "cpu":
-        KERNELS["pt_add"].plain_calls[E] += 1
+        KERNELS["pt_add"].count(E, plain=True)
         return C.pt_add_plain(X1, Y1, Z1, X2, Y2, Z2, E)
     return tuple(_launch("pt_add", E, (X1, Y1, Z1, X2, Y2, Z2), 3))
 
@@ -514,21 +528,20 @@ def pow_call(layout: str, a: torch.Tensor, digits: list[int], plain_mul) -> torc
     tensor its plain version (field.pow_plain over `plain_mul`, the layout's
     plain product), counted as one plain call; on a CUDA tensor one launch.
     Either way counted by (layout, width, digits) in `cases`."""
-    k = KERNELS["fe_pow"]
-    k.cases[layout, a.numel() // LIMBS, tuple(digits)] += 1
+    case = (layout, a.numel() // LIMBS, tuple(digits))
     if a.device.type == "cpu":
-        k.plain_calls[layout] += 1
+        KERNELS["fe_pow"].count(layout, case=case, plain=True)
         return F.pow_plain(a, digits, plain_mul)
-    return launch_pow(layout, a, digits)
+    return launch_pow(layout, a, digits, case)
 
 
-def launch_pow(layout: str, a: torch.Tensor, digits: list[int]) -> torch.Tensor:
+def launch_pow(layout: str, a: torch.Tensor, digits: list[int], case=None) -> torch.Tensor:
     """One charon_fe_pow launch over a contiguous CUDA plane or rows (rows
     16-byte aligned), on the current stream of its device; counts the
-    launch under the layout and its width."""
+    launch under the layout and its width, and its case where given."""
     if a.device.index != torch.cuda.current_device():
         with torch.cuda.device(a.device):
-            return launch_pow(layout, a, digits)
+            return launch_pow(layout, a, digits, case)
     out = torch.empty_like(a)
     n = a.numel() // LIMBS
     rc = _library().charon_fe_pow(POW_LAYOUTS[layout], a.data_ptr(), out.data_ptr(), n,
@@ -536,8 +549,7 @@ def launch_pow(layout: str, a: torch.Tensor, digits: list[int]) -> torch.Tensor:
                                   torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel fe_pow<{layout}> did not launch: error {rc}")
-    KERNELS["fe_pow"].launches[layout] += 1
-    KERNELS["fe_pow"].widths[layout, n] += 1
+    KERNELS["fe_pow"].count(layout, n, case)
     return out
 
 
@@ -573,13 +585,12 @@ def shared_mul(X, Y, Z, k: int, E: int):
     if not 1 <= k < 1 << MUL_MAX_BITS:
         raise ValueError(f"shared scalar must be in [1, 2^{MUL_MAX_BITS})")
     device = _check((X, Y, Z), E)
-    kern = KERNELS["pt_mul_shared"]
-    kern.cases[E, X.shape[2], k] += 1
+    case = (E, X.shape[2], k)
     if device.type == "cpu":
-        kern.plain_calls[E] += 1
+        KERNELS["pt_mul_shared"].count(E, case=case, plain=True)
         return C.pt_mul_shared_plain(X, Y, Z, k, E)
     bits = scalar_bits(k)
-    return tuple(_launch("pt_mul_shared", E, (X, Y, Z), 3, (bits, len(bits))))
+    return tuple(_launch("pt_mul_shared", E, (X, Y, Z), 3, (bits, len(bits)), case))
 
 
 def scalars_to_digitplanes(scalars, B: int, nbits: int = 256) -> np.ndarray:
@@ -619,12 +630,12 @@ def scalar_mul_windowed(X, Y, Z, digits: torch.Tensor, E: int):
         raise ValueError(f"digits must be a (windows >= 1, {n}) uint8 tensor on {device}, "
                          f"got {tuple(digits.shape)} {digits.dtype} on {digits.device}")
     digits = digits.contiguous()
-    kern = KERNELS["pt_mul_windowed"]
-    kern.cases[E, n, digits.shape[0]] += 1
+    case = (E, n, digits.shape[0])
     if device.type == "cpu":
-        kern.plain_calls[E] += 1
+        KERNELS["pt_mul_windowed"].count(E, case=case, plain=True)
         return C.pt_mul_windowed_plain(X, Y, Z, digits, E)
-    return tuple(_launch("pt_mul_windowed", E, (X, Y, Z), 3, (digits.data_ptr(), digits.shape[0])))
+    return tuple(_launch("pt_mul_windowed", E, (X, Y, Z), 3,
+                         (digits.data_ptr(), digits.shape[0]), case))
 
 
 # ---------------------------------------------------------------------------

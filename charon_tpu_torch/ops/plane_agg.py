@@ -17,8 +17,14 @@ sequence of kernel launches (cuda_plane) followed by a host finish:
      ops/rows.py through ops/pairing.py, H(m) from the dual-form cache and
      the device hash-to-G2 of ops/h2c.py), or on the native rung when asked.
 
-The pk plane is decompressed and subgroup-checked once per pubkey set
-(`PkPlaneCache`). Batch element b of a plane sits in column b of an
+The bulk verify of compressed (pk, msg, sig) triples (`rlc_verify_batch`,
+the receipt path of peer partials) runs chunks of VERIFY_CHUNK triples:
+per chunk the parse, G2 decompression, the G2 subgroup check
+(`g2_subgroup_mask`: psi(P) == [x]P) and the combined MSM
+(`verify_slot`), then the host folds of all chunks and one pairing check.
+
+The pk planes are decompressed and subgroup-checked once per pubkey set
+and span (`PkPlaneCache`). Batch element b of a plane sits in column b of an
 `(E, 12, n)` tensor, which is element (b // W, b % W) of the reference's
 (8, W) plane, so layouts, padding, digit order and reduction order are the
 reference's. Outputs are byte-identical to the reference, with the same
@@ -38,7 +44,7 @@ import torch
 
 from .. import native
 from ..crypto import fields as PF
-from ..crypto.curve import (B_G1, B_G2, FqOps, Fq2Ops, g1_generator, jac_is_infinity,
+from ..crypto.curve import (B_G1, B_G2, FqOps, Fq2Ops, g1_generator, jac_add, jac_is_infinity,
                             jac_mul, to_affine, to_jacobian)
 from ..crypto.rlc import RLC_BITS, sample_randomizers
 from ..crypto.serialize import g1_to_bytes, g2_affine_from_bytes, g2_affine_to_bytes, g2_to_bytes
@@ -402,14 +408,17 @@ def g1_endo_consts():
     raise RuntimeError("no beta/sign works for the G1 endomorphism")
 
 
-def jac_eq_mask(p, q, E: int, x1_by=None) -> torch.Tensor:
+def jac_eq_mask(p, q, E: int, x1_by=None, y1_by=None) -> torch.Tensor:
     """(n,) bool: per-element Jacobian equality (∞ == ∞, ∞ != finite), in
-    three levels of products. With x1_by, p's X is X1·x1_by, its product in
-    the first level."""
+    three levels of products. With x1_by (y1_by), p's X (Y) is X1·x1_by
+    (Y1·y1_by), its product in the first level."""
     (X1, Y1, Z1), (X2, Y2, Z2) = p, q
-    first = CP.mul_level([(Z1, Z1), (Z2, Z2)] + ([(X1, x1_by)] if x1_by is not None else []), E)
+    scaled = [(c, by) for c, by in ((X1, x1_by), (Y1, y1_by)) if by is not None]
+    first = CP.mul_level([(Z1, Z1), (Z2, Z2)] + scaled, E)
     z1z1, z2z2 = first[:2]
-    X1 = first[2] if x1_by is not None else X1
+    rest = iter(first[2:])
+    X1 = next(rest) if x1_by is not None else X1
+    Y1 = next(rest) if y1_by is not None else Y1
     lx, rx, z1c, z2c = CP.mul_level([(X1, z2z2), (X2, z1z1), (z1z1, Z1), (z2z2, Z2)], E)
     ly, ry = CP.mul_level([(Y1, z2c), (Y2, z1c)], E)
     eq = _all((lx == rx) & (ly == ry))
@@ -430,6 +439,45 @@ def g1_subgroup_ok(X, Y, Z) -> bool:
     return bool(jac_eq_mask((X, Y, Z), (uX, uY, uZ), 1, x1_by=beta_plane).all())
 
 
+# ---------------------------------------------------------------------------
+# G2 subgroup check (:599 _psi_consts, :662 _g2_subgroup_core, :706
+# _conj_plane): psi(P) == [x]P, x = −X_ABS
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def psi_consts():
+    """(cx, cy) with psi(x, y) = (conj(x)·cx, conj(y)·cy): the
+    untwist-Frobenius-twist endomorphism of G2."""
+    xi = (1, 1)
+    return (PF.fq2_inv(PF.fq2_pow(xi, (PF.P - 1) // 3)),
+            PF.fq2_inv(PF.fq2_pow(xi, (PF.P - 1) // 2)))
+
+
+def g2_subgroup_mask(X, Y, Z) -> torch.Tensor:
+    """(n,) bool on the planes' device: psi(P) == [x]P per element, as
+    native g2_in_subgroup; ∞ and padding lanes (Z = 0) pass. [u]P by the
+    shared-scalar double-and-add (u = X_ABS: 63 doubles, 5 adds), then one
+    fe_addsub level of negations: the conjugation's c1 of X, Y and Z, each
+    into a copy of the point, and [x]P's Y, since [x]P = −[u]P; psi's two
+    products run in the comparison's first level."""
+    n = X.shape[-1]
+    uX, uY, uZ = CP.shared_mul(X, Y, Z, PF.X_ABS, 2)
+    conj = torch.stack([X, Y, Z])          # c0 as it is, c1 negated below
+    xY = torch.empty_like(uY)
+    CP.addsub_level([("neg", None, X[1:2]), ("neg", None, Y[1:2]), ("neg", None, Z[1:2]),
+                     ("neg", None, uY[0:1]), ("neg", None, uY[1:2])], 1,
+                    [conj[0, 1:2], conj[1, 1:2], conj[2, 1:2], xY[0:1], xY[1:2]])
+    cx, cy = psi_consts()
+    return jac_eq_mask((conj[0], conj[1], conj[2]), (uX, xY, uZ), 2,
+                       x1_by=const_plane(cx, 2, n, X.device), y1_by=const_plane(cy, 2, n, X.device))
+
+
+def g2_subgroup_ok(X, Y, Z) -> bool:
+    """True iff every loaded element is in the r-subgroup (∞ passes)."""
+    return bool(g2_subgroup_mask(X, Y, Z).all())
+
+
 def g1_plane(pks: list[bytes], Bp: int, device):
     """Compressed pubkeys -> (X, Y, Z) G1 plane of Bp elements; raises the
     reference's ValueErrors (infinity rejected, off-curve at index k)."""
@@ -444,15 +492,19 @@ def g1_plane(pks: list[bytes], Bp: int, device):
 
 
 class PkPlaneCache:
-    """Decoded, subgroup-checked pk planes keyed by the pubkey set's digest,
-    the bucket and the device: the counterpart of the reference's PlaneStore
-    (charon_tpu/ops/plane_store.py) for its whole-set planes. A true LRU of
-    MAX_ENTRIES sets: a hit refreshes its entry; on overflow the oldest entry
-    whose digest is not pinned goes, and when every entry is pinned the
-    cache grows rather than drop a pin. `pin` / `unpin` act on the set's
-    digest, so entries of any bucket or device are protected. Raises
-    ValueError, and caches nothing, on an infinity or out-of-subgroup
-    pubkey. `hits`, `misses` and `evictions` count lookups and drops."""
+    """Decoded, subgroup-checked pk planes keyed by the full pubkey set's
+    digest, the span of the set a plane holds, the bucket and the device:
+    the counterpart of the reference's PlaneStore
+    (charon_tpu/ops/plane_store.py:134-190). `get` is the whole set's plane
+    (the fused slot), `chunk_planes` one plane per span (the chunked
+    verify), so a fixed peer set decodes once a process. A true LRU of
+    MAX_ENTRIES planes: a hit refreshes its entry; on overflow the oldest
+    entry whose digest is not pinned goes, and when every entry is pinned
+    the cache grows rather than drop a pin. `pin` / `unpin` act on the
+    set's digest, so its planes of every span, bucket and device are
+    protected. Raises ValueError, and caches nothing of the call, on an
+    invalid, infinity or out-of-subgroup pubkey. `hits`, `misses` and
+    `evictions` count lookups and drops."""
 
     MAX_ENTRIES = 64
 
@@ -480,26 +532,42 @@ class PkPlaneCache:
             self._pinned.discard(self.digest(pks))
 
     def get(self, pks: list[bytes], Bp: int, device):
-        key = (self.digest(pks), Bp, str(device))
+        """The whole set's plane at bucket Bp."""
+        return self.chunk_planes(pks, [(0, len(pks))], [Bp], device)[0]
+
+    def chunk_planes(self, pks: list[bytes], chunks, buckets, device) -> list:
+        """One (X, Y, Z) plane per span (s, e) of the full set `pks`, at the
+        span's bucket: decoded and subgroup-checked on a miss (every missing
+        span first, then all are cached), refreshed on a hit."""
+        dg = self.digest(pks)
+        keys = [(dg, s, e, Bc, str(device)) for (s, e), Bc in zip(chunks, buckets)]
+        out: list = [None] * len(keys)
         with self._lock:
-            plane = self._entries.get(key)
-            if plane is not None:
-                self._entries.move_to_end(key)
-                self.hits += 1
-                return plane
-            self.misses += 1
-        plane = g1_plane([bytes(p) for p in pks], Bp, device)
-        if not g1_subgroup_ok(*plane):
-            raise ValueError("G1 pubkey not in subgroup")
+            for i, key in enumerate(keys):
+                plane = self._entries.get(key)
+                if plane is None:
+                    self.misses += 1
+                else:
+                    self._entries.move_to_end(key)
+                    self.hits += 1
+                    out[i] = plane
+        missing = [i for i, plane in enumerate(out) if plane is None]
+        for i in missing:
+            (s, e), Bc = chunks[i], buckets[i]
+            plane = g1_plane([bytes(p) for p in pks[s:e]], Bc, device)
+            if not g1_subgroup_ok(*plane):
+                raise ValueError("G1 pubkey not in subgroup")
+            out[i] = plane
         with self._lock:
-            self._entries[key] = plane
-            while len(self._entries) > self.MAX_ENTRIES:
-                victim = next((k for k in self._entries if k[0] not in self._pinned), None)
-                if victim is None:
-                    break
-                del self._entries[victim]
-                self.evictions += 1
-        return plane
+            for i in missing:
+                self._entries[keys[i]] = out[i]
+                while len(self._entries) > self.MAX_ENTRIES:
+                    victim = next((k for k in self._entries if k[0] not in self._pinned), None)
+                    if victim is None:
+                        break
+                    del self._entries[victim]
+                    self.evictions += 1
+        return out
 
     def stats(self) -> dict[str, int]:
         with self._lock:
@@ -524,10 +592,12 @@ def group_index(msgs):
     return gidx, G, list(gidx) + [b""] * (G - len(gidx))
 
 
-def group_masks(msgs, Bp: int):
+def group_masks(msgs, Bp: int, index=None):
     """(keys, (G, Bp) bool masks): element i is in its message's group;
-    padding elements are in none."""
-    gidx, G, keys = group_index(msgs)
+    padding elements are in none. `index`, group_index over a longer
+    message list, makes row g mean the same message in every chunk of
+    it."""
+    gidx, G, keys = index if index is not None else group_index(msgs)
     gmask = np.zeros((G, Bp), bool)
     for i, m in enumerate(msgs):
         gmask[gidx[bytes(m)], i] = True
@@ -569,6 +639,7 @@ def unembed_g1(jac2):
 # ---------------------------------------------------------------------------
 
 VERIFY_PATHS = ("device", "native")
+_path_lock = threading.Lock()      # pairing_path counts from several threads
 
 
 class H2CCache:
@@ -714,7 +785,8 @@ def pairing_finish(S, group_points, h2c: H2CCache, pairing_path: dict,
     live = [(bytes(m), P) for m, P in group_points if not jac_is_infinity(FqOps, P)]
     if jac_is_infinity(Fq2Ops, S):
         return not live
-    pairing_path[verify] = pairing_path.get(verify, 0) + len(live) + 1
+    with _path_lock:
+        pairing_path[verify] = pairing_path.get(verify, 0) + len(live) + 1
     if verify == "device":
         return device_pairing_check(S, live, h2c, device)
     return native_pairing_check(S, live, h2c)
@@ -840,3 +912,112 @@ def threshold_aggregate_and_verify(batches, pks, msgs, device, pk_cache: PkPlane
     if times is not None:
         times.dispatch, times.readback, times.emit, times.verify = t1 - t0, t2 - t1, t3 - t2, t4 - t3
     return out, ok
+
+
+# ---------------------------------------------------------------------------
+# The bulk verify of compressed (pk, msg, sig) triples: rlc_verify_batch
+# (:1825), rlc_verify_dispatch (:1870), rlc_verify_finish (:1912) and the
+# per-chunk verify slot (_verify_slot_jit :2018)
+# ---------------------------------------------------------------------------
+
+VERIFY_CHUNK = CP.TILE      # triples a chunk: 1,024, the reference's TILE
+
+
+def verify_chunks(n: int) -> list[tuple[int, int]]:
+    """The chunks' spans (s, e) of n triples."""
+    return [(s, min(s + VERIFY_CHUNK, n)) for s in range(0, n, VERIFY_CHUNK)]
+
+
+def verify_slot(X0r, X1r, sgn, lmask, rdig, pk, gmask):
+    """One chunk's launches: G2 decompression of its signatures, their
+    subgroup check, and the combined sig + pk RLC MSM with its reduction
+    trees. Returns (ok, sub_ok, sig_red, pk_reds) on the device: the
+    decompression's per-lane validity, the subgroup verdict (one bool) and
+    the reduced planes."""
+    X, Y, Z, ok = g2_decompress(X0r, X1r, sgn, lmask)
+    sub_ok = g2_subgroup_mask(X, Y, Z).all()
+    sig_red, pk_reds = combined_msm(X, Y, Z, *pk, rdig, gmask)
+    return ok, sub_ok, sig_red, pk_reds
+
+
+def rlc_verify_dispatch(pks, msgs, sigs, device, pk_cache: PkPlaneCache, randomizers=None,
+                        mark=None):
+    """Host parse and every chunk's launches, in chunks of VERIFY_CHUNK
+    triples, each at its own bucket (pad_batch) and with the message
+    groups of the whole list. Returns the pending state for
+    `rlc_verify_finish`: ("pending", group messages, one verify_slot
+    output per chunk), or ("invalid",) when a pubkey does not decode, is
+    infinity or lies outside the subgroup, or a signature's encoding is
+    bad or infinity. `randomizers` (n nonzero values below 2^64) replaces
+    the CSPRNG draw, for tests only. `mark`, when given, is called with
+    "pk planes" once the pubkey planes are ready and with "chunk k" once
+    chunk k's launches are issued."""
+    mark = mark or (lambda _name: None)
+    n = len(msgs)
+    chunks = verify_chunks(n)
+    buckets = [CP.pad_batch(e - s) for s, e in chunks]
+    index = group_index(msgs)
+    r = sample_randomizers(n) if randomizers is None else np.asarray(randomizers, np.uint64)
+    try:
+        pk_planes = pk_cache.chunk_planes(pks, chunks, buckets, device)
+    except ValueError:
+        return ("invalid",)
+    mark("pk planes")
+    pending = []
+    for k, ((s, e), Bc, pk) in enumerate(zip(chunks, buckets, pk_planes)):
+        try:
+            body, _fin, sgn, loaded = parse_compressed(sigs[s:e], 96, "G2", True, Bc)
+        except ValueError:
+            return ("invalid",)
+        rdig = torch.as_tensor(CP.scalars_to_digitplanes(r[s:e], Bc, nbits=RLC_BITS), device=device)
+        _keys, gmask = group_masks(msgs[s:e], Bc, index)
+        pending.append(verify_slot(
+            raw_to_plane(body[:, 48:], Bc, device), raw_to_plane(body[:, :48], Bc, device),
+            torch.as_tensor(sgn, device=device), torch.as_tensor(loaded, device=device), rdig,
+            pk, torch.as_tensor(gmask, device=device)))
+        mark(f"chunk {k + 1}")
+    return ("pending", index[2], pending)
+
+
+def rlc_fold(state):
+    """Read the chunks back and combine their RLC sums: (S, [(m, P_m)]) with
+    S = Σ rᵢ·sigᵢ and P_m = Σ rᵢ·pkᵢ over message m's triples, by Jacobian
+    adds of the chunks' host folds; None when the state is invalid, a
+    signature did not decompress or one lies outside the subgroup."""
+    if state[0] == "invalid":
+        return None
+    _tag, group_msgs, pending = state
+    S, Pg = None, [None] * len(group_msgs)
+    for ok, sub_ok, sig_red, pk_reds in pending:
+        if not (bool(ok.all()) and bool(sub_ok)):
+            return None
+        sc = CP.host_fold(*sig_red, 2)
+        S = sc if S is None else jac_add(Fq2Ops, S, sc)
+        for g, red in enumerate(pk_reds):
+            pc = CP.host_fold(*red, 2)
+            Pg[g] = pc if Pg[g] is None else jac_add(Fq2Ops, Pg[g], pc)
+    return S, [(m, unembed_g1(P)) for m, P in zip(group_msgs, Pg)]
+
+
+def rlc_verify_finish(state, h2c: H2CCache, pairing_path: dict, verify: str = "device",
+                      device=None) -> bool:
+    """Fold the dispatched chunks and run the multi-pairing on the `verify`
+    rung (no fallback between the rungs)."""
+    folded = rlc_fold(state)
+    return folded is not None and pairing_finish(*folded, h2c, pairing_path, verify, device)
+
+
+def rlc_verify_batch(pks, msgs, sigs, device, pk_cache: PkPlaneCache, h2c: H2CCache,
+                     pairing_path: dict, verify: str = "device", randomizers=None) -> bool:
+    """Batch-verify compressed (pk, msg, sig) triples: one verdict for all,
+    sound to 2^-64 over the randomizers. n = 0 is True and a length
+    mismatch raises ValueError; a bad encoding, an infinity, an off-curve
+    or out-of-subgroup signature or pubkey gives False. One path for every
+    n: the chunked device slot, then the pairing on the chosen rung."""
+    n = len(msgs)
+    if n == 0:
+        return True
+    if not (len(pks) == len(sigs) == n):
+        raise ValueError("length mismatch")
+    state = rlc_verify_dispatch(pks, msgs, sigs, device, pk_cache, randomizers)
+    return rlc_verify_finish(state, h2c, pairing_path, verify, device)

@@ -80,7 +80,7 @@ def _run(name: str, plain, a: torch.Tensor, b: torch.Tensor, E: int = 1, args=()
     """plain(a, b) on CPU rows, counted as a plain call; on CUDA rows one
     launch of charon_<name>(a, b, out, n, *args, stream)."""
     if _check(a, b, E).type == "cpu":
-        CP.KERNELS[name].plain_calls[E] += 1
+        CP.KERNELS[name].count(E, plain=True)
         return plain(a, b)
     if not aligned(a, b):
         raise ValueError("rows must start on a 16-byte boundary")
@@ -108,7 +108,7 @@ def _addsub(a: torch.Tensor, b: torch.Tensor, split: int, plain) -> torch.Tensor
     out = _run("fe_add_rows", plain, a, b, 1, (split,))
     n = a.numel() // LIMBS
     if split < n:
-        CP.KERNELS["fe_add_rows"].cases[1, n, split] += 1
+        CP.KERNELS["fe_add_rows"].count(1, case=(1, n, split))
     return out
 
 

@@ -78,6 +78,30 @@ Phases, any failure exits non-zero:
                the pairing at 65 and 1,040 pairs) held against its plain
                version and timed, in the kernels JSON as committee_by_width;
                the RFC 9380 J.10.1 vector through the device hash-to-G2.
+  6. bulk verify — BASELINE config 3: 500 validators at 4-of-6 (seed 99),
+               400 over an attestation root and 100 over a sync-committee
+               root; one peer's inbound set (500 triples, one 512-lane
+               chunk) and a burst of five peers' (2,500 triples, chunks of
+               1,024 / 1,024 / 452) through TorchImpl().verify_batch, counts
+               at 0 just before (pk planes decoded, H(m) hashed); on both
+               rungs valid True, and False with a partial of another share,
+               an infinity signature, a raw curve point or a partial plus an
+               order-13 point (both checked natively to be outside the
+               subgroup), a bad flag byte, an infinity pubkey, and in the
+               burst a replaced partial of the last chunk, each verdict
+               native ct_verify_batch's; the launches of each chunk those of
+               the CPU (VERIFY_CHUNK_LAUNCHES); per size and rung the median
+               of 3 steady walls beside native ct_verify_batch's; then every
+               case it launched that phases 4-5 did not, held and timed, in
+               the kernels JSON as bulk_verify_by_width.
+  7. pipeline — four 1000 x 4-of-6 slots of the probe's keys, each over its
+               own message, through threshold_aggregate_verify_submit (the
+               device's slot thread): byte-identical to the serial call,
+               True, launches 4 times a serial slot's; a tampered slot
+               between two others False, theirs untouched; the overlapped
+               call's bytes; 3 rounds of 4 serial and 4 submitted slots in
+               turns, the submitted median no more than the serial median
+               plus the spread.
 The last two lines are the kernels JSON and the device JSON.
 
 --ab builds each variant NAME=DIR (the plane_kernels.cu and fp.cuh in DIR,
@@ -145,6 +169,7 @@ import torch
 from charon_tpu_torch import native
 from charon_tpu_torch.crypto import curve as PC
 from charon_tpu_torch.crypto import fields as PF
+from charon_tpu_torch.crypto.serialize import g2_affine_from_bytes, g2_to_bytes
 from charon_tpu_torch.ops import convert as CV
 from charon_tpu_torch.ops import curve as C
 from charon_tpu_torch.ops import cuda_plane as CP
@@ -888,8 +913,11 @@ U2 = PF.X_ABS * PF.X_ABS               # the G1 subgroup check's [u²]P
 MUL_GATE = (("pt_mul_shared", 1, 16, U2), ("pt_mul_shared", 2, 16, PC.H_EFF_G2),
             ("pt_mul_shared", 1, 16, 1), ("pt_mul_shared", 1, 16, 5),
             ("pt_mul_shared", 1, 15, 5), ("pt_mul_shared", 2, 16, 5),
-            ("pt_mul_windowed", 1, 16, 4), ("pt_mul_windowed", 2, 16, 4))
+            ("pt_mul_windowed", 1, 16, 4), ("pt_mul_windowed", 2, 16, 4),
+            # the bulk verify's G2 subgroup check, [u]P at a chunk's buckets
+            ("pt_mul_shared", 2, 512, PF.X_ABS), ("pt_mul_shared", 2, 1024, PF.X_ABS))
 MUL_OFF_PATH = (("pt_mul_windowed", 1, 1024, 16),)
+MUL_SCALARS = {PC.H_EFF_G2: "H_EFF_G2", U2: "X_ABS^2", PF.X_ABS: "X_ABS"}
 
 
 def _mul_any(ops, pt, k: int):
@@ -1078,8 +1106,7 @@ def check_mul(device, cases: dict, reps: int = 0) -> dict:
         for (nm, e, n, arg), launches in sorted(cases.items(), key=lambda kv: -kv[1]):
             if (nm, e) != (name, E):
                 continue
-            what = f"k={'H_EFF_G2' if arg == PC.H_EFF_G2 else 'X_ABS^2' if arg == U2 else arg}" \
-                if name == "pt_mul_shared" else f"windows={arg}"
+            what = f"k={MUL_SCALARS.get(arg, arg)}" if name == "pt_mul_shared" else f"windows={arg}"
             cases_n = _mul_cases(name, E, n, arg, device)
             for i, (label, pts, digits) in enumerate(cases_n):
                 a = arg if digits is None else digits
@@ -1148,15 +1175,11 @@ def shamir_split(secret: int, total: int, threshold: int, rng: random.Random) ->
 
 
 def _pubkey(sk: int) -> bytes:
-    out = (ctypes.c_uint8 * 48)()
-    native.load_library().ct_pubkey(sk.to_bytes(32, "big"), out)
-    return bytes(out)
+    return native.pubkey(sk.to_bytes(32, "big"))
 
 
 def _sign(sk: int, msg: bytes) -> bytes:
-    out = (ctypes.c_uint8 * 96)()
-    native.load_library().ct_sign(sk.to_bytes(32, "big"), msg, len(msg), out)
-    return bytes(out)
+    return native.sign(sk.to_bytes(32, "big"), msg)
 
 
 def _lincomb(sigs: list[bytes], lams: list[int]) -> bytes:
@@ -1320,7 +1343,7 @@ def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
         if not ok:
             raise SystemExit("slot verdict False on valid aggregates")
     med = statistics.median(times)
-    log(f"slot 1000x4-of-6 (verify={impl.verify}): median {med:.4f} s, runs "
+    log(f"slot 1000x4-of-6 (verify={impl.rung}): median {med:.4f} s, runs "
         + ", ".join(f"{t:.4f}" for t in times)
         + f"; pairing share {statistics.median(shares):.4f}; phases of the last run: "
         + ", ".join(f"{k} {v:.4f} s" for k, v in vars(impl.last_times).items()))
@@ -1516,6 +1539,333 @@ def committee_slot(pool, jobs, pubkeys) -> dict:
     log(f"chunked check {n} pairs (chunks {spans}): True in {dt:.3f} s; pair {last} of the "
         "last chunk tampered gives False")
     return path_counts()
+
+
+# ---------------------------------------------------------------------------
+# Bulk verify (phase 6): peers' partial-signature sets through verify_batch
+# ---------------------------------------------------------------------------
+
+BULK_VALIDATORS, BULK_PEERS, BULK_ATTESTERS = 500, 5, 400
+# mixed duties: validators 0-399 sign an attestation root, 400-499 a
+# sync-committee root
+ATT_ROOT, SYNC_ROOT = b"\xa7" * 32, b"\x5c" * 32
+INF96, INF48 = b"\xc0" + bytes(95), b"\xc0" + bytes(47)
+# G2's cofactor: its smallest prime is 13 (13^2 | h2); it has no factor 3
+G2_COFACTOR = 0x5D543A95414E7F1091D50792876A202CD91DE4547085ABAA68A205B2E5A7DDFA628F1CB4D9E82EF21537E293A6691AE1616EC6E786F0C70CF1C38E31C7238E5
+# the bulk verify's launches by step (plane_agg.rlc_verify_dispatch's
+# marks), two message groups, at a chunk bucket of up to 1,024: a pk
+# chunk's decode on a miss (G1 decompression 7, subgroup check 5) and each
+# chunk's G2 decompression 19, subgroup check 5 (pt_mul_shared<2> at X_ABS,
+# a level of negations, 3 product levels) and MSM 10 (one
+# pt_mul_windowed<2>, three trees of 3 pt_add<2> levels): the exact counts
+# of tests/test_torch_verify_chunks.py
+VERIFY_CHUNK_LAUNCHES = {
+    "pk plane": {"fe_mul": {1: 7}, "fe_addsub": {1: 3}, "fe_pow": {"plane": 1},
+                 "pt_mul_shared": {1: 1}},
+    "chunk": {"fe_mul": {1: 9, 2: 5}, "fe_addsub": {1: 5, 2: 2}, "fe_pow": {"plane": 2},
+              "pt_mul_shared": {2: 1}, "pt_mul_windowed": {2: 1}, "pt_add": {2: 9}},
+}
+
+
+def bulk_sets(pool):
+    """500 validators at 4-of-6 from the probe's seed (99); peer i (1-5)
+    holds share i of each: its inbound set is the triples (share i's
+    pubkey, validator v's root, share i's partial over it) for every v.
+    Returns {peer: (pks, msgs, sigs)}."""
+    rng = random.Random(99)
+    shares = [shamir_split(rng.randrange(1, PF.R), NUM_SHARES, THRESHOLD, rng)
+              for _ in range(BULK_VALIDATORS)]
+    msgs = [ATT_ROOT if v < BULK_ATTESTERS else SYNC_ROOT for v in range(BULK_VALIDATORS)]
+    jobs = [(i, v) for i in range(1, BULK_PEERS + 1) for v in range(BULK_VALIDATORS)]
+    pks = list(pool.map(lambda t: _pubkey(shares[t[1]][t[0]]), jobs))
+    sigs = list(pool.map(lambda t: _sign(shares[t[1]][t[0]], msgs[t[1]]), jobs))
+    n = BULK_VALIDATORS
+    return {i: (pks[(i - 1) * n:i * n], list(msgs), sigs[(i - 1) * n:i * n])
+            for i in range(1, BULK_PEERS + 1)}
+
+
+def off_subgroup_g2(sig: bytes) -> tuple:
+    """Two G2 encodings on the curve and outside the subgroup, each checked
+    natively: a point decompressed from an x = (x0, 1), not cofactor-cleared,
+    and `sig` plus a point of order 13 made from such a point (the curve's
+    group exponent is r·h2/13, so [r·h2/13²]P has order 13 where it is not
+    ∞)."""
+    x0 = 1
+    while True:
+        x = (x0, 1)
+        y = PF.fq2_sqrt(PF.fq2_add(PF.fq2_mul(PF.fq2_sqr(x), x), PC.B_G2))
+        if y is not None:
+            raw = (x, y, (1, 0))
+            t13 = _mul_any(PC.Fq2Ops, raw, PF.R * G2_COFACTOR // 169)
+            if not PC.jac_is_infinity(PC.Fq2Ops, t13):
+                break
+        x0 += 1
+    if not PC.jac_is_infinity(PC.Fq2Ops, _mul_any(PC.Fq2Ops, t13, 13)):
+        raise SystemExit("off_subgroup_g2: the point's order is not 13")
+    mixed = PC.jac_add(PC.Fq2Ops, PC.to_jacobian(PC.Fq2Ops, g2_affine_from_bytes(sig)), t13)
+    out = g2_to_bytes(raw), g2_to_bytes(mixed)
+    if any(native.g2_check(b) for b in out):
+        raise SystemExit("off_subgroup_g2: native ct_g2_check accepts a point built outside "
+                         "the subgroup")
+    return out
+
+
+def _coefs(n: int, seed: str) -> list[int]:
+    rng = random.Random(seed)
+    return [rng.randrange(1, 1 << 64) for _ in range(n)]
+
+
+def bulk_gates(sets, device) -> None:
+    """One peer's set (500 triples, one 512-lane chunk) on both rungs of
+    TorchImpl().verify_batch: valid True; the validator-137 triple's partial
+    replaced by another share's, its signature infinity, a raw curve point
+    or the partial plus an order-13 point, its flag byte cleared, its
+    pubkey infinity: False; each verdict native ct_verify_batch's, and the
+    altered triple's per-item ct_verify False. The burst (2,500 triples,
+    chunks 1,024 / 1,024 / 452): valid True and a partial of the last chunk
+    replaced False on both rungs, as natively."""
+    pks, msgs, sigs = sets[1]
+    k = 137 % len(pks)
+    raw, mixed = off_subgroup_g2(sigs[k])
+    cases = {"valid": (pks, sigs), "another share": (pks, sigs[:k] + [sets[2][2][k]] + sigs[k + 1:]),
+             "infinity sig": (pks, sigs[:k] + [INF96] + sigs[k + 1:]),
+             "raw curve point": (pks, sigs[:k] + [raw] + sigs[k + 1:]),
+             "order-13 component": (pks, sigs[:k] + [mixed] + sigs[k + 1:]),
+             "bad flag": (pks, sigs[:k] + [bytes([sigs[k][0] & 0x7F]) + sigs[k][1:]] + sigs[k + 1:]),
+             "infinity pk": (pks[:k] + [INF48] + pks[k + 1:], sigs)}
+    burst = [sum((list(sets[i][c]) for i in sets), []) for c in range(3)]
+    last = len(burst[0]) - 2
+    tampered = burst[2][:last] + [burst[2][last - 1]] + burst[2][last + 1:]
+    n1, n5 = f"{len(pks):,} triples", f"{len(burst[0]):,} triples"
+    runs = [(f"{n1}, {name}", p, msgs, sg, name == "valid") for name, (p, sg) in cases.items()]
+    runs += [(f"{n5}, valid", burst[0], burst[1], burst[2], True),
+             (f"{n5}, a partial of the last chunk replaced", burst[0], burst[1], tampered, False)]
+    impls = {rung: TorchImpl(verify=rung) for rung in PA.VERIFY_PATHS}
+    for label, p, m, sg, want in runs:
+        nat = native.verify_batch(p, m, sg, _coefs(len(p), label))
+        got = {rung: impl.verify_batch(p, m, sg) for rung, impl in impls.items()}
+        if not (nat is want and all(v is want for v in got.values())):
+            raise SystemExit(f"bulk verify {label}: device rung {got['device']}, native rung "
+                             f"{got['native']}, native ct_verify_batch {nat}, expected {want}")
+        extra = ""
+        if not want and label.startswith(n1):
+            if native.verify(p[k], m[k], sg[k]):
+                raise SystemExit(f"bulk verify {label}: native ct_verify accepts the altered triple")
+            extra = "; the altered triple's ct_verify False"
+        log(f"bulk verify {label}: {want} on both rungs, as native ct_verify_batch{extra}")
+
+
+def bulk_steps(triples, device, label: str) -> None:
+    """The launches of each step of a first (pk planes decoded) and a
+    steady verify_batch (dispatch by rlc_verify_dispatch's marks, then the
+    fold and the device pairing), which must be VERIFY_CHUNK_LAUNCHES by
+    chunk, and each step's synchronised wall."""
+    pk_cache, h2c = PA.PkPlaneCache(), PA.H2CCache()
+    n_chunks = len(PA.verify_chunks(len(triples[0])))
+    for kind in ("first", "steady"):
+        steps, last = [], [0.0]
+
+        def mark(name: str) -> None:
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - last[0]) * 1e3
+            steps.append((name, {k: {v: c for v, c in kern.launches.items() if c}
+                                 for k, kern in CP.KERNELS.items() if sum(kern.launches.values())},
+                          ms))
+            CP.reset_counts()
+            last[0] = time.perf_counter()
+
+        CP.reset_counts()
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()
+        state = PA.rlc_verify_dispatch(*triples, device, pk_cache, mark=mark)
+        folded = PA.rlc_fold(state)
+        mark("readback + host folds")
+        if folded is None or not PA.pairing_finish(*folded, h2c, {}, "device", device):
+            raise SystemExit(f"bulk steps {label}: False on valid triples")
+        mark("device pairing")
+        want_pk = {} if kind == "steady" else {
+            name: {v: n_chunks * c for v, c in per.items()}
+            for name, per in VERIFY_CHUNK_LAUNCHES["pk plane"].items()}
+        if steps[0][1] != want_pk or any(c != VERIFY_CHUNK_LAUNCHES["chunk"]
+                                         for _n, c, _ms in steps[1:1 + n_chunks]):
+            raise SystemExit(f"bulk steps {label} ({kind}): launches by step "
+                             f"{[(n, c) for n, c, _ms in steps]}, not VERIFY_CHUNK_LAUNCHES")
+        log(f"bulk steps {label} ({kind}): " + "; ".join(
+            f"{name} {sum(sum(v.values()) for v in c.values())} launches {ms:.2f} ms"
+            for name, c, ms in steps) + " (synchronised wall; launches by chunk as on the CPU)")
+
+
+def bulk_verify(pool, smi: str) -> dict:
+    """Phase 6: BASELINE config 3 at full size. The main path, every count
+    at 0 just before: a fresh TorchImpl().verify_batch (device rung) on one
+    peer's set and on the burst of five (pk planes decoded, H(m) hashed on
+    the device); then the gates, the launches by chunk, and per size and
+    rung the median of 3 steady verify_batch walls beside native
+    ct_verify_batch's on the same triples. Returns what the counters held
+    after the main path (path_counts)."""
+    t0 = time.perf_counter()
+    sets = bulk_sets(pool)
+    log(f"bulk verify probe: {BULK_VALIDATORS} validators x {THRESHOLD}-of-{NUM_SHARES} "
+        f"({BULK_ATTESTERS} attestation, {BULK_VALIDATORS - BULK_ATTESTERS} sync-committee roots), "
+        f"{BULK_PEERS} peers' sets signed natively in {time.perf_counter() - t0:.1f} s")
+    one = sets[1]
+    burst = tuple(sum((list(sets[i][c]) for i in sets), []) for c in range(3))
+    impl = TorchImpl()
+    CP.reset_counts()
+    oks = [impl.verify_batch(*one), impl.verify_batch(*burst)]
+    counts = path_counts()
+    launched = {(k, E): CP.KERNELS[k].launches[E] for k in CP.KERNELS for E in CP.KERNELS[k].variants}
+    if oks != [True, True]:
+        raise SystemExit(f"bulk verify main path: verdicts {oks} on valid triples")
+    missing = [f"{k}<{E}>" for (k, E), c in launched.items() if c == 0 and (k, E) not in OFF_PATH]
+    off = [f"{k}<{E}>={launched[k, E]}" for k, E in OFF_PATH if launched[k, E]]
+    if missing or off:
+        raise SystemExit(f"bulk verify main path launched no {missing}, and {off}")
+    log(f"bulk verify main path ({len(one[0]):,}, then {len(burst[0]):,} triples, first: pk "
+        "planes decoded, H(m) hashed on the device): launches "
+        + ", ".join(f"{k}<{E}>={c}" for (k, E), c in launched.items()))
+    bulk_gates(sets, impl.device)
+    for triples in (one, burst):
+        bulk_steps(triples, impl.device, f"{len(triples[0]):,} triples")
+    for triples in (one, burst):
+        label = f"{len(triples[0]):,}"
+        for rung in PA.VERIFY_PATHS:
+            rimpl = TorchImpl(verify=rung)
+            rimpl.verify_batch(*triples)
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                if not rimpl.verify_batch(*triples):
+                    raise SystemExit(f"bulk verify {label} ({rung}): False on valid triples")
+                walls.append(time.perf_counter() - t0)
+            nat = []
+            for r in range(3):
+                coefs = _coefs(len(triples[0]), f"{label} {r}")
+                t0 = time.perf_counter()
+                if not native.verify_batch(*triples, coefs):
+                    raise SystemExit(f"bulk verify {label}: native ct_verify_batch False")
+                nat.append(time.perf_counter() - t0)
+            log(f"bulk verify {label} triples (verify={rung}, steady): median "
+                f"{statistics.median(walls):.4f} s, runs " + ", ".join(f"{w:.4f}" for w in walls)
+                + f"; native ct_verify_batch median {statistics.median(nat):.4f} s, runs "
+                + ", ".join(f"{w:.4f}" for w in nat) + f" ({smi})")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# The pipeline (phase 7): slots through threshold_aggregate_verify_submit
+# ---------------------------------------------------------------------------
+
+PIPE_MSGS = [bytes([0x70 + k]) * 32 for k in range(4)]
+
+
+PIPE_ROUNDS = 3
+
+
+def pipeline_phase(pool, jobs, pubkeys, smi: str) -> None:
+    """Phase 7: four 1000 x 4-of-6 slots of the probe's keys, each over its
+    own message, submitted back to back through the submit front door (the
+    device's slot thread): every future's aggregates byte-identical to the
+    serial threshold_aggregate_verify_batch's, every verdict True, and the
+    submitted slots' launches exactly 4 times a steady serial slot's (the
+    counters hold a lock: the slot thread counts beside this one); a slot
+    with one tampered partial between two others gives False and leaves
+    theirs untouched; the overlapped call gives the same bytes. Then
+    PIPE_ROUNDS rounds of the four slots serial and submitted, in turns:
+    the submitted median may exceed the serial median by no more than the
+    spread of either set (max - min), the front door of core/sigagg being
+    the submitted one."""
+    slots = [sign_cluster(pool, jobs, [m] * N_VALIDATORS) for m in PIPE_MSGS]
+    datas = [[m] * N_VALIDATORS for m in PIPE_MSGS]
+    impl = TorchImpl()
+    want = [impl.threshold_aggregate_verify_batch(b, pubkeys, d) for b, d in zip(slots, datas)]
+    if not all(ok for _a, ok in want):
+        raise SystemExit("pipeline phase: a serial slot verified False")
+    CP.reset_counts()
+    impl.threshold_aggregate_verify_batch(slots[0], pubkeys, datas[0])
+    per_slot = sum(sum(k.launches.values()) for k in CP.KERNELS.values())
+
+    def serial():
+        """The four slots one after another: (wall s, results)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [impl.threshold_aggregate_verify_batch(b, pubkeys, d)
+               for b, d in zip(slots, datas)]
+        return time.perf_counter() - t0, got
+
+    returned = []
+
+    def submitted():
+        """The four slots submitted back to back: (wall s, results); the
+        seconds the four calls took to return go to `returned`."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futs = [impl.threshold_aggregate_verify_submit(b, pubkeys, d)
+                for b, d in zip(slots, datas)]
+        returned.append(time.perf_counter() - t0)
+        got = [f.result() for f in futs]
+        return time.perf_counter() - t0, got
+
+    CP.reset_counts()
+    _s, got = submitted()
+    launches = sum(sum(k.launches.values()) for k in CP.KERNELS.values())
+    for k, ((aggs, ok), (w_aggs, _w)) in enumerate(zip(got, want)):
+        if ok is not True or [bytes(a) for a in aggs] != [bytes(a) for a in w_aggs]:
+            raise SystemExit(f"pipeline slot {k}: verdict {ok}, aggregates "
+                             f"{sum(bytes(a) == bytes(w) for a, w in zip(aggs, w_aggs))}/"
+                             f"{N_VALIDATORS} byte-identical to the serial call's")
+    if launches != 4 * per_slot:
+        raise SystemExit(f"pipeline: 4 submitted slots launched {launches}, a serial slot "
+                         f"{per_slot}")
+    log(f"pipeline: 4 slots submitted to the slot thread, each over its own message: 4/4 "
+        f"futures byte-identical to the serial call and True; {launches} launches = 4 x "
+        f"{per_slot} of a steady serial slot")
+    v17, v18 = 17 % len(jobs), 18 % len(jobs)
+    tampered = [dict(b) for b in slots[2]]
+    first = sorted(tampered[v17])[0]
+    tampered[v17][first] = slots[2][v18][sorted(slots[2][v18])[0]]
+    futs = [impl.threshold_aggregate_verify_submit(b, pubkeys, d)
+            for b, d in ((slots[0], datas[0]), (tampered, datas[2]), (slots[1], datas[1]))]
+    (a0, ok0), (_at, ok_t), (a1, ok1) = [f.result() for f in futs]
+    if ok_t or not (ok0 and ok1) or a0 != want[0][0] or a1 != want[1][0]:
+        raise SystemExit(f"pipeline tampered slot: verdicts {ok0}, {ok_t}, {ok1}")
+    log("pipeline: a slot with one tampered partial between two others gives False; theirs "
+        "True and byte-identical")
+    aggs, ok = impl.threshold_aggregate_verify_overlapped(slots[3], pubkeys, datas[3])
+    if not ok or aggs != want[3][0]:
+        raise SystemExit("pipeline: the overlapped call differs from the serial one")
+    log("pipeline: threshold_aggregate_verify_overlapped gives the serial call's bytes, True")
+    walls = {"serial": [], "submitted": []}
+    for r in range(PIPE_ROUNDS):
+        for name, run in (("serial", serial), ("submitted", submitted))[::1 - 2 * (r % 2)]:
+            wall, got = run()
+            if any(not ok or aggs != w for (aggs, ok), (w, _w) in zip(got, want)):
+                raise SystemExit(f"pipeline walls: a {name} slot differs from the first "
+                                 f"serial call")
+            walls[name].append(wall)
+    med = {name: statistics.median(w) for name, w in walls.items()}
+    spread = max(max(w) - min(w) for w in walls.values())
+    log(f"pipeline walls, 4 slots ({PIPE_ROUNDS} rounds in turns, s): submitted median "
+        f"{med['submitted']:.4f}, runs {', '.join(f'{w:.4f}' for w in walls['submitted'])}; "
+        f"serial median {med['serial']:.4f}, runs "
+        f"{', '.join(f'{w:.4f}' for w in walls['serial'])}; spread {spread:.4f}; the four "
+        f"submit calls returned in at most {max(returned) * 1e3:.2f} ms (steady: pk "
+        f"plane and H(m) cached; device verify; interpreter switch interval "
+        f"{sys.getswitchinterval() * 1e3:.1f} ms; {smi})")
+    if med["submitted"] > med["serial"] + spread:
+        raise SystemExit(f"pipeline: 4 submitted slots {med['submitted']:.4f} s exceed 4 serial "
+                         f"{med['serial']:.4f} s by more than the spread {spread:.4f} s")
+
+
+def merge_counts(*runs) -> dict:
+    """path_counts of several runs, added."""
+    out = {"widths": {}, "cases": {}}
+    for run in runs:
+        for part in ("widths", "cases"):
+            for name, counts in run[part].items():
+                acc = out[part].setdefault(name, collections.Counter())
+                acc.update(counts)
+    return {part: {name: dict(c) for name, c in d.items()} for part, d in out.items()}
 
 
 def rfc_vector(device) -> None:
@@ -2058,12 +2408,24 @@ def main(argv: list[str]) -> int:
         # the headline slot did not (h2c's scans, the tower and the cofactor
         # clear at 64 messages, the pairing at 65 and 1,040 pairs), held and
         # timed too
-        more_rows, more = other_cases(committee_slot(pool, jobs, pubkeys), slot)
+        committee = committee_slot(pool, jobs, pubkeys)
+        more_rows, more = other_cases(committee, slot)
         for key, row in {**check_fe(device, fe_cases(more), reps=50, floor_ms=floor_ms),
                          **check_rows_kernels(device, more_rows, reps=50),
                          **check_pow(device, more["fe_pow"], reps=20),
                          **check_mul(device, mul_cases(more), reps=3)}.items():
             rows[key]["committee_by_width"] = row["by_width"]
+        # the bulk verify, then every case it launched that the headline
+        # slot and the committee phase did not (pt_mul_shared<2> at X_ABS,
+        # the chunks' field levels, fe_pow and pt_mul_windowed<2> widths,
+        # the pairing and hash-to-G2 at 2 messages), held and timed
+        bulk_rows, bulk = other_cases(bulk_verify(pool, smi), merge_counts(slot, committee))
+        for key, row in {**check_fe(device, fe_cases(bulk), reps=50, floor_ms=floor_ms),
+                         **check_rows_kernels(device, bulk_rows, reps=50),
+                         **check_pow(device, bulk["fe_pow"], reps=20),
+                         **check_mul(device, mul_cases(bulk), reps=3)}.items():
+            rows.setdefault(key, row)["bulk_verify_by_width"] = row["by_width"]
+        pipeline_phase(pool, jobs, pubkeys, smi)
     rfc_vector(device)
     torch.cuda.synchronize()
     if "--profile" in argv:

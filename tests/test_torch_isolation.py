@@ -3,6 +3,7 @@ by charon_tpu_torch or chip_smoke.py, and its entry points never pick a
 device on their own."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -69,6 +70,62 @@ def test_port_process_never_loads_jax_or_the_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+# the modules of the tbls backend, each imported on its own in order, then
+# its bulk verify and its submit front door driven in the same process
+BACKEND_MODULES = ("charon_tpu_torch.native", "charon_tpu_torch.ops.policy",
+                   "charon_tpu_torch.ops.plane_agg", "charon_tpu_torch.tbls.scalar",
+                   "charon_tpu_torch.tbls.torch_impl")
+
+_BACKEND = r"""
+import importlib, json, random, sys
+def forbidden():
+    return sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                  or m == "charon_tpu" or m.startswith("charon_tpu."))
+seen = {}
+for name in BACKEND_MODULES:
+    importlib.import_module(name)
+    seen[name] = forbidden()
+import torch
+torch.set_num_threads(1)
+from charon_tpu_torch import native
+from charon_tpu_torch.crypto import fields as PF
+from charon_tpu_torch.tbls.torch_impl import TorchImpl
+rng = random.Random(5)
+sks = [rng.randrange(1, PF.R).to_bytes(32, "big") for _ in range(2)]
+msgs = [b"\x01" * 32, b"\x02" * 32]
+impl = TorchImpl(device="cpu", verify="native")
+ok = impl.verify_batch([native.pubkey(k) for k in sks], msgs,
+                       [native.sign(k, m) for k, m in zip(sks, msgs)])
+coeffs = [rng.randrange(1, PF.R), rng.randrange(PF.R)]
+share = {i: (coeffs[0] + coeffs[1] * i) % PF.R for i in (1, 2)}
+batch = {i: native.sign(s.to_bytes(32, "big"), msgs[0]) for i, s in share.items()}
+aggs, ok2 = impl.threshold_aggregate_verify_submit(
+    [batch], [native.pubkey(coeffs[0].to_bytes(32, "big"))], msgs[:1]).result(timeout=300)
+seen["runtime"] = forbidden()
+print("RESULT", json.dumps({"ok": [ok, ok2], "seen": seen}))
+""".replace("BACKEND_MODULES", repr(BACKEND_MODULES))
+
+
+@pytest.fixture(scope="module")
+def backend_imports():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _BACKEND], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT "))
+    return json.loads(line[len("RESULT "):])
+
+
+@pytest.mark.parametrize("module", BACKEND_MODULES + ("runtime",))
+def test_backend_modules_load_no_jax(backend_imports, module):
+    """Each module of the tbls backend loads neither jax nor charon_tpu when
+    it is imported, directly or transitively, and neither does a bulk
+    verify and a slot through the submit front door ("runtime"), which
+    verify True."""
+    assert backend_imports["ok"] == [True, True]
+    assert backend_imports["seen"][module] == []
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))

@@ -98,7 +98,7 @@ def test_slot_bytes_and_verdict_match_the_jax_package(slot):
         slot["batches"], slot["pks"], slot["datas"])
     assert slot["ok"] is True and ref_ok is True
     assert [bytes(a) for a in slot["aggs"]] == [bytes(a) for a in ref_aggs]
-    assert slot["impl"].verify == "device"
+    assert slot["impl"].rung == "device"
 
 
 def test_pairing_path_counts_pairs(slot):
