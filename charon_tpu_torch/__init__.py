@@ -16,4 +16,7 @@ Package layout:
              the slot and the bulk verify (plane_agg), the H(m) cache cap
              from the environment (policy), JAX-plane <-> tensor conversion
   tbls/      TorchImpl, the whole tbls backend
+  dkg/       FROST keygen, its batched generator multiplications and share
+             checks on the card
+  utils/     own copies of the reference's errors
 """

@@ -3,7 +3,8 @@
 The port's own copy of the parts of the reference oracle
 (charon_tpu/crypto/curve.py) the slices use: the host fold of the MSM
 reductions (jac_add), affine conversion, the scalar multiplication behind
-the G1 endomorphism constants, and the G2 effective cofactor of
+the G1 endomorphism constants and the FROST share check's host terms, the
+G1 subgroup test of the G1 decoder, and the G2 effective cofactor of
 hash-to-curve (H_EFF_G2).
 
 G1: y^2 = x^3 + 4 over Fq;  G2: y^2 = x^3 + 4(u+1) over Fq2.
@@ -145,6 +146,11 @@ def jac_add(ops, p1, p2):
     return (X3, Y3, Z3)
 
 
+def jac_neg(ops, pt):
+    X, Y, Z = pt
+    return (X, ops.neg(Y), Z)
+
+
 def jac_mul(ops, pt, k: int):
     """Scalar multiplication by k mod R, MSB-first double-and-add."""
     k %= F.R
@@ -156,6 +162,34 @@ def jac_mul(ops, pt, k: int):
         if bit == "1":
             acc = jac_add(ops, acc, pt)
     return acc
+
+
+def is_on_curve(ops, affine, b):
+    if affine is None:
+        return True
+    x, y = affine
+    return ops.sqr(y) == ops.add(ops.mul(ops.sqr(x), x), b)
+
+
+def mul_full(ops, pt, k: int):
+    """Scalar multiplication WITHOUT reducing k mod R (subgroup checks)."""
+    if k == 0 or jac_is_infinity(ops, pt):
+        return jac_infinity(ops)
+    acc = jac_infinity(ops)
+    for bit in bin(abs(k))[2:]:
+        acc = jac_double(ops, acc)
+        if bit == "1":
+            acc = jac_add(ops, acc, pt)
+    return jac_neg(ops, acc) if k < 0 else acc
+
+
+def g1_in_subgroup(pt) -> bool:
+    aff = to_affine(FqOps, pt)
+    if aff is None:
+        return True
+    if not is_on_curve(FqOps, aff, B_G1):
+        return False
+    return jac_is_infinity(FqOps, mul_full(FqOps, pt, F.R))
 
 
 def g1_generator():

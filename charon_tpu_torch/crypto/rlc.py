@@ -1,4 +1,5 @@
-"""Random-linear-combination randomizers for the slot's batch verify.
+"""Random-linear-combination randomizers for the slot's batch verify and
+the FROST ceremony's batched share check.
 
 A forged batch passes the RLC check with probability <= 2^-RLC_BITS over
 the randomizers, so they come from the OS CSPRNG (`secrets`), never from a
@@ -12,6 +13,11 @@ import secrets
 import numpy as np
 
 RLC_BITS = 64
+
+
+def sample_randomizer() -> int:
+    """One nonzero RLC_BITS-bit randomizer (low bit forced so none is 0)."""
+    return secrets.randbits(RLC_BITS) | 1
 
 
 def sample_randomizers(n: int) -> np.ndarray:

@@ -5,7 +5,9 @@ and hash-to-G2 (`ct_hash_to_g2`); TorchImpl's key-material calls go through
 `ct_pubkey`, `ct_sign`, `ct_verify`, `ct_aggregate_g1` and `ct_aggregate_g2`,
 as the reference's NativeImpl does (charon_tpu/tbls/native_impl.py:131-227);
 `chip_smoke.py` also builds its inputs and oracles with `ct_lincomb_g2`,
-`ct_verify_batch` and `ct_g2_check`. Only those symbols are declared, with
+`ct_verify_batch` and `ct_g2_check`. The port's FROST (dkg/frost.py) checks
+its commitments through `ct_g1_lincomb` (its native rung, as the
+reference's frost.py:59-64), and `ct_g1_check` is the G1 oracle. Only those symbols are declared, with
 the reference's argtypes (native_impl.py:37-75). Like the reference loader,
 `load_library()` first runs `make -C native` (a no-op when the library is
 fresh) and then the library's selftest.
@@ -18,6 +20,8 @@ import os
 import subprocess
 import sys
 import threading
+
+from .crypto import fields as PF
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
@@ -41,6 +45,8 @@ _SIG = {
     "ct_lincomb_g2": ([_S, _S, _N, _P], ctypes.c_int),
     "ct_verify_batch": ([_S, _S, ctypes.POINTER(ctypes.c_uint64), _S, _S, _N], ctypes.c_int),
     "ct_g2_check": ([_S], ctypes.c_int),
+    "ct_g1_check": ([_S], ctypes.c_int),
+    "ct_g1_lincomb": ([_S, _S, _N, _P], ctypes.c_int),
 }
 
 _lock = threading.Lock()
@@ -138,3 +144,19 @@ def g2_check(sig: bytes) -> bool:
     """True iff the compressed G2 point decodes onto the curve and lies in
     the r-subgroup (infinity passes)."""
     return load_library().ct_g2_check(bytes(sig)) == 1
+
+
+def g1_check(pk: bytes) -> bool:
+    """True iff the compressed G1 point decodes onto the curve and lies in
+    the r-subgroup (infinity passes)."""
+    return load_library().ct_g1_check(bytes(pk)) == 1
+
+
+def g1_lincomb(points: list[bytes], scalars: list[int]) -> bytes | None:
+    """Σ (kᵢ mod r)·Pᵢ over compressed G1 points, compressed; None when a
+    point does not decode (no subgroup check)."""
+    out = (ctypes.c_uint8 * 48)()
+    rc = load_library().ct_g1_lincomb(
+        b"".join(bytes(p) for p in points),
+        b"".join((s % PF.R).to_bytes(32, "big") for s in scalars), len(points), out)
+    return bytes(out) if rc == 0 else None

@@ -25,6 +25,9 @@
 //                         also the cofactor clear of charon_tpu/ops/h2c.py)
 //   pt_mul_windowed<E> -> _scalar_mul_windowed (per-element k*P from 4-bit
 //                         digit planes)
+// and one sums a plane by groups, where the reference masks the plane once a
+// group and runs _reduce_tree_jit's pt_add levels and the host fold:
+//   pt_reduce_groups<E> (E = 1 launched) -> _reduce_tree_jit + _host_fold
 // and one more stands for XLA-op code of the reference's rows field plane
 // (charon_tpu/ops/field.py fq_add / fq_sub / fq_neg):
 //   fe_add_rows (adds, then subtracts past a split; at n_add = 0 a
@@ -67,8 +70,9 @@
 // lane-split fq_mul_split. The scalar multiplications keep each point's
 // scratch for the whole chain of steps: pt_mul_shared a group of threads a
 // point, pt_mul_windowed a point a lane, the block's ranks of lanes running
-// a level's operations (see "Scalar multiplication" below). Later work: the
-// reduction tree in one kernel.
+// a level's operations (see "Scalar multiplication" below); pt_reduce_groups
+// runs pt_mul_windowed's add on accumulators (see "The masked group
+// reduction" below).
 #include <cuda_runtime.h>
 
 #include "fp.cuh"
@@ -1392,6 +1396,107 @@ __global__ void __launch_bounds__(WinTraits<E, P, T, R>::kThreads)
     }
 }
 
+// ---------------------------------------------------------------------------
+// The masked group reduction: per-group sums of a plane of points
+// ---------------------------------------------------------------------------
+//
+// pt_reduce_groups<E> replaces what the reference runs for each group g of
+// the FROST share check's MSM (charon_tpu/ops/plane_agg.py:1661, :1683) and
+// for the RLC MSM of msm_sum (pallas_plane.py:754): jnp.where(gmask[g], P,
+// 0), the lane- and sublane-halving pt_add levels of _reduce_tree_jit
+// (pallas_plane.py:763) and the host's 127 bigint adds of _host_fold (:778),
+// here for every group of a call at once and to one point each: out[g] = the
+// sum of the lanes i with gid[i] == g (an id outside [0, G), -1 for padding,
+// is in no group; an empty group gives infinity, all zeros).
+//
+// The adds are pt_mul_windowed's win_add, pt_add_kernel's unified add and
+// selects (P + P, P + (-P), inf + Q, inf + inf) on the same block shape: a
+// block holds kRedPoints accumulators as its points (a point on kRedLanes
+// lanes, products split over them) and kRedRanks ranks of lanes, the add's
+// addend in slots past the scratch. Two launches a call:
+//   1. a block (g, b) for each group and span of kRedSpan lanes: from zeros,
+//      accumulator l adds lane b * kRedSpan + j * kRedPoints + l at step j
+//      where that lane is in g, zeros where it is not (the reference's
+//      masked plane), then the accumulators are folded in halving steps
+//      (l += l + h for l < h; the others add zeros) into a partial sum, at
+//      element g * nb + b of a scratch plane (nb spans);
+//   2. a block a group folds its nb partials the same way.
+// The plain version (ops/curve.py pt_reduce_groups_plain) adds in this
+// order, so the Jacobian words are its own bit for bit; its sum is the
+// reference's as an affine point (another tree order gives another
+// representative).
+//
+// What bounds it: the chain of dependent adds, as pt_mul_windowed. A call at
+// 1,024 lanes and 4 groups moves 148 KB (each lane's X, Y, Z and id read
+// once) against 1,024 adds of 4 Fq squares and 12 products (~8.9 M
+// multiply-adds): ~0.53 us at the card's integer rate. Its chain is 8 + 3
+// adds in the first launch and 2 + 3 in the second, ~6 us an add: ~100 us a
+// call on the H100 (PERF.md).
+constexpr int kRedPoints = 8;
+constexpr int kRedLanes = 4;
+constexpr int kRedRanks = 8;
+constexpr int kRedSpan = 64;         // lanes a block of the first launch
+
+template <int E>
+struct RedTraits {
+    typedef WinTraits<E, kRedPoints, kRedLanes, kRedRanks> W;
+    static constexpr int kA = W::kScratch;                   // the addend's slots
+    static constexpr int kWords = (W::kScratch + 3 * E) * 3 * kRedPoints;   // uint4s
+};
+
+// Block k = g * nb + b of the grid: accumulator l adds element base + i of
+// the planes (limb stride ld), i = b * span + j * kRedPoints + l for j <
+// span / kRedPoints, where i < n and (gid null or gid[i] == g); base = 0
+// with gid, else g * n (n elements a group, the partials of launch 1). The
+// block's sum goes to element k of the outputs (limb stride ldo).
+template <int E>
+__global__ void __launch_bounds__(kRedPoints * kRedLanes * kRedRanks)
+    pt_reduce_groups_kernel(const uint32_t* x, const uint32_t* y, const uint32_t* z, long long ld,
+                            long long n, const int* gid, int nb, int span, uint32_t* ox,
+                            uint32_t* oy, uint32_t* oz, long long ldo) {
+    constexpr int P = kRedPoints, T = kRedLanes, R = kRedRanks, kA = RedTraits<E>::kA;
+    __shared__ __align__(16) uint4 sm[RedTraits<E>::kWords];
+    uint32_t* const smw = reinterpret_cast<uint32_t*>(sm);
+    const int g = blockIdx.x / nb, b = blockIdx.x % nb;
+    const int rank = threadIdx.x / (P * T), l = win_point<P, T>();
+    const int first = rank * T + threadIdx.x % T, step = R * T;
+    const long long base = gid ? 0 : (long long)g * n;
+    const uint32_t* const src[3] = {x, y, z};
+    // accumulators from zeros
+#pragma unroll 1
+    for (int i = first; i < 9 * E; i += step) sm[(i / 3 * 3 + i % 3) * P + l] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll 1
+    for (int j = 0; j < span / P; ++j) {
+        const long long i = (long long)b * span + j * P + l;
+        const bool take = i < n && (!gid || gid[i] == g);
+#pragma unroll 1
+        for (int w = first; w < 3 * E * FP_LIMBS; w += step) {
+            const int c = w / (E * FP_LIMBS), ej = w % (E * FP_LIMBS), q = ej % FP_LIMBS;
+            smw[(((kA + c * E + ej / FP_LIMBS) * 3 + q / 4) * P + l) * 4 + q % 4] =
+                take ? src[c][ej * ld + base + i] : 0u;
+        }
+        __syncthreads();
+        win_add<E, P, T, R>(sm, rank, kA);
+    }
+#pragma unroll 1
+    for (int h = P / 2; h >= 1; h /= 2) {
+#pragma unroll 1
+        for (int i = first; i < 9 * E; i += step)
+            sm[((kA + i / 3) * 3 + i % 3) * P + l] =
+                l < h ? sm[(i / 3 * 3 + i % 3) * P + l + h] : make_uint4(0u, 0u, 0u, 0u);
+        __syncthreads();
+        win_add<E, P, T, R>(sm, rank, kA);
+    }
+    uint32_t* const dst[3] = {ox, oy, oz};
+#pragma unroll 1
+    for (int w = first; w < 3 * E * FP_LIMBS; w += step) {
+        const int c = w / (E * FP_LIMBS), ej = w % (E * FP_LIMBS), q = ej % FP_LIMBS;
+        if (l == 0)
+            dst[c][ej * ldo + blockIdx.x] =
+                smw[(((c * E + ej / FP_LIMBS) * 3 + q / 4) * P + l) * 4 + q % 4];
+    }
+}
+
 inline unsigned grid_for(long long n) { return (unsigned)((n + kBlock - 1) / kBlock); }
 inline unsigned point_blocks(long long n) { return (unsigned)((n + kPoints - 1) / kPoints); }
 
@@ -1461,6 +1566,26 @@ int mul_windowed_launch(const void* x, const void* y, const void* z, void* ox, v
     else
         return mul_windowed_launch<2, kWin2WidePoints, kWin2Lanes, kWin2Ranks>(
             x, y, z, ox, oy, oz, n, digits, n_win, s);
+}
+
+// Two launches: the spans' partial sums into `scratch` (3 planes of E * 12
+// rows of G * nb words), then each group's nb partials into the outputs.
+template <int E>
+int reduce_groups_launch(const void* x, const void* y, const void* z, const int* gid, long long n,
+                         int G, void* ox, void* oy, void* oz, uint32_t* scratch, cudaStream_t s) {
+    constexpr int kThreads = kRedPoints * kRedLanes * kRedRanks;
+    const long long nb = (n + kRedSpan - 1) / kRedSpan, ld1 = G * nb;
+    uint32_t* const px = scratch;
+    uint32_t* const py = px + E * FP_LIMBS * ld1;
+    uint32_t* const pz = py + E * FP_LIMBS * ld1;
+    pt_reduce_groups_kernel<E><<<(unsigned)(G * nb), kThreads, 0, s>>>(
+        (In)x, (In)y, (In)z, n, n, gid, (int)nb, kRedSpan, px, py, pz, ld1);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const int span = (int)((nb + kRedPoints - 1) / kRedPoints * kRedPoints);
+    pt_reduce_groups_kernel<E><<<(unsigned)G, kThreads, 0, s>>>(px, py, pz, ld1, nb, nullptr, 1,
+                                                                 span, (Out)ox, (Out)oy, (Out)oz, G);
+    return (int)cudaGetLastError();
 }
 
 // The level's table: its segments, each one's first block at `lanes`
@@ -1655,6 +1780,19 @@ int charon_pt_mul_windowed(int E, const void* x, const void* y, const void* z, v
     const uint8_t* d = (const uint8_t*)digits;
     if (E == 1) return mul_windowed_launch<1>(x, y, z, ox, oy, oz, n, d, n_win, s);
     if (E == 2) return mul_windowed_launch<2>(x, y, z, ox, oy, oz, n, d, n_win, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// out[g] = the sum of the n points (E, 12, n) whose gid (n int32) is g, for
+// g < G, as three (E, 12, G) planes; scratch holds 3 * E * 12 * G * nb words,
+// nb = ceil(n / kRedSpan). E = 1.
+int charon_pt_reduce_groups(int E, const void* x, const void* y, const void* z, const void* gid,
+                            long long n, int G, void* ox, void* oy, void* oz, void* scratch,
+                            void* stream) {
+    if (n <= 0 || G < 1 || !gid || !scratch) return (int)cudaErrorInvalidValue;
+    if (E == 1)
+        return reduce_groups_launch<1>(x, y, z, (const int*)gid, n, G, ox, oy, oz,
+                                       (uint32_t*)scratch, (cudaStream_t)stream);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -32,6 +32,9 @@ ops/rows.py):
                                                   split over 4 lanes each), pt_mul_windowed
                                                   a point a lane, a level's operations on
                                                   the block's ranks of lanes
+    pt_reduce_groups                              E = 1: per-group sums of a plane (a group
+                                                  id a lane) in two launches, on
+                                                  pt_mul_windowed's add and block shape
 
 Build: the point schedules' header into `build/charon_tpu_torch/`, then
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -I build/charon_tpu_torch`
@@ -53,9 +56,11 @@ written in place; one launch, or one plain call on the CPU. `fe_mul`,
 Composites: `pow_scan` (_pow_scan :593) is one fe_pow launch, `shared_mul`
 (_shared_mul_call :625, and the cofactor clear of h2c._clear_cofactor) one
 pt_mul_shared launch and `scalar_mul_windowed` (_scalar_mul_windowed :677)
-one pt_mul_windowed launch; `reduce_tree` (_reduce_tree_jit :763) is a
-Python loop of one pt_add launch per level, and `host_fold` (_host_fold
-:778) folds on the host. Bucket sizes (`pad_batch`), the 4-bit windows
+one pt_mul_windowed launch; `reduce_groups` (a mask a group,
+_reduce_tree_jit :763 and _host_fold :778, for every group at once) is one
+pt_reduce_groups call; `reduce_tree` (_reduce_tree_jit) is still a Python
+loop of one pt_add launch per level on the sigagg paths, and `host_fold`
+(_host_fold) folds on the host. Bucket sizes (`pad_batch`), the 4-bit windows
 and the MSB-first digit order are the reference's: they decide the outputs'
 shapes.
 """
@@ -135,6 +140,7 @@ _ARGS = {
     "charon_fe_pow": [ctypes.c_int, _VP, _VP, _LL, ctypes.c_char_p, ctypes.c_int, _VP],
     "charon_pt_mul_shared": [ctypes.c_int] + [_VP] * 6 + [_LL, ctypes.c_char_p, ctypes.c_int, _VP],
     "charon_pt_mul_windowed": [ctypes.c_int] + [_VP] * 6 + [_LL, _VP, ctypes.c_int, _VP],
+    "charon_pt_reduce_groups": [ctypes.c_int] + [_VP] * 4 + [_LL, ctypes.c_int] + [_VP] * 5,
 }
 
 
@@ -272,6 +278,10 @@ KERNELS = {
     "pt_mul_shared": Kernel("pt_mul_shared", {1: "charon_tpu/ops/pallas_plane.py:625",
                                               2: "charon_tpu/ops/h2c.py:216"}),
     "pt_mul_windowed": Kernel("pt_mul_windowed", "charon_tpu/ops/pallas_plane.py:677"),
+    # the masked per-group reduction: a jnp.where mask a group, then
+    # _reduce_tree_jit's pt_add levels and _host_fold (:778); a call, its two
+    # launches, counts one
+    "pt_reduce_groups": Kernel("pt_reduce_groups", "charon_tpu/ops/pallas_plane.py:763", (1,)),
 }
 
 
@@ -639,8 +649,50 @@ def scalar_mul_windowed(X, Y, Z, digits: torch.Tensor, E: int):
 
 
 # ---------------------------------------------------------------------------
-# Reduction: one pt_add launch per level, then the host fold
+# Reductions: the group sums in one pt_reduce_groups call; the sigagg paths'
+# tree, one pt_add launch per level, then the host fold
 # ---------------------------------------------------------------------------
+
+
+def reduce_groups(X, Y, Z, gid: torch.Tensor, G: int, E: int = 1):
+    """Per-group sums of a (1, 12, n) plane of Jacobians: out[g] = the sum of
+    the points whose (n,) int32 id is g, for g < G (an id outside [0, G),
+    −1 for padding, is in no group; an empty group is ∞, zeros), as three
+    (1, 12, G) planes. One pt_reduce_groups call on the card (two launches:
+    spans of C.RED_SPAN lanes, then each group's partials), counted once;
+    on the CPU its plain version, in the kernel's order of adds. Counted by
+    (E, width, G) in `cases`."""
+    device = _check((X, Y, Z), E)
+    if E != 1:
+        raise ValueError(f"reduce_groups takes E = 1, got {E}")
+    n = X.shape[2]
+    if (gid.dtype != torch.int32 or gid.shape != (n,) or gid.device != device
+            or not gid.is_contiguous()):
+        raise ValueError(f"gid must be a contiguous ({n},) int32 tensor on {device}, "
+                         f"got {tuple(gid.shape)} {gid.dtype} on {gid.device}")
+    if G < 1:
+        raise ValueError(f"G must be >= 1, got {G}")
+    case = (E, n, G)
+    if device.type == "cpu":
+        KERNELS["pt_reduce_groups"].count(E, case=case, plain=True)
+        return C.pt_reduce_groups_plain(X, Y, Z, gid, G)
+    nb = -(-n // C.RED_SPAN)
+    scratch = torch.empty(3 * E * LIMBS * G * nb, dtype=torch.int32, device=device)
+    outs = [torch.empty((E, LIMBS, G), dtype=torch.int32, device=device) for _ in range(3)]
+    with torch.cuda.device(device):
+        rc = _library().charon_pt_reduce_groups(
+            E, X.data_ptr(), Y.data_ptr(), Z.data_ptr(), gid.data_ptr(), n, G,
+            *[o.data_ptr() for o in outs], scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel pt_reduce_groups<{E}> did not launch: error {rc}")
+    KERNELS["pt_reduce_groups"].count(E, n, case)
+    return tuple(outs)
+
+
+def host_points(X, Y, Z) -> list:
+    """The (1, 12, k) planes' k Jacobians as host tuples of canonical ints."""
+    xs, ys, zs = (F.fq_ints(c[0].T.cpu().numpy()) for c in (X, Y, Z))
+    return list(zip(xs, ys, zs))
 
 
 def reduce_tree(X, Y, Z, E: int):

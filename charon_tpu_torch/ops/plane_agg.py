@@ -23,6 +23,13 @@ per chunk the parse, G2 decompression, the G2 subgroup check
 (`g2_subgroup_mask`: psi(P) == [x]P) and the combined MSM
 (`verify_slot`), then the host folds of all chunks and one pairing check.
 
+The FROST ceremony's G1 programs (dkg/frost.py's device paths) close the
+module: the batched fixed-base keygen (`g1_mul_gen_batch`), the grouped
+share-check MSM (`g1_groups_msm`, chunks of `groups_msm_chunk`: G1
+decompression, the subgroup check, a windowed sweep on 64-bit digits and
+one `pt_reduce_groups` call over the commitment degrees) and the generic
+lincomb check (`g1_lincomb_is_infinity`).
+
 The pk planes are decompressed and subgroup-checked once per pubkey set
 and span (`PkPlaneCache`). Batch element b of a plane sits in column b of an
 `(E, 12, n)` tensor, which is element (b // W, b % W) of the reference's
@@ -44,8 +51,8 @@ import torch
 
 from .. import native
 from ..crypto import fields as PF
-from ..crypto.curve import (B_G1, B_G2, FqOps, Fq2Ops, g1_generator, jac_add, jac_is_infinity,
-                            jac_mul, to_affine, to_jacobian)
+from ..crypto.curve import (B_G1, B_G2, FqOps, Fq2Ops, g1_generator, jac_add, jac_infinity,
+                            jac_is_infinity, jac_mul, to_affine, to_jacobian)
 from ..crypto.rlc import RLC_BITS, sample_randomizers
 from ..crypto.serialize import g1_to_bytes, g2_affine_from_bytes, g2_affine_to_bytes, g2_to_bytes
 from . import cuda_plane as CP
@@ -427,16 +434,21 @@ def jac_eq_mask(p, q, E: int, x1_by=None, y1_by=None) -> torch.Tensor:
     return torch.where(inf1 | inf2, inf1 & inf2, eq)
 
 
-def g1_subgroup_ok(X, Y, Z) -> bool:
-    """True iff every loaded element is in the r-subgroup (∞ passes):
-    phi(P) == [s·u²]P, with [u²]P by the shared-scalar double-and-add and
-    phi(P)'s product in the comparison's first level."""
+def g1_subgroup_mask(X, Y, Z) -> torch.Tensor:
+    """(n,) bool on the planes' device: phi(P) == [s·u²]P per element (∞
+    and padding lanes pass), with [u²]P by the shared-scalar double-and-add
+    and phi(P)'s product in the comparison's first level."""
     beta, sign = g1_endo_consts()
     uX, uY, uZ = CP.shared_mul(X, Y, Z, PF.X_ABS * PF.X_ABS, 1)
     if sign < 0:
         uY = CP.fe_neg(uY, 1)
     beta_plane = const_plane((beta,), 1, X.shape[-1], X.device)
-    return bool(jac_eq_mask((X, Y, Z), (uX, uY, uZ), 1, x1_by=beta_plane).all())
+    return jac_eq_mask((X, Y, Z), (uX, uY, uZ), 1, x1_by=beta_plane)
+
+
+def g1_subgroup_ok(X, Y, Z) -> bool:
+    """True iff every loaded element is in the r-subgroup (∞ passes)."""
+    return bool(g1_subgroup_mask(X, Y, Z).all())
 
 
 # ---------------------------------------------------------------------------
@@ -1021,3 +1033,129 @@ def rlc_verify_batch(pks, msgs, sigs, device, pk_cache: PkPlaneCache, h2c: H2CCa
         raise ValueError("length mismatch")
     state = rlc_verify_dispatch(pks, msgs, sigs, device, pk_cache, randomizers)
     return rlc_verify_finish(state, h2c, pairing_path, verify, device)
+
+
+# ---------------------------------------------------------------------------
+# The FROST ceremony's G1 programs: the batched fixed-base keygen
+# (g1_mul_gen_batch :1494 over _g1_fixedbase_jit :1489, _g1_affine_std_jit
+# :1443, _g1_emit_bytes :1464, _gen_plane :1475), the grouped share-verify
+# MSM (g1_groups_msm :1702 in chunks of _groups_msm_chunk :1760) and the
+# generic lincomb check (g1_lincomb_is_infinity :1795 over msm_sum)
+# ---------------------------------------------------------------------------
+
+
+def g1_affine_std(X, Y, Z):
+    """Jacobian G1 plane -> (standard-form affine x (1, 12, n), sign, inf):
+    1/z by one p−2 power scan (a Z = 0 lane gives 0^(p−2) = 0, masked by
+    inf), then one level each for zi², zi³, (x, y) and the standard form."""
+    zi = CP.pow_scan(Z, _EXP["inv"])
+    zi2 = CP.fe_mul(zi, zi, 1)
+    zi3 = CP.fe_mul(zi2, zi, 1)
+    xa, ya = CP.mul_level([(X, zi2), (Y, zi3)], 1)
+    xs, ys = to_std(xa, ya)
+    return xs, gt_half_std(ys), _all(Z == 0)
+
+
+def g1_emit_bytes(x_np: np.ndarray, sign_np: np.ndarray, inf_np: np.ndarray,
+                  V: int) -> list[bytes]:
+    """Standard-form affine x (1, 12, n) + sign/infinity -> the first V
+    compressed 48-byte strings."""
+    buf = F.fp_limbs_to_be(np.ascontiguousarray(x_np[0].T[:V]))
+    return stamp_flags(buf, sign_np, inf_np, V)
+
+
+def gen_plane(Bp: int, device):
+    """The G1 generator in every lane of a Bp-lane (X, Y, Z) Montgomery
+    plane: the keygen's fixed base, cached per bucket and device (the
+    constant planes' cache)."""
+    ax, ay = to_affine(FqOps, g1_generator())
+    return tuple(const_plane((v,), 1, Bp, device) for v in (ax, ay, 1))
+
+
+def g1_mul_gen_batch(scalars: list[int], device) -> list[bytes]:
+    """kᵢ·G compressed for a batch of scalars (mod r), the ceremony's
+    round-1 commitments and PoK nonces: one pt_mul_windowed<1> launch at 64
+    windows over the generator plane, the affine standard form, and the
+    emit of the first n lanes (padding lanes carry the generator with digit
+    0). Byte-identical to native ct_pubkey of each scalar."""
+    n = len(scalars)
+    if n == 0:
+        return []
+    device = torch.device(device)
+    Bp = CP.pad_batch(n)
+    digits = torch.as_tensor(CP.scalars_to_digitplanes([s % PF.R for s in scalars], Bp),
+                             device=device)
+    xs, sign, inf = g1_affine_std(*CP.scalar_mul_windowed(*gen_plane(Bp, device), digits, 1))
+    return g1_emit_bytes(xs.cpu().numpy(), sign.cpu().numpy(), inf.cpu().numpy(), n)
+
+
+def groups_msm_chunk(points, scalars, groups, n_groups: int, s: int, e: int, device,
+                     nbits: int = RLC_BITS):
+    """Parse and launch one chunk [s, e) of a grouped G1 MSM at its bucket:
+    G1 decompression with ∞ rejected (a ValueError here), the subgroup check,
+    one pt_mul_windowed<1> sweep on nbits-bit digits and one reduce_groups
+    over the global group ids (padding in none). Returns (ok, sub_ok, sums)
+    on the device: the decoding and subgroup verdicts (one bool each) and
+    the chunk's n_groups partial sums as (1, 12, n_groups) planes."""
+    nc = e - s
+    Bc = CP.pad_batch(nc)
+    body, _fin, sgn, loaded = parse_compressed([bytes(p) for p in points[s:e]], 48, "G1", True, Bc)
+    digits = torch.as_tensor(CP.scalars_to_digitplanes(scalars[s:e], Bc, nbits=nbits),
+                             device=device)
+    gid = np.full(Bc, -1, np.int32)
+    gid[:nc] = groups[s:e]
+    X, Y, Z, ok = g1_decompress(raw_to_plane(body, Bc, device), torch.as_tensor(sgn, device=device),
+                                torch.as_tensor(loaded, device=device))
+    sub = g1_subgroup_mask(X, Y, Z)
+    sums = CP.reduce_groups(*CP.scalar_mul_windowed(X, Y, Z, digits, 1),
+                            torch.as_tensor(gid, device=device), n_groups)
+    return ok.all(), sub.all(), sums
+
+
+def _grouped_msm(points, scalars, groups, n_groups: int, nbits: int, device) -> list:
+    """Chunks of CP.TILE points, each groups_msm_chunk, all launched before
+    any is read back; then the device branch's ValueErrors and the chunks'
+    partial sums added on the host."""
+    if any(not 0 <= g < n_groups for g in groups):
+        raise ValueError("group id out of range")
+    device = torch.device(device)
+    n = len(points)
+    pending = [groups_msm_chunk(points, scalars, groups, n_groups, s, min(s + CP.TILE, n), device,
+                                nbits) for s in range(0, n, CP.TILE)]
+    sums: list = [None] * n_groups
+    for ok, sub_ok, red in pending:
+        if not bool(ok):
+            raise ValueError("invalid G1 point encoding")
+        if not bool(sub_ok):
+            raise ValueError("G1 point not in subgroup")
+        for g, part in enumerate(CP.host_points(*red)):
+            sums[g] = part if sums[g] is None else jac_add(FqOps, sums[g], part)
+    return [jac_infinity(FqOps) if p is None else p for p in sums]
+
+
+def g1_groups_msm(points: list[bytes], scalars: list[int], groups: list[int], n_groups: int,
+                  device) -> list:
+    """Per-group G1 MSMs with RLC_BITS-bit scalars: [Σ_{i: groups[i] = g}
+    kᵢ·Pᵢ for g < n_groups] as host Jacobians. One path for every n: chunks
+    of CP.TILE points (groups_msm_chunk), partial sums added on the host.
+    Raises ValueError on a bad encoding, ∞ ("infinity G1 point rejected"),
+    an off-curve point ("invalid G1 point encoding") or one outside the
+    subgroup ("G1 point not in subgroup": an order-3 component survives a
+    64-bit RLC with probability ~1/3, so the check is not optional)."""
+    if not (len(points) == len(scalars) == len(groups)):
+        raise ValueError("length mismatch")
+    return _grouped_msm(points, scalars, groups, n_groups, RLC_BITS, device)
+
+
+def g1_lincomb_is_infinity(points: list[bytes], scalars: list[int], device) -> bool:
+    """Σ kᵢ·Pᵢ == ∞ with per-point 256-bit scalars (mod r): the same chunked
+    load (∞ rejected, subgroup checked), a 64-window pt_mul_windowed<1> and
+    reduce_groups with one group; n = 0 is True. Raises g1_groups_msm's
+    ValueErrors."""
+    n = len(points)
+    if n == 0:
+        return True
+    if len(scalars) != n:
+        raise ValueError("length mismatch")
+    S = _grouped_msm(points, [s % PF.R for s in scalars], [0] * n, 1, 256, device)[0]
+    return jac_is_infinity(FqOps, S)

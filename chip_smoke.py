@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, hold each
 against its plain version, and run the fused sigagg slot at 1000 validators
 x 4-of-6 through TorchImpl — verified on the device by default — checked
-against the native oracle.
+against the native oracle, then the bulk verify, the submit front door and
+the FROST DKG ceremony's device paths.
 
     python3 chip_smoke.py            # the whole check (one CUDA card)
     python3 chip_smoke.py --profile  # the whole check, then one slot traced
@@ -102,6 +103,33 @@ Phases, any failure exits non-zero:
                call's bytes; 3 rounds of 4 serial and 4 submitted slots in
                turns, the submitted median no more than the serial median
                plus the spread.
+  8. dkg     — BASELINE config 4: the FROST ceremony of 6 operators for 200
+               validators at threshold 4 (seed 411, the share exchange in
+               process) through the port's dkg/frost.py. The main path,
+               counts at 0 just before: each node's round1_batch with device
+               keygen (1,000 generator multiplications, one 1,024-lane
+               launch), then each node's 1,200 share checks through
+               verify_shares_batch (4,800 points in chunks of 1,024 x 4 and
+               704), every check on the device path; launches exactly 6
+               keygen calls' and 30 chunks' (DKG_KEYGEN_LAUNCHES,
+               DKG_CHUNK_LAUNCHES, as on the CPU), E = 1 kernels only. All
+               6,000 commitments and PoK points byte-identical to native
+               ct_pubkey; verify_round1 of every broadcast by every node;
+               finalize of every validator on every node: the six agree on
+               the group and share pubkeys, each own share pubkey native
+               ct_pubkey of its share. A tampered share, an order-3
+               commitment and an infinity commitment (device ValueError
+               texts, then verify_shares_batch's CharonError at that item);
+               two evaluation points (1,024 commitment points) through
+               g1_lincomb_is_infinity, True and tampered False as native per
+               item; one keygen call's and one chunk's launches; medians of
+               3 walls: device keygen against serial native ct_pubkey at
+               1,000 scalars, device share check against native per-item at
+               1,200 checks. Then every case it launched that phases 4-6 did
+               not, pt_reduce_groups<1> at each (width, G) with the edge
+               lanes (an empty group, cancelling points, a repeated point,
+               infinity and padding lanes), held and timed, in the kernels
+               JSON as dkg_by_width.
 The last two lines are the kernels JSON and the device JSON.
 
 --ab builds each variant NAME=DIR (the plane_kernels.cu and fp.cuh in DIR,
@@ -169,7 +197,9 @@ import torch
 from charon_tpu_torch import native
 from charon_tpu_torch.crypto import curve as PC
 from charon_tpu_torch.crypto import fields as PF
-from charon_tpu_torch.crypto.serialize import g2_affine_from_bytes, g2_to_bytes
+from charon_tpu_torch.crypto.serialize import (g1_from_bytes, g1_to_bytes, g2_affine_from_bytes,
+                                               g2_to_bytes)
+from charon_tpu_torch.dkg import frost as TF
 from charon_tpu_torch.ops import convert as CV
 from charon_tpu_torch.ops import curve as C
 from charon_tpu_torch.ops import cuda_plane as CP
@@ -180,6 +210,7 @@ from charon_tpu_torch.ops import plane_agg as PA
 from charon_tpu_torch.ops import point_schedule as PS
 from charon_tpu_torch.ops import rows as RW
 from charon_tpu_torch.tbls.torch_impl import TorchImpl
+from charon_tpu_torch.utils import errors
 
 N_VALIDATORS, NUM_SHARES, THRESHOLD = 1000, 6, 4
 MSG = b"\x42" * 32
@@ -244,7 +275,7 @@ def ptxas_summary(text: str) -> list[str]:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             k = re.search(r"((?:fe_mul|fe_addsub|fe_add|pt_double|pt_add|pt_mul_shared"
-                          r"|pt_mul_windowed)(?:_rows)?_kernel)"
+                          r"|pt_mul_windowed|pt_reduce_groups)(?:_rows)?_kernel)"
                           r"(?:ILi(\d)E((?:Li\d+E)*)E)?", name)
             pw = re.search(r"fe_pow_kernelIL\w*?LayoutE(\d)E(?:Li(\d+)E)?E", name)
             short = name
@@ -908,15 +939,14 @@ U2 = PF.X_ABS * PF.X_ABS               # the G1 subgroup check's [u²]P
 # width, k or windows); k = 5 takes an order-3 lane through P + P (P, 2P,
 # 4P = P, + P) and k = 1 through no step; at 15 lanes pt_mul_shared<1>'s
 # last warp holds one real point, of order 3 in one case, beside a padded
-# one. pt_mul_windowed<1> is on no path of this script and is held and timed
-# at the width of the MSM's G1 half
+# one. pt_mul_windowed<1> runs on the DKG's path (phase 8), held and timed
+# at its widths there
 MUL_GATE = (("pt_mul_shared", 1, 16, U2), ("pt_mul_shared", 2, 16, PC.H_EFF_G2),
             ("pt_mul_shared", 1, 16, 1), ("pt_mul_shared", 1, 16, 5),
             ("pt_mul_shared", 1, 15, 5), ("pt_mul_shared", 2, 16, 5),
             ("pt_mul_windowed", 1, 16, 4), ("pt_mul_windowed", 2, 16, 4),
             # the bulk verify's G2 subgroup check, [u]P at a chunk's buckets
             ("pt_mul_shared", 2, 512, PF.X_ABS), ("pt_mul_shared", 2, 1024, PF.X_ABS))
-MUL_OFF_PATH = (("pt_mul_windowed", 1, 1024, 16),)
 MUL_SCALARS = {PC.H_EFF_G2: "H_EFF_G2", U2: "X_ABS^2", PF.X_ABS: "X_ABS"}
 
 
@@ -1300,11 +1330,13 @@ def _width_text(widths: dict) -> str:
                      for (E, n), c in sorted(counts.items()))
 
 
-# kernels the main path no longer launches: every point double and every G1
-# add run inside pt_mul_shared / pt_mul_windowed (pt_add<2> still adds the
-# combine, the reduction trees and hash-to-G2's q0 + q1), and the windowed
-# product runs at E = 2 only (the MSM's G1 lanes embedded in Fq2)
-OFF_PATH = (("pt_double", 1), ("pt_double", 2), ("pt_add", 1), ("pt_mul_windowed", 1))
+# kernels the sigagg paths (the slot, the bulk verify) do not launch: every
+# point double and every G1 add run inside pt_mul_shared / pt_mul_windowed
+# (pt_add<2> still adds the combine, the reduction trees and hash-to-G2's
+# q0 + q1), the windowed product runs at E = 2 only (the MSM's G1 lanes
+# embedded in Fq2), and the group reduction serves the DKG (phase 8)
+OFF_PATH = (("pt_double", 1), ("pt_double", 2), ("pt_add", 1), ("pt_mul_windowed", 1),
+            ("pt_reduce_groups", 1))
 
 
 def run_slot(impl: TorchImpl, batches, pubkeys, datas, pool) -> dict:
@@ -1857,6 +1889,351 @@ def pipeline_phase(pool, jobs, pubkeys, smi: str) -> None:
                          f"{med['serial']:.4f} s by more than the spread {spread:.4f} s")
 
 
+# ---------------------------------------------------------------------------
+# DKG (phase 8): the FROST ceremony of BASELINE config 4
+# ---------------------------------------------------------------------------
+
+DKG_NODES, DKG_VALIDATORS, DKG_THRESHOLD = 6, 200, 4      # charon's ceil(2n/3) of 6
+# the launches of one device keygen call (a pt_mul_windowed<1> sweep, the
+# affine form's p-2 scan and its 4 product levels) and of one chunk of the
+# grouped share-check MSM (G1 decompression 6, subgroup check 6, the sweep,
+# the group reduction): the exact plain calls of tests/test_torch_frost.py
+# and tests/test_torch_g1_msm.py on the CPU
+DKG_KEYGEN_LAUNCHES = {"fe_pow": {"plane": 1}, "fe_mul": {1: 4}, "pt_mul_windowed": {1: 1}}
+DKG_CHUNK_LAUNCHES = {"fe_mul": {1: 7}, "fe_addsub": {1: 3}, "fe_pow": {"plane": 1},
+                      "pt_mul_shared": {1: 1}, "pt_mul_windowed": {1: 1},
+                      "pt_reduce_groups": {1: 1}}
+# the kernels the ceremony's device paths launch (E = 1 only)
+DKG_PATH = (("fe_mul", 1), ("fe_addsub", 1), ("fe_pow", "plane"), ("pt_mul_shared", 1),
+            ("pt_mul_windowed", 1), ("pt_reduce_groups", 1))
+
+
+def _launches_by_kernel() -> dict:
+    return {k: {v: c for v, c in kern.launches.items() if c}
+            for k, kern in CP.KERNELS.items() if sum(kern.launches.values())}
+
+
+def dkg_setup():
+    """Seeded round-1 state of every node: per node (1-6) its 200
+    participants (one a validator, context the validator's) with their
+    coefficients set, and its PoK nonces."""
+    rng = random.Random(411)
+    parts, nonces = {}, {}
+    for node in range(1, DKG_NODES + 1):
+        parts[node] = [TF.Participant(node, DKG_THRESHOLD, DKG_NODES, b"chip-smoke dkg %d" % v,
+                                      [rng.randrange(1, PF.R) for _ in range(DKG_THRESHOLD)])
+                       for v in range(DKG_VALIDATORS)]
+        nonces[node] = [rng.randrange(1, PF.R) for _ in range(DKG_VALIDATORS)]
+    return parts, nonces
+
+
+def dkg_items(node: int, bcasts, shares) -> list:
+    """Node `node`'s share checks: (its index, dealer i's share to it, dealer
+    i's commitments) for every validator and dealer."""
+    return [(node, shares[i][v][node], bcasts[i][v].commitments)
+            for v in range(DKG_VALIDATORS) for i in range(1, DKG_NODES + 1)]
+
+
+def _raises(fn, exc_type, text: str | None = None) -> str:
+    try:
+        fn()
+    except exc_type as exc:
+        if text is not None and str(exc) != text:
+            raise SystemExit(f"dkg: {exc_type.__name__}({str(exc)!r}), expected {text!r}")
+        return str(exc)
+    raise SystemExit(f"dkg: no {exc_type.__name__} ({text})")
+
+
+def dkg_soundness(items, device) -> None:
+    """A tampered share, an order-3 commitment and an infinity commitment in
+    node 1's batch (at item 3): the device path's ValueError where a point
+    is bad, then the per-item check's CharonError on the tampered item
+    (the three before it pass natively, so the error is that item's)."""
+    k = 3
+    _node, share, cm = items[k]
+    o3 = order3_g1()
+    evil = PC.jac_add(PC.FqOps, g1_from_bytes(cm[0]), o3)
+    if native.g1_check(g1_to_bytes(evil)):
+        raise SystemExit("dkg: native ct_g1_check accepts a commitment with an order-3 component")
+    cases = {"tampered share": ((share + 1) % PF.R, cm, None),
+             "order-3 commitment": (share, [g1_to_bytes(evil)] + cm[1:], "G1 point not in subgroup"),
+             "infinity commitment": (share, [INF48] + cm[1:], "infinity G1 point rejected")}
+    for label, (sh, commitments, device_text) in cases.items():
+        bad = items[:k] + [(items[k][0], sh, commitments)] + items[k + 1:]
+        if device_text is None:
+            if TF._verify_shares_device(bad, device):
+                raise SystemExit(f"dkg {label}: the device equation holds")
+            what = "device equation False"
+        else:
+            _raises(lambda: TF._verify_shares_device(bad, device), ValueError, device_text)
+            what = f"device ValueError({device_text!r})"
+        before = TF.MSM_PATHS["native"]
+        err = _raises(lambda: TF.verify_shares_batch(bad, device), errors.CharonError,
+                      "share does not match commitments: index=1")
+        if TF.MSM_PATHS["native"] - before != k:
+            raise SystemExit(f"dkg {label}: {TF.MSM_PATHS['native'] - before} items passed "
+                             f"natively before the error, not {k}")
+        log(f"dkg soundness, {label} (dealer {k % DKG_NODES + 1}, validator {k // DKG_NODES}): "
+            f"{what}; verify_shares_batch raises CharonError({err!r}) at that item")
+    _raises(lambda: TF.verify_round1(TF.Round1Broadcast(1, [INF48] + cm[1:], INF48, 0),
+                                     DKG_THRESHOLD, b""), errors.CharonError,
+            "infinity or malformed commitment: degree=0 participant=1")
+    log("dkg soundness: verify_round1 rejects the infinity commitment")
+
+
+def dkg_mixed(items1, items2, device) -> None:
+    """Two evaluation points (nodes 1 and 2, 128 validators each: 1,024
+    commitment points) through g1_lincomb_is_infinity: True, and False with
+    a tampered share, each the native per-item verdict."""
+    mixed = items1[:128] + items2[:128]
+    tampered = list(mixed)
+    k = len(items1[:128]) + 2
+    mi, sh, cm = tampered[k]
+    tampered[k] = (mi, (sh + 1) % PF.R, cm)
+
+    def native_verdict(batch) -> bool:
+        try:
+            for it in batch:
+                TF.verify_share(*it)
+        except errors.CharonError:
+            return False
+        return True
+
+    pts = sum(len(c) for _, _, c in mixed)
+    for label, batch, want in (("valid", mixed, True), ("tampered", tampered, False)):
+        got = TF._verify_shares_device(batch, device)
+        if got is not want or native_verdict(batch) is not want:
+            raise SystemExit(f"dkg mixed points ({label}): device {got}, native per-item "
+                             f"{native_verdict(batch)}, expected {want}")
+        log(f"dkg mixed evaluation points ({len(batch)} checks, {pts} points, "
+            f"g1_lincomb_is_infinity): {label} {got}, as native per-item verify_share")
+
+
+def dkg_pinned(items, device) -> None:
+    """One keygen call and one chunk of the grouped MSM launch exactly what
+    they do on the CPU."""
+    CP.reset_counts()
+    PA.g1_mul_gen_batch([p for p in range(1, 1001)], device)
+    torch.cuda.synchronize()
+    keygen = _launches_by_kernel()
+    pts = [c for _, _, cm in items for c in cm]
+    CP.reset_counts()
+    ok, sub_ok, _sums = PA.groups_msm_chunk(pts, [1] * len(pts),
+                                            [k % DKG_THRESHOLD for k in range(len(pts))],
+                                            DKG_THRESHOLD, 0, min(CP.TILE, len(pts)), device)
+    torch.cuda.synchronize()
+    chunk = _launches_by_kernel()
+    if keygen != DKG_KEYGEN_LAUNCHES or chunk != DKG_CHUNK_LAUNCHES or not (bool(ok) and bool(sub_ok)):
+        raise SystemExit(f"dkg launches: keygen {keygen}, a chunk {chunk}; the CPU's "
+                         f"{DKG_KEYGEN_LAUNCHES}, {DKG_CHUNK_LAUNCHES}")
+    log(f"dkg launches: a keygen call {sum(sum(v.values()) for v in keygen.values())}, a chunk "
+        f"{sum(sum(v.values()) for v in chunk.values())}, by kernel as on the CPU")
+
+
+def dkg_walls(parts, nonces, items, device, smi: str) -> None:
+    """Medians of 3 walls: the device keygen of one node's 1,000 scalars
+    against serial native ct_pubkey, and one node's 1,200 share checks
+    through verify_shares_batch against native per-item verify_share."""
+    scalars = [a for p in parts[1] for a in p._coeffs] + nonces[1]
+
+    def walls(fn) -> list:
+        out = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    def per_item():
+        for it in items:
+            TF.verify_share(*it)
+
+    PA.g1_mul_gen_batch(scalars, device)
+    runs = {"device keygen": walls(lambda: PA.g1_mul_gen_batch(scalars, device)),
+            "native keygen": walls(lambda: [_pubkey(s) for s in scalars]),
+            "device share check": walls(lambda: TF.verify_shares_batch(items, device)),
+            "native per-item share check": walls(per_item)}
+    for label, ws in runs.items():
+        log(f"dkg wall, {label} ({len(scalars) if 'keygen' in label else len(items):,} "
+            f"{'scalars' if 'keygen' in label else 'checks'}): median "
+            f"{statistics.median(ws):.4f} s, runs " + ", ".join(f"{w:.4f}" for w in ws)
+            + f" ({smi})")
+
+
+def dkg_phase(pool, smi: str, device) -> tuple[dict, dict, dict]:
+    """Phase 8: BASELINE config 4 at full size, six nodes of one process.
+    The main path, counts at 0 just before and read just after: round 1 of
+    every node through round1_batch with device keygen (1,000 generator
+    multiplications a node, one 1,024-lane launch), then every node's 1,200
+    share checks through verify_shares_batch (4,800 points in chunks of
+    1,024 x 4 and 704, all on the device path). Then: the 6,000 points
+    byte-identical to native ct_pubkey; verify_round1 of every broadcast by
+    every node; finalize of all 200 validators on every node, the six
+    agreeing on the group pubkeys and each share pubkey native ct_pubkey of
+    its share; the soundness and mixed-point cases; one keygen call's and
+    one chunk's launches against the CPU's; the walls. Returns (the main
+    path's launches by (kernel, variant), what the counters held after it,
+    and what they held over it and the soundness and mixed-point cases)."""
+    t0 = time.perf_counter()
+    parts, nonces = dkg_setup()
+    prev_keygen = TF.DEVICE_KEYGEN
+    TF.enable_device_keygen()
+    msm_before = dict(TF.MSM_PATHS)
+    CP.reset_counts()
+    rounds = {node: TF.round1_batch(parts[node], nonces[node], device) for node in parts}
+    bcasts = {i: [b for b, _s in rounds[i]] for i in rounds}
+    shares = {i: [s for _b, s in rounds[i]] for i in rounds}
+    items = {j: dkg_items(j, bcasts, shares) for j in rounds}
+    for j in items:
+        TF.verify_shares_batch(items[j], device)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {(k, E): CP.KERNELS[k].launches[E] for k in CP.KERNELS for E in CP.KERNELS[k].variants}
+    main = path_counts()
+    TF.DEVICE_KEYGEN = prev_keygen
+    device_checks = TF.MSM_PATHS["device"] - msm_before.get("device", 0)
+    native_checks = TF.MSM_PATHS["native"] - msm_before.get("native", 0)
+    missing = [f"{k}<{E}>" for k, E in DKG_PATH if launches[k, E] == 0]
+    off = [f"{k}<{E}>={c}" for (k, E), c in launches.items() if c and (k, E) not in DKG_PATH]
+    # 6 keygen calls and 6 x 5 chunks (4,800 points: 1,024 x 4 and 704)
+    chunks = -(-len(items[1]) * DKG_THRESHOLD // CP.TILE)
+    want = {name: {v: DKG_NODES * DKG_KEYGEN_LAUNCHES.get(name, {}).get(v, 0)
+                   + DKG_NODES * chunks * DKG_CHUNK_LAUNCHES.get(name, {}).get(v, 0)
+                   for v in {**DKG_KEYGEN_LAUNCHES.get(name, {}), **DKG_CHUNK_LAUNCHES.get(name, {})}}
+            for name in {**DKG_KEYGEN_LAUNCHES, **DKG_CHUNK_LAUNCHES}}
+    got = _launches_by_kernel()
+    if missing or off or got != want:
+        raise SystemExit(f"dkg main path launched no {missing}, and {off}; launches {got}, "
+                         f"expected {DKG_NODES} keygen calls and {DKG_NODES * chunks} chunks: "
+                         f"{want}")
+    if device_checks != DKG_NODES * len(items[1]) or native_checks:
+        raise SystemExit(f"dkg: {device_checks} share checks took the device path and "
+                         f"{native_checks} the native one")
+    log(f"dkg main path ({DKG_NODES} nodes x {DKG_VALIDATORS} validators, threshold "
+        f"{DKG_THRESHOLD}; round 1 with device keygen, then every node's "
+        f"{len(items[1]):,} share checks): {main_s:.3f} s; all {device_checks:,} checks on the "
+        "device path; launches " + ", ".join(f"{k}<{E}>={launches[k, E]}" for k, E in DKG_PATH))
+
+    flat = [(node, v, k, parts[node][v]._coeffs[k]) for node in parts
+            for v in range(DKG_VALIDATORS) for k in range(DKG_THRESHOLD)]
+    flat += [(node, v, "pok", nonces[node][v]) for node in parts for v in range(DKG_VALIDATORS)]
+    oracle = list(pool.map(lambda t: _pubkey(t[3]), flat))
+    for (node, v, k, _s), want_b in zip(flat, oracle):
+        b = bcasts[node][v]
+        got_b = b.pok_r if k == "pok" else b.commitments[k]
+        if got_b != want_b:
+            raise SystemExit(f"dkg keygen: node {node} validator {v} point {k} differs from "
+                             "native ct_pubkey")
+    log(f"dkg round 1: all {len(flat):,} commitments and PoK points byte-identical to native "
+        "ct_pubkey")
+    jobs = [(b, v) for i in bcasts for v, b in enumerate(bcasts[i])]
+    for _ in range(DKG_NODES):
+        list(pool.map(lambda t: TF.verify_round1(t[0], DKG_THRESHOLD, parts[1][t[1]].context), jobs))
+    log(f"dkg round 2: verify_round1 of all {len(jobs):,} broadcasts on each of the "
+        f"{DKG_NODES} nodes")
+    results = {}
+    for j in rounds:
+        results[j] = list(pool.map(
+            lambda v, j=j: TF.finalize(j, DKG_NODES, {i: bcasts[i][v] for i in bcasts},
+                                       {i: shares[i][v][j] for i in shares}),
+            range(DKG_VALIDATORS)))
+    for v in range(DKG_VALIDATORS):
+        if len({bytes(results[j][v].group_pubkey) for j in results}) != 1:
+            raise SystemExit(f"dkg finalize: the nodes disagree on validator {v}'s group pubkey")
+        for j in results:
+            if {i: bytes(pk) for i, pk in results[j][v].share_pubkeys.items()} != \
+                    {i: bytes(pk) for i, pk in results[1][v].share_pubkeys.items()}:
+                raise SystemExit(f"dkg finalize: node {j} derives other share pubkeys")
+    share_pks = [(bytes(results[j][v].share_pubkeys[j]), results[j][v].share_secret)
+                 for j in results for v in range(DKG_VALIDATORS)]
+    if any(pk != native.pubkey(sk) for pk, sk in share_pks):
+        raise SystemExit("dkg finalize: a share pubkey is not native ct_pubkey of its share")
+    log(f"dkg finalize: the {DKG_NODES} nodes agree on all {DKG_VALIDATORS} group pubkeys and "
+        f"share pubkeys; all {len(share_pks):,} own share pubkeys are native ct_pubkey of their "
+        "shares")
+
+    CP.reset_counts()
+    dkg_soundness(items[1], device)
+    dkg_mixed(items[1], items[2], device)
+    extra = path_counts()
+    dkg_pinned(items[1], device)
+    dkg_walls(parts, nonces, items[1], device, smi)
+    return launches, main, merge_counts(main, extra)
+
+
+def _reduce_cases(n: int, G: int, device) -> list:
+    """[(label, (X, Y, Z), gid)] at width n and G groups: the edge lanes
+    (the scalar multiplications' pool: ∞, points of order 3, a G1 point plus
+    one; in group 0 lanes 7 and 15 a point and its negation, lanes 8 and 16
+    one point twice after the ∞ of lane 0, so that one accumulator of the
+    kernel adds P + (−P) and another P + P; ids drawn below G - 1, so group
+    G - 1 is empty where G > 1; the last eighth of the lanes padding, id
+    -1), every lane padding (every group empty), and last the case that is
+    timed: seeded multiples of the generator, lane i in group i % G, as the
+    ceremony's chunks."""
+    pool = _mul_lanes(1)
+    rng = random.Random(f"reduce {n} {G}")
+    gid = [rng.randrange(max(G - 1, 1)) for _ in range(n)]
+    pts = [pool[i % 16] for i in range(n)]
+    if n > 16:
+        neg = (pool[7][0], (-pool[7][1]) % PF.P, pool[7][2])
+        pts[7], pts[15], pts[8], pts[16] = pool[7], neg, pool[8], pool[8]
+        for i in (0, 7, 15, 8, 16):
+            gid[i] = 0
+    pad = n - n // 8 if n >= 8 else n
+    gid[pad:] = [-1] * (n - pad)
+    general = [pool[6 + i % 10] for i in range(n)]
+    out = []
+    for label, ps, ids in (("edge lanes", pts, gid), ("all padding", pts, [-1] * n),
+                           ("general lanes", general, [i % G for i in range(n)])):
+        planes = tuple(CV.port_from_ints([p[c] for p in ps], 1, device) for c in range(3))
+        out.append((label, planes, torch.tensor(ids, dtype=torch.int32, device=device)))
+    return out
+
+
+def check_reduce(device, cases: dict, reps: int = 0) -> dict:
+    """pt_reduce_groups<1> bit for bit (X, Y, Z words) against its plain
+    version at each case (1, width, G) -> launches, on _reduce_cases'
+    inputs; with reps the general lanes are timed (device us back to back,
+    host wall, the plain version's wall). Bound: the lanes' points and ids
+    read once and the G sums written, against one pt_add<1> a lane in a
+    group. Returns the JSON row of its most launched case, every case in
+    by_width."""
+    timed = []
+    for (E, n, G), launches in sorted(cases.items(), key=lambda kv: -kv[1]):
+        for label, pts, gid in _reduce_cases(n, G, device):
+            tag = f"pt_reduce_groups<{E}> n={n} G={G} ({label})"
+            got = CP.reduce_groups(*pts, gid, G)
+            err = _hold(tag, got, C.pt_reduce_groups_plain(*pts, gid, G))
+            if label != "general lanes" or not reps:
+                log(f"kernel {tag}: bit-equal to plain (X, Y, Z words)")
+                continue
+            members = int(((gid >= 0) & (gid < G)).sum().item())
+            bound_ms, by = _bound(n * (3 * 48 + 4) + 3 * 48 * G, members * point_ops("pt_add", 1))
+            row = {"width": n, "groups": G, "launches": launches,
+                   "ms": _time_ms(lambda: CP.reduce_groups(*pts, gid, G), reps),
+                   "wall_ms": _wall_ms(lambda: CP.reduce_groups(*pts, gid, G), reps),
+                   "plain_ms": _wall_ms(lambda: C.pt_reduce_groups_plain(*pts, gid, G), 1),
+                   "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+            timed.append(row)
+            log(f"kernel {tag}: bit-equal to plain (max_abs_err 0); {launches} calls on the "
+                f"main path; {row['ms'] * 1e3:.1f} us a call (two launches; host wall "
+                f"{row['wall_ms'] * 1e3:.1f} us); plain {row['plain_ms']:.1f} ms; bound "
+                f"{bound_ms * 1e3:.3f} us ({by})")
+    torch.cuda.synchronize()
+    if not timed:
+        return {}
+    top = timed[0]
+    return {("pt_reduce_groups", 1): {
+        "name": "pt_reduce_groups<1>", "route": "cuda", "source": CP.KERNELS["pt_reduce_groups"].source,
+        "replaces": CP.KERNELS["pt_reduce_groups"].site(1), "launches": 0, "library_ms": None,
+        **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "width",
+                               "groups")},
+        "by_width": [{k: v for k, v in r.items() if k not in ("bound_by", "max_abs_err")}
+                     for r in timed]}}
+
+
 def merge_counts(*runs) -> dict:
     """path_counts of several runs, added."""
     out = {"widths": {}, "cases": {}}
@@ -2393,9 +2770,7 @@ def main(argv: list[str]) -> int:
         rows.update(check_rows_kernels(device, path_rows_cases(slot), reps=50))
         rows.update(check_pow(device, {**{pow_case(*c): 0 for c in POW_GATE},
                                        **slot["cases"]["fe_pow"]}, reps=20))
-        rows.update(check_mul(device, {**{c: 0 for c in MUL_OFF_PATH},
-                                       **mul_cases(slot["cases"])},
-                              reps=3))
+        rows.update(check_mul(device, mul_cases(slot["cases"]), reps=3))
         native_twin(batches, pubkeys, datas, slot["tampered"])
         S, live = slot_pairs(impl, batches, pubkeys, datas)
         verify_launches(TorchImpl(), S, live, "first (H(m) miss)")
@@ -2419,23 +2794,40 @@ def main(argv: list[str]) -> int:
         # slot and the committee phase did not (pt_mul_shared<2> at X_ABS,
         # the chunks' field levels, fe_pow and pt_mul_windowed<2> widths,
         # the pairing and hash-to-G2 at 2 messages), held and timed
-        bulk_rows, bulk = other_cases(bulk_verify(pool, smi), merge_counts(slot, committee))
+        bulk_counts = bulk_verify(pool, smi)
+        bulk_rows, bulk = other_cases(bulk_counts, merge_counts(slot, committee))
         for key, row in {**check_fe(device, fe_cases(bulk), reps=50, floor_ms=floor_ms),
                          **check_rows_kernels(device, bulk_rows, reps=50),
                          **check_pow(device, bulk["fe_pow"], reps=20),
                          **check_mul(device, mul_cases(bulk), reps=3)}.items():
             rows.setdefault(key, row)["bulk_verify_by_width"] = row["by_width"]
         pipeline_phase(pool, jobs, pubkeys, smi)
+        # the DKG, then every case it launched that phases 4-6 did not (the
+        # E = 1 windowed sweeps, the G1 check, decompression and affine
+        # form at the chunks' buckets, every group reduction), held and timed
+        dkg_launches, dkg_main, dkg = dkg_phase(pool, smi, device)
+        _rows, more = other_cases(dkg, merge_counts(slot, committee, bulk_counts))
+        # each case at the launches of the DKG's main path (0: the soundness
+        # or mixed-point cases only)
+        more = {name: {k: dkg_main["cases"].get(name, {}).get(k, 0) for k in keys}
+                for name, keys in more.items()}
+        for key, row in {**check_fe(device, fe_cases(more), reps=50, floor_ms=floor_ms),
+                         **check_pow(device, more["fe_pow"], reps=20),
+                         **check_mul(device, mul_cases(more), reps=3),
+                         **check_reduce(device, more["pt_reduce_groups"], reps=20)}.items():
+            rows.setdefault(key, row)["dkg_by_width"] = row["by_width"]
     rfc_vector(device)
     torch.cuda.synchronize()
     if "--profile" in argv:
         profile_slot(impl, batches, pubkeys, [MSG] * N_VALIDATORS)
 
-    # a row keyed (kernel, E) takes the kernel's launches under E; an
-    # fe_addsub row, keyed by its operation too, the launches of the levels
-    # that hold it, which check_fe counted
-    kernels = [dict(row, launches=slot["launches"][key]) if key in slot["launches"] else row
-               for key, row in rows.items()]
+    # a row keyed (kernel, E) takes the kernel's launches under E in the
+    # headline slot, or where the slot launches it not at all in the DKG's
+    # main path (pt_mul_windowed<1>, pt_reduce_groups<1>); an fe_addsub row,
+    # keyed by its operation too, the launches of the levels that hold it,
+    # which check_fe counted
+    kernels = [dict(row, launches=slot["launches"][key] or dkg_launches[key])
+               if key in slot["launches"] else row for key, row in rows.items()]
     for key, row in zip(rows, kernels):
         for w in row.get("by_width", ()):
             w.setdefault("launches", slot["widths"][key[0]].get((key[1], w["width"]), 0))

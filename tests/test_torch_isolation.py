@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no JAX and no charon_tpu module is imported
-by charon_tpu_torch or chip_smoke.py, and its entry points never pick a
-device on their own."""
+by charon_tpu_torch (its DKG too) or chip_smoke.py, and its entry points
+never pick a device on their own."""
 
 import ast
 import json
@@ -76,7 +76,8 @@ def test_port_process_never_loads_jax_or_the_jax_package():
 # its bulk verify and its submit front door driven in the same process
 BACKEND_MODULES = ("charon_tpu_torch.native", "charon_tpu_torch.ops.policy",
                    "charon_tpu_torch.ops.plane_agg", "charon_tpu_torch.tbls.scalar",
-                   "charon_tpu_torch.tbls.torch_impl")
+                   "charon_tpu_torch.tbls.torch_impl", "charon_tpu_torch.utils.errors",
+                   "charon_tpu_torch.dkg.frost")
 
 _BACKEND = r"""
 import importlib, json, random, sys
@@ -103,8 +104,13 @@ share = {i: (coeffs[0] + coeffs[1] * i) % PF.R for i in (1, 2)}
 batch = {i: native.sign(s.to_bytes(32, "big"), msgs[0]) for i, s in share.items()}
 aggs, ok2 = impl.threshold_aggregate_verify_submit(
     [batch], [native.pubkey(coeffs[0].to_bytes(32, "big"))], msgs[:1]).result(timeout=300)
+from charon_tpu_torch.dkg import frost
+frost.DEVICE_KEYGEN, frost._DEVICE_MIN_KEYGEN, frost._DEVICE_MIN_POINTS = True, 0, 0
+rounds = [frost.Participant(i, 2, 2, b"ctx").round1(device="cpu") for i in (1, 2)]
+frost.verify_shares_batch([(1, s[1], b.commitments) for b, s in rounds], device="cpu")
+ok3 = frost.MSM_PATHS["device"] == 2
 seen["runtime"] = forbidden()
-print("RESULT", json.dumps({"ok": [ok, ok2], "seen": seen}))
+print("RESULT", json.dumps({"ok": [ok, ok2, ok3], "seen": seen}))
 """.replace("BACKEND_MODULES", repr(BACKEND_MODULES))
 
 
@@ -120,11 +126,12 @@ def backend_imports():
 
 @pytest.mark.parametrize("module", BACKEND_MODULES + ("runtime",))
 def test_backend_modules_load_no_jax(backend_imports, module):
-    """Each module of the tbls backend loads neither jax nor charon_tpu when
-    it is imported, directly or transitively, and neither does a bulk
-    verify and a slot through the submit front door ("runtime"), which
+    """Each module of the tbls backend and of the DKG loads neither jax nor
+    charon_tpu when it is imported, directly or transitively, and neither
+    does a bulk verify, a slot through the submit front door and a FROST
+    round with device keygen and the device share check ("runtime"), which
     verify True."""
-    assert backend_imports["ok"] == [True, True]
+    assert backend_imports["ok"] == [True, True, True]
     assert backend_imports["seen"][module] == []
 
 

@@ -209,13 +209,15 @@ def test_one_slot_goes_through_every_kernel(slot):
     The four plane power scans (the G2 partials' sqrt and (p−3)/4, the
     affine p−2, the G1 sqrt) are one fe_pow<plane> call each. The plane
     field kernels take a level of independent operations a call: fe_mul 19
-    levels at E = 1 and 5 at E = 2, fe_addsub 8 and 2."""
+    levels at E = 1 and 5 at E = 2, fe_addsub 8 and 2. The group reduction
+    (the DKG's pt_reduce_groups) is not called."""
     rows = {k: {E: c + H2C_CALLS[k][E] for E, c in v.items()} for k, v in VERIFY_CALLS.items()}
     rows["fe_pow"]["plane"] = 4
     assert slot["calls"] == {
         "fe_mul": {1: 19, 2: 5}, "fe_addsub": {1: 8, 2: 2},
         "pt_double": {1: 0, 2: 0}, "pt_add": {1: 0, 2: 13}, **rows,
-        "pt_mul_shared": {1: 1, 2: 1}, "pt_mul_windowed": {1: 0, 2: 2}}
+        "pt_mul_shared": {1: 1, 2: 1}, "pt_mul_windowed": {1: 0, 2: 2},
+        "pt_reduce_groups": {1: 0}}
     assert slot["cases"]["pt_mul_shared"] == {(1, 128, RPF.X_ABS * RPF.X_ABS): 1,
                                               (2, 2, H.H_EFF_G2): 1}
     assert slot["cases"]["pt_mul_windowed"] == {(2, 512, 64): 1, (2, 256, 16): 1}
@@ -267,7 +269,8 @@ def test_one_verify_goes_through_the_rows_kernels(slot):
     calls = {k: dict(v.plain_calls) for k, v in CP.KERNELS.items()}
     assert calls == {"fe_mul": {1: 0, 2: 0}, "fe_addsub": {1: 0, 2: 0},
                      "pt_double": {1: 0, 2: 0}, "pt_add": {1: 0, 2: 0}, **VERIFY_CALLS,
-                     "pt_mul_shared": {1: 0, 2: 0}, "pt_mul_windowed": {1: 0, 2: 0}}
+                     "pt_mul_shared": {1: 0, 2: 0}, "pt_mul_windowed": {1: 0, 2: 0},
+                     "pt_reduce_groups": {1: 0}}
 
 
 # ---------------------------------------------------------------------------
