@@ -17,12 +17,17 @@ round 1 (`g1_mul_gen_batch`, opt-in, see the trust-boundary note), and the
 batched share check (`g1_groups_msm` when every check shares its evaluation
 point, `g1_lincomb_is_infinity` otherwise). Their entry points take
 `device=None`, which means "cuda". The per-item checks and the proofs go
-through native `ct_g1_lincomb` / `ct_pubkey` (native.py). Unlike the
-reference, a device error is not caught and degraded to native: it
-propagates (the port has no guard yet); a ValueError of the device path (a
-bad encoding, ∞, a point outside the subgroup) still routes the batch to
-the exact per-item check, which attributes the dealer. `MSM_PATHS` counts
-the share checks completed per path, as the reference's dkg_msm_total.
+through native `ct_g1_lincomb` / `ct_pubkey` (native.py). As in the
+reference, the device paths sit behind ops/guard.py: the share check takes
+the device only while the plane breaker allows it (`device_gate`), and a
+device-class failure of the batched share check (the fault site
+frost.msm) or of the batched keygen degrades to the native path with the
+same results, noted through guard.note_ceremony_fallback (the breaker and
+its fallback counter) and counted in FALLBACKS. Any other error of a
+device path propagates; a ValueError of the share check (a bad encoding,
+∞, a point outside the subgroup) routes the batch to the exact per-item
+check, which attributes the dealer. `MSM_PATHS` counts the share checks
+completed per path, as the reference's dkg_msm_total.
 """
 
 from __future__ import annotations
@@ -40,19 +45,31 @@ from ..crypto import fields as F
 from ..crypto.curve import FqOps, g1_generator, jac_add, jac_is_infinity, jac_mul
 from ..crypto.rlc import sample_randomizer
 from ..crypto.serialize import g1_finite_compressed
-from ..ops import plane_agg
+from ..ops import guard, plane_agg
 from ..tbls.types import PrivateKey, PublicKey
-from ..utils import errors
+from ..utils import errors, faults
 
 # share checks completed per path: "device" (the batched MSM) or "native"
 # (the per-item lincomb)
 MSM_PATHS: collections.Counter = collections.Counter()
+# device-class failures degraded to native, by (path, reason): path
+# "frost.msm" (the batched share check) or "keygen"
+FALLBACKS: collections.Counter = collections.Counter()
 _paths_lock = threading.Lock()
 
 
 def _count(path: str, amount: int) -> None:
     with _paths_lock:
         MSM_PATHS[path] += amount
+
+
+def _degraded(path: str, exc: BaseException) -> None:
+    """A device path failed device-class: the breaker and the guard's
+    counter hear of it, and FALLBACKS counts it."""
+    reason = guard.device_reason(exc)
+    guard.note_ceremony_fallback(reason, exc)
+    with _paths_lock:
+        FALLBACKS[path, reason] += 1
 
 
 def _device(device) -> torch.device:
@@ -183,7 +200,12 @@ def enable_device_keygen() -> None:
 
 def _mul_gen_many(scalars: list[int], device=None) -> list[bytes]:
     if DEVICE_KEYGEN and len(scalars) >= _DEVICE_MIN_KEYGEN:
-        return plane_agg.g1_mul_gen_batch(scalars, _device(device))
+        try:
+            return plane_agg.g1_mul_gen_batch(scalars, _device(device))
+        except Exception as exc:
+            if not guard.is_device_error(exc):
+                raise
+            _degraded("keygen", exc)    # the serial native keygen below
     return [_g1_mul_gen(s) for s in scalars]
 
 
@@ -225,9 +247,12 @@ _DEVICE_MIN_POINTS = 1024
 
 def device_gate(total: int) -> bool:
     """Should a batch of `total` commitment points take the device MSM? The
-    size gate (at least one full chunk); the reference's platform and
-    breaker gates wait for the port's guard."""
-    return total >= _DEVICE_MIN_POINTS
+    size gate (at least one full chunk) and the plane breaker (an open
+    breaker means the device is known to fail: no doomed dispatch
+    mid-ceremony; a half-open one admits this batch as its probe). The
+    reference's platform gate has no counterpart: the device is the
+    caller's `device`."""
+    return total >= _DEVICE_MIN_POINTS and guard.allow_device_dispatch()
 
 
 def verify_shares_batch(items: list[tuple[int, int, list[bytes]]], device=None) -> None:
@@ -235,17 +260,31 @@ def verify_shares_batch(items: list[tuple[int, int, list[bytes]]], device=None) 
     commitments), one per (dealer, validator) pair. The M checks
     f_m·G − Σ_k C_mk·x_m^k == ∞ collapse under random weights r_m
     (2^-RLC_BITS soundness) into one G1 MSM on the device; when it fails,
-    raises a ValueError (a bad or ∞ point, one outside the subgroup) or the
-    batch is below the gate, every item is checked on its own, which
-    attributes the offending dealer. Raises like verify_share."""
+    raises a ValueError (a bad or ∞ point, one outside the subgroup), fails
+    device-class (guard.note_ceremony_fallback) or the batch is below the
+    gate, every item is checked on its own, which attributes the offending
+    dealer. Raises like verify_share. A device check that ends in neither a
+    True verdict nor a device-class failure releases the breaker's probe,
+    if it was the probe."""
     total = sum(len(c) for _, _, c in items)
     if device_gate(total):
         try:
-            if _verify_shares_device(items, device):
-                _count("device", len(items))
-                return
+            faults.check("frost.msm")
+            ok = _verify_shares_device(items, device)
         except ValueError:
-            pass  # invalid encoding: attribute below
+            ok = False  # invalid encoding: attribute below
+        except Exception as exc:
+            if not guard.is_device_error(exc):
+                guard.BREAKER.release_probe()
+                raise
+            _degraded("frost.msm", exc)
+            ok = None
+        if ok:
+            guard.BREAKER.record_success()
+            _count("device", len(items))
+            return
+        if ok is False:
+            guard.BREAKER.release_probe()
     for my_index, share, commitments in items:
         verify_share(my_index, share, commitments)
         _count("native", 1)

@@ -3,10 +3,11 @@
 The port's verify step calls the native multi-pairing (`ct_pairing_check`)
 and hash-to-G2 (`ct_hash_to_g2`); TorchImpl's key-material calls go through
 `ct_pubkey`, `ct_sign`, `ct_verify`, `ct_aggregate_g1` and `ct_aggregate_g2`,
-as the reference's NativeImpl does (charon_tpu/tbls/native_impl.py:131-227);
-`chip_smoke.py` also builds its inputs and oracles with `ct_lincomb_g2`,
-`ct_verify_batch` and `ct_g2_check`. The port's FROST (dkg/frost.py) checks
-its commitments through `ct_g1_lincomb` (its native rung, as the
+as the reference's NativeImpl does (charon_tpu/tbls/native_impl.py:131-227).
+The native slot rung of ops/guard.py (`native_slot_fallback`) runs
+`ct_lincomb_g2` and `ct_verify_batch`; `chip_smoke.py` also builds its
+inputs and oracles with them and `ct_g2_check`. The port's FROST
+(dkg/frost.py) checks its commitments through `ct_g1_lincomb` (its native rung, as the
 reference's frost.py:59-64), and `ct_g1_check` is the G1 oracle. Only those symbols are declared, with
 the reference's argtypes (native_impl.py:37-75). Like the reference loader,
 `load_library()` first runs `make -C native` (a no-op when the library is
@@ -15,6 +16,7 @@ fresh) and then the library's selftest.
 
 from __future__ import annotations
 
+import concurrent.futures as futures
 import ctypes
 import os
 import subprocess
@@ -51,6 +53,21 @@ _SIG = {
 
 _lock = threading.Lock()
 _lib: list = []
+_pool_lock = threading.Lock()
+_pool: list = []
+# the native slot rung's verify chunk: at least this many triples a
+# ct_verify_batch call
+MIN_VERIFY_CHUNK = 64
+
+
+def host_pool() -> futures.ThreadPoolExecutor:
+    """The native slot rung's threads, one a CPU core: the library's calls
+    release the interpreter lock and touch no shared state."""
+    with _pool_lock:
+        if not _pool:
+            _pool.append(futures.ThreadPoolExecutor(max_workers=os.cpu_count() or 1,
+                                                    thread_name_prefix="native-rung"))
+        return _pool[0]
 
 
 def load_library() -> ctypes.CDLL:
@@ -122,6 +139,71 @@ def aggregate_g1(pks: list[bytes]) -> bytes | None:
     out = (ctypes.c_uint8 * 48)()
     rc = load_library().ct_aggregate_g1(b"".join(bytes(p) for p in pks), len(pks), out)
     return bytes(out) if rc == 0 else None
+
+
+def lincomb_g2(sigs: list[bytes], scalars: list[int]) -> bytes | None:
+    """Σ (kᵢ mod r)·Sᵢ over compressed G2 points (ct_lincomb_g2),
+    compressed; None when a point does not decode."""
+    out = (ctypes.c_uint8 * 96)()
+    rc = load_library().ct_lincomb_g2(
+        b"".join(bytes(s) for s in sigs),
+        b"".join((k % PF.R).to_bytes(32, "big") for k in scalars), len(sigs), out)
+    return bytes(out) if rc == 0 else None
+
+
+def _aggregate_one(batch: dict[int, bytes]) -> bytes:
+    if not batch:
+        raise ValueError("no partial signatures to aggregate")
+    ids = sorted(batch)
+    out = lincomb_g2([batch[i] for i in ids], PF.lagrange_coefficients_at_zero(ids))
+    if out is None:
+        raise ValueError("invalid partial signature encoding")
+    return out
+
+
+def threshold_aggregate(batches: list[dict[int, bytes]]) -> list[bytes]:
+    """Each batch's aggregate Σ λⱼ·sigⱼ on the host (NativeImpl's
+    threshold_aggregate): Lagrange coefficients at 0 over Fr and one
+    ct_lincomb_g2 a batch, the batches spread over `host_pool()`. Raises
+    the reference's ValueErrors, the first batch's in order: "no partial
+    signatures to aggregate", "invalid partial signature encoding"."""
+    return list(host_pool().map(_aggregate_one, batches))
+
+
+def verify_batch_chunked(pks: list[bytes], msgs: list[bytes], sigs: list[bytes]) -> bool:
+    """RLC batch verify of (pk, msg, sig) triples under fresh CSPRNG
+    randomizers: one ct_verify_batch a chunk of the triples (a chunk a
+    host_pool() thread, at least MIN_VERIFY_CHUNK triples each), True iff
+    every chunk verifies. Each chunk is an RLC check of its own, so the
+    verdict is ct_verify_batch's over all of them, with the same 2^-64
+    soundness a chunk."""
+    from .crypto.rlc import sample_randomizer
+
+    n = len(sigs)
+    if n == 0:
+        return True
+    step = max(MIN_VERIFY_CHUNK, -(-n // (os.cpu_count() or 1)))
+    spans = [(s, min(s + step, n)) for s in range(0, n, step)]
+    return all(host_pool().map(
+        lambda se: verify_batch(pks[se[0]:se[1]], msgs[se[0]:se[1]], sigs[se[0]:se[1]],
+                                [sample_randomizer() for _ in range(se[1] - se[0])]), spans))
+
+
+def native_slot_fallback(batches: list[dict[int, bytes]], pks: list[bytes],
+                         msgs: list[bytes]) -> tuple[list[bytes], bool]:
+    """The slot on the host, the last rung of ops/guard.py (the reference's
+    tbls/native_impl.py native_slot_fallback): `threshold_aggregate`, then
+    the RLC verify of the aggregates (`verify_batch_chunked`). Returns
+    (compressed aggregates, all_valid), byte-identical to the device slot
+    and to the reference's rung; a length mismatch raises ValueError. The
+    reference runs both steps on one thread; this rung spreads them over
+    the host's cores, so that a 1000-validator slot fits a duty's 12 s."""
+    if not batches:
+        return [], True
+    aggs = threshold_aggregate(batches)
+    if not (len(pks) == len(msgs) == len(aggs)):
+        raise ValueError("length mismatch")
+    return aggs, verify_batch_chunked(pks, msgs, aggs)
 
 
 def verify_batch(pks: list[bytes], msgs: list[bytes], sigs: list[bytes],

@@ -45,7 +45,9 @@ CUDA when this module is imported.
 Wrappers check device, dtype, shape and contiguity and raise on anything
 else. A CPU tensor runs the kernel's plain version (ops/field.py,
 ops/curve.py) and counts a plain call; a CUDA tensor launches the kernel on
-the current stream and counts a launch — or raises: there is no fallback.
+the current stream and counts a launch — or raises DeviceError (its
+launcher returned a CUDA error): a wrapper has no fallback, and the guard
+(ops/guard.py) lands no launch failure on the native rung.
 The field kernels take a level (`mul_level`, `addsub_level`): up to
 LEVEL_SEGS independent operations of one kind and one E, each on its own
 (E, 12, n) views whose lanes are contiguous and whose limb rows may be a
@@ -142,6 +144,14 @@ _ARGS = {
     "charon_pt_mul_windowed": [ctypes.c_int] + [_VP] * 6 + [_LL, _VP, ctypes.c_int, _VP],
     "charon_pt_reduce_groups": [ctypes.c_int] + [_VP] * 4 + [_LL, ctypes.c_int] + [_VP] * 5,
 }
+
+
+class DeviceError(RuntimeError):
+    """A kernel did not launch (its launcher returned a CUDA error: an
+    invalid configuration, too many resources, no image for the card): a
+    defect of the kernel or its build, which ops/guard.py classifies as
+    "launch" and never lands on the native rung, as it does a failed build
+    (subprocess.CalledProcessError)."""
 
 
 def nvcc() -> str:
@@ -322,7 +332,7 @@ def call(lib: ctypes.CDLL, name: str, E: int, ins, n_out: int, args=()):
         rc = fn(E, *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs],
                 ins[0].shape[2], *args, stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name}<{E}> did not launch: error {rc}")
+        raise DeviceError(f"CUDA kernel {name}<{E}> did not launch: error {rc}")
     return outs
 
 
@@ -345,7 +355,7 @@ def launch_rows(name: str, a: torch.Tensor, b: torch.Tensor, E: int, args=()) ->
     rc = getattr(_library(), "charon_" + name)(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
                                                *args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name}<{E}> did not launch: error {rc}")
+        raise DeviceError(f"CUDA kernel {name}<{E}> did not launch: error {rc}")
     KERNELS[name].count(E, n)
     return out
 
@@ -429,7 +439,7 @@ def call_level(lib: ctypes.CDLL, kind: str, E: int, segs) -> None:
         rc = getattr(lib, f"charon_{kind}_level")(E, level_table(segs), len(segs),
                                                  torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {kind}<{E}> did not launch: error {rc}")
+        raise DeviceError(f"CUDA kernel {kind}<{E}> did not launch: error {rc}")
 
 
 def level_plain(op, a, b, E: int) -> torch.Tensor:
@@ -558,7 +568,7 @@ def launch_pow(layout: str, a: torch.Tensor, digits: list[int], case=None) -> to
                                   bytes(digits), len(digits),
                                   torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel fe_pow<{layout}> did not launch: error {rc}")
+        raise DeviceError(f"CUDA kernel fe_pow<{layout}> did not launch: error {rc}")
     KERNELS["fe_pow"].count(layout, n, case)
     return out
 
@@ -684,7 +694,7 @@ def reduce_groups(X, Y, Z, gid: torch.Tensor, G: int, E: int = 1):
             E, X.data_ptr(), Y.data_ptr(), Z.data_ptr(), gid.data_ptr(), n, G,
             *[o.data_ptr() for o in outs], scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel pt_reduce_groups<{E}> did not launch: error {rc}")
+        raise DeviceError(f"CUDA kernel pt_reduce_groups<{E}> did not launch: error {rc}")
     KERNELS["pt_reduce_groups"].count(E, n, case)
     return tuple(outs)
 

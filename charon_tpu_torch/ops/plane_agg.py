@@ -17,6 +17,20 @@ sequence of kernel launches (cuda_plane) followed by a host finish:
      ops/rows.py through ops/pairing.py, H(m) from the dual-form cache and
      the device hash-to-G2 of ops/h2c.py), or on the native rung when asked.
 
+The slot runs through ops/guard.py, as the reference's does on one device
+(`threshold_aggregate_and_verify`): `dispatch_slot` asks the plane breaker
+first (open: the slot goes to the native rung with no launch) and captures
+a device-class failure of steps 1-4 as ("dispatch_failed", exc);
+`guard.finish_slot` then runs the readback, emit and verify, and lands the
+slot on the native rung (native.native_slot_fallback, byte-identical) on a
+device-class failure of any of them. A device-class failure of the device
+pairing check alone re-runs the check natively (`pairing_finish`, as the
+reference's _pairing_finish). The fault seam's sites sigagg.pack,
+sigagg.execute, sigagg.readback and sigagg.finish sit where the reference
+has them. Inside `guard.fallback(False)` (TorchImpl with
+fallback_on_device_error off) none of this applies and a device error
+raises.
+
 The bulk verify of compressed (pk, msg, sig) triples (`rlc_verify_batch`,
 the receipt path of peer partials) runs chunks of VERIFY_CHUNK triples:
 per chunk the parse, G2 decompression, the G2 subgroup check
@@ -55,8 +69,10 @@ from ..crypto.curve import (B_G1, B_G2, FqOps, Fq2Ops, g1_generator, jac_add, ja
                             jac_is_infinity, jac_mul, to_affine, to_jacobian)
 from ..crypto.rlc import RLC_BITS, sample_randomizers
 from ..crypto.serialize import g1_to_bytes, g2_affine_from_bytes, g2_affine_to_bytes, g2_to_bytes
+from ..utils import faults
 from . import cuda_plane as CP
 from . import field as F
+from . import guard
 from . import h2c as h2c_mod
 from . import pairing as pairing_mod
 
@@ -785,22 +801,40 @@ def native_pairing_check(S, live, h2c: H2CCache) -> bool:
     return native.pairing_check(b"".join(g1_pts), b"".join(g2_pts), negs)
 
 
+def _count_pairs(pairing_path: dict, rung: str, n: int) -> None:
+    with _path_lock:
+        pairing_path[rung] = pairing_path.get(rung, 0) + n
+
+
 def pairing_finish(S, group_points, h2c: H2CCache, pairing_path: dict,
                    verify: str = "device", device=None) -> bool:
     """Π e(P_m, H(m)) · e(−g1, S) == 1 on the chosen rung: "device" (the
     default, as in the reference) or "native". An infinity P_m drops its
     pair; an infinity S verifies only when every P_m vanished too.
-    `pairing_path` counts pairs per rung (ops_pairing_total{path}). There
-    is no fallback between the rungs: a device error propagates."""
+    `pairing_path` counts pairs per rung (ops_pairing_total{path}). On the
+    device rung, while guard.fallback_enabled(), an open plane breaker
+    sends the check to the native rung, and a device-class failure of the
+    device check re-runs it there (guard.note_verify_fallback), as the
+    reference's _pairing_finish; any other error propagates."""
     if verify not in VERIFY_PATHS:
         raise ValueError(f"verify must be one of {VERIFY_PATHS}, got {verify!r}")
     live = [(bytes(m), P) for m, P in group_points if not jac_is_infinity(FqOps, P)]
     if jac_is_infinity(Fq2Ops, S):
         return not live
-    with _path_lock:
-        pairing_path[verify] = pairing_path.get(verify, 0) + len(live) + 1
     if verify == "device":
-        return device_pairing_check(S, live, h2c, device)
+        guarded = guard.fallback_enabled()
+        if not guarded or guard.BREAKER.state != guard.OPEN:
+            try:
+                ok = device_pairing_check(S, live, h2c, device)
+            except Exception as exc:
+                reason = guard.device_reason(exc)
+                if not guarded or reason is None:
+                    raise
+                guard.note_verify_fallback(reason, exc)
+            else:
+                _count_pairs(pairing_path, "device", len(live) + 1)
+                return ok
+    _count_pairs(pairing_path, "native", len(live) + 1)
     return native_pairing_check(S, live, h2c)
 
 
@@ -844,6 +878,7 @@ def fused_slot(layout, pks, msgs, device, pk_cache: PkPlaneCache, randomizers=No
     given, is called with each step's name once the step's work is issued
     (a per-step breakdown of this sequence)."""
     mark = mark or (lambda _name: None)
+    faults.check("sigagg.pack")
     sigs_all, scalars_all, V, Vp, T, Wv = layout
     X0r, X1r, sgn, lmask, ldig = load_partials(layout, device)
     mark("parse + partial upload (host)")
@@ -869,10 +904,15 @@ def fused_slot(layout, pks, msgs, device, pk_cache: PkPlaneCache, randomizers=No
 
 
 def readback(state):
-    """Wait for the slot's device work and bring its outputs to the host."""
+    """Wait for the slot's device work (a fence on the stream it ran on) and
+    bring its outputs to the host."""
+    faults.check("sigagg.execute")
     if state[0] == "bad_pk":
         return state
     _tag, V, group_msgs, (ok, xs, sign, inf, sig_red, pk_reds) = state
+    if ok.is_cuda:
+        torch.cuda.current_stream(ok.device).synchronize()
+    faults.check("sigagg.readback")
     host = (ok.cpu().numpy(), xs.cpu().numpy(), sign.cpu().numpy(), inf.cpu().numpy(),
             tuple(c.cpu() for c in sig_red), [tuple(c.cpu() for c in r) for r in pk_reds])
     return ("host", V, group_msgs, host)
@@ -883,6 +923,7 @@ def host_emit(hstate, device):
     (aggregates, S, group_points) for `pairing_finish`; a bad pubkey set
     still yields the aggregates, with S and group_points None (verdict
     False)."""
+    faults.check("sigagg.finish")
     if hstate[0] == "bad_pk":
         return aggregate(hstate[1], device), None, None
     _tag, V, group_msgs, (ok, xs, sign, inf, sig_red, pk_reds) = hstate
@@ -896,34 +937,70 @@ def host_emit(hstate, device):
 
 class SlotTimes:
     """Seconds of the last slot's phases: dispatch (host parse + launches),
-    readback, emit (bytes + host folds) and verify (the pairing check on
-    whichever rung ran)."""
+    readback, emit (bytes + host folds), verify (the pairing check on
+    whichever rung ran) and native (the native rung, when the slot landed
+    there: the phases before it keep the time they took, the ones it
+    skipped are 0)."""
 
     def __init__(self):
-        self.dispatch = self.readback = self.emit = self.verify = 0.0
+        self.dispatch = self.readback = self.emit = self.verify = self.native = 0.0
+
+
+def dispatch_slot(batches, pks, msgs, device, pk_cache: PkPlaneCache):
+    """The guarded dispatch (the reference's _dispatch_slot): ("native_slot",)
+    when the plane breaker is open, with no device work;
+    ("dispatch_failed", exc) when the host parse or a launch failed
+    device-class; else fused_slot's state. Other errors raise (releasing
+    the breaker's probe, if this slot was it), and so does every error
+    outside guard.fallback_enabled()."""
+    if not guard.fallback_enabled():
+        return fused_slot(layout_slots(batches), pks, msgs, device, pk_cache)
+    if not guard.allow_device_dispatch():
+        return ("native_slot",)
+    try:
+        return fused_slot(layout_slots(batches), pks, msgs, device, pk_cache)
+    except Exception as exc:
+        if not guard.is_device_error(exc):
+            guard.BREAKER.release_probe()
+            raise
+        return ("dispatch_failed", exc)
 
 
 def threshold_aggregate_and_verify(batches, pks, msgs, device, pk_cache: PkPlaneCache,
                                    h2c: H2CCache, pairing_path: dict,
                                    times: SlotTimes | None = None, verify: str = "device"):
     """The fused sigagg slot end to end: (compressed aggregates, all_valid),
-    verified on the `verify` rung ("device" or "native")."""
+    verified on the `verify` rung ("device" or "native"), through the guard
+    (dispatch_slot, guard.finish_slot)."""
     if not batches:
         return [], True
     if not (len(batches) == len(pks) == len(msgs)):
         raise ValueError("length mismatch")
+    times = SlotTimes() if times is None else times
+    times.dispatch = times.readback = times.emit = times.verify = times.native = 0.0
     t0 = time.perf_counter()
-    state = fused_slot(layout_slots(batches), pks, msgs, device, pk_cache)
+    state = dispatch_slot(batches, pks, msgs, device, pk_cache)
+    times.dispatch = time.perf_counter() - t0
+    on_device = []
+
+    def finish(state):
+        t1 = time.perf_counter()
+        hstate = readback(state)
+        t2 = time.perf_counter()
+        times.readback = t2 - t1
+        out, S, pts = host_emit(hstate, device)
+        t3 = time.perf_counter()
+        times.emit = t3 - t2
+        ok = S is not None and pairing_finish(S, pts, h2c, pairing_path, verify, device)
+        times.verify = time.perf_counter() - t3
+        on_device.append(True)
+        return out, ok
+
     t1 = time.perf_counter()
-    hstate = readback(state)
-    t2 = time.perf_counter()
-    out, S, pts = host_emit(hstate, device)
-    t3 = time.perf_counter()
-    ok = S is not None and pairing_finish(S, pts, h2c, pairing_path, verify, device)
-    t4 = time.perf_counter()
-    if times is not None:
-        times.dispatch, times.readback, times.emit, times.verify = t1 - t0, t2 - t1, t3 - t2, t4 - t3
-    return out, ok
+    out = guard.finish_slot(state, (batches, pks, msgs), finish)
+    if not on_device:
+        times.native = time.perf_counter() - t1 - times.readback - times.emit - times.verify
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1014,7 +1091,8 @@ def rlc_fold(state):
 def rlc_verify_finish(state, h2c: H2CCache, pairing_path: dict, verify: str = "device",
                       device=None) -> bool:
     """Fold the dispatched chunks and run the multi-pairing on the `verify`
-    rung (no fallback between the rungs)."""
+    rung (pairing_finish: the device rung's check lands natively on a
+    device-class failure while guard.fallback_enabled())."""
     folded = rlc_fold(state)
     return folded is not None and pairing_finish(*folded, h2c, pairing_path, verify, device)
 

@@ -1,21 +1,28 @@
-"""The port's slot-shaping knob, read from the same environment variable
-as the reference's (charon_tpu/ops/policy.py):
+"""The port's knobs, read from the same environment variables as the
+reference's (charon_tpu/ops/policy.py), with the same defaults and clamps:
 
   * CHARON_TPU_H2C_CACHE_CAP, default 4096: entries of plane_agg.H2CCache
     (a value that is not an integer reads as the default; <= 0 disables
     the cache). It is read when a TorchImpl is made.
+  * CHARON_TPU_BREAKER_THRESHOLD, default 3, at least 1: consecutive
+    device-class slot failures that open ops/guard.py's plane breaker. Read
+    when a breaker is made (guard.BREAKER, guard.configure).
+  * CHARON_TPU_BREAKER_COOLDOWN_S, default 30.0: seconds an open breaker
+    keeps every slot on the native rung before one probe slot may try the
+    device again (a negative value counts as 0 in the breaker).
+  * CHARON_TPU_SLOT_DEADLINE_S, default 600.0: the watchdog deadline of a
+    slot submitted through TorchImpl.threshold_aggregate_verify_submit; 0
+    disables the watchdog. Read at each submit.
 
-The reference's SlotPolicy seam (install / update / subscribe, epochs) is
-not ported: no caller of the port installs a policy. Its other knobs are
-left out with their variables: `pipeline_depth` and `finish_workers` (the
-SigAggPipeline's, not ported: the port's submit front door runs the serial
-slot on one thread), `field_plane` (the TPU's XLA or Pallas field plane;
-the port has one set of kernels), `sigagg_devices` (the mesh clamp: the
-multi-GPU slice), `breaker_threshold`, `breaker_cooldown_s` and
-`slot_deadline_s` (ops/guard.py's breaker and watchdog, not ported: in the
-port a device error propagates), `flush_at` and `deadline_budget_s` (the
-coalescer's window) and `device_verify` (TorchImpl takes its verify rung
-explicitly).
+A value that does not parse reads as the default. The reference's
+SlotPolicy seam (install / update / subscribe, epochs) is not ported: no
+caller of the port installs a policy. Its other knobs are left out with
+their variables: `pipeline_depth` and `finish_workers` (the SigAggPipeline's,
+not ported: the port's submit front door runs the serial slot on one
+thread), `field_plane` (the TPU's XLA or Pallas field plane; the port has
+one set of kernels), `sigagg_devices` (the mesh clamp: the multi-GPU
+slice), `flush_at` and `deadline_budget_s` (the coalescer's window) and
+`device_verify` (TorchImpl takes its verify rung explicitly).
 """
 
 from __future__ import annotations
@@ -23,11 +30,37 @@ from __future__ import annotations
 import os
 
 ENV_H2C_CACHE_CAP = "CHARON_TPU_H2C_CACHE_CAP"
+ENV_BREAKER_THRESHOLD = "CHARON_TPU_BREAKER_THRESHOLD"
+ENV_BREAKER_COOLDOWN = "CHARON_TPU_BREAKER_COOLDOWN_S"
+ENV_SLOT_DEADLINE = "CHARON_TPU_SLOT_DEADLINE_S"
 H2C_CACHE_CAP = 4096
 
 
-def h2c_cache_cap_default() -> int:
+def _env_int(name: str, default: int) -> int:
     try:
-        return int(os.environ[ENV_H2C_CACHE_CAP])
+        return int(os.environ[name])
     except (KeyError, ValueError):
-        return H2C_CACHE_CAP
+        return default
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ[name])
+    except (KeyError, ValueError):
+        return default
+
+
+def h2c_cache_cap_default() -> int:
+    return _env_int(ENV_H2C_CACHE_CAP, H2C_CACHE_CAP)
+
+
+def breaker_threshold_default() -> int:
+    return max(1, _env_int(ENV_BREAKER_THRESHOLD, 3))
+
+
+def breaker_cooldown_default() -> float:
+    return _env_float(ENV_BREAKER_COOLDOWN, 30.0)
+
+
+def slot_deadline_default() -> float:
+    return _env_float(ENV_SLOT_DEADLINE, 600.0)

@@ -26,28 +26,47 @@ pipeline reach:
     and verify_batch_each (per-item attribution): the native library
     through the port's loader, as the reference's calls go to NativeImpl.
 
-Every batch size goes to the device: there is no small-batch routing and
-no fallback, and a device error propagates, through the call or the
-future. The device is explicit. `TorchImpl()` runs on cuda:0 and raises
-when CUDA is absent; only `TorchImpl(device="cpu")` selects the plain
-versions of the kernels, which is what the CPU tests pass.
+Every batch size goes to the device: there is no small-batch routing. The
+device is explicit. `TorchImpl()` runs on cuda:0 and raises when CUDA is
+absent; only `TorchImpl(device="cpu")` selects the plain versions of the
+kernels, which is what the CPU tests pass.
 
 The slot and the bulk verify check their pairings on the device by default
 (`verify="device"`: H(m) and the multi-pairing on the rows kernels, as the
 reference's default device verify); `verify="native"` selects the native
-ct_pairing_check rung explicitly. Neither falls back to the other. The
-rung is the attribute `rung` (`verify` is the protocol's method).
+ct_pairing_check rung explicitly. The rung is the attribute `rung`
+(`verify` is the protocol's method).
+
+A device error (ops/guard.py: a lost or faulted card, an allocation that
+failed, a timeout) lands on the native rung, with the
+same bytes and verdicts, as in the reference: the slot through the guard
+(the plane breaker, the native slot rung), the device pairing check through
+its verify fallback, and, as the belt of the calls with no guard below
+them, threshold_aggregate_batch and verify_batch answer natively when a
+device-class error reaches them (`fallback_on_device_error`, default True,
+as TPUImpl's). Set it False and every device-class error raises instead,
+through the call or the Future. Input errors (ValueError), a kernel that
+failed to build or to launch and any other error always raise. A
+submitted slot has a watchdog: past `CHARON_TPU_SLOT_DEADLINE_S` (600 s; 0
+disables it) its Future resolves from the native rung (or, with the
+fallback off, with a TimeoutError), the late result is dropped, and the
+device's slot thread is replaced so that later slots do not queue behind
+the hung one.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as futures
+import heapq
+import itertools
 import threading
+import time
 
 import numpy as np
 import torch
 
 from .. import native
+from ..ops import guard
 from ..ops import plane_agg as PA
 from ..ops import policy as policy_mod
 from .scalar import FrScalarOps
@@ -69,10 +88,76 @@ def slot_thread(device) -> futures.ThreadPoolExecutor:
         return pool
 
 
+def replace_slot_thread(device, hung: futures.ThreadPoolExecutor) -> None:
+    """After a watchdog expiry: give the device a fresh slot thread, unless
+    `hung` was replaced already. The slots queued behind the hung one are
+    cancelled there; their watchdogs run them again on the new thread."""
+    key = str(torch.device(device))
+    with _SLOT_THREADS_LOCK:
+        if _SLOT_THREADS.get(key) is not hung:
+            return
+        _SLOT_THREADS[key] = futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix=f"sigagg-slot-{key}")
+    hung.shutdown(wait=False, cancel_futures=True)
+
+
+class _Alarms:
+    """The submitted slots' watchdogs on one daemon thread: each armed
+    alarm fires at its deadline unless it was cancelled first. Arming one
+    starts no thread, and wakes the alarm thread only when the new alarm is
+    the earliest: a thread that a submit starts or wakes takes the
+    interpreter lock from the submitting thread, which then waits for it
+    behind the running slot. An alarm that fires runs its function on a
+    thread of its own, so that one recovery holds up no other deadline."""
+
+    def __init__(self) -> None:
+        self._cv = threading.Condition()
+        self._heap: list = []
+        self._seq = itertools.count()
+        self._thread: threading.Thread | None = None
+
+    def arm(self, delay: float, fn) -> threading.Event:
+        """Run fn `delay` seconds from now unless the returned Event is set
+        before."""
+        cancelled = threading.Event()
+        with self._cv:
+            heapq.heappush(self._heap, (time.monotonic() + delay, next(self._seq), fn,
+                                        cancelled))
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._run, name="sigagg-watchdog",
+                                                daemon=True)
+                self._thread.start()
+            elif self._heap[0][3] is cancelled:
+                self._cv.notify()
+        return cancelled
+
+    def _run(self) -> None:
+        with self._cv:
+            while True:
+                if not self._heap:
+                    self._cv.wait()
+                    continue
+                when, _n, fn, cancelled = self._heap[0]
+                left = when - time.monotonic()
+                if left > 0 and not cancelled.is_set():
+                    self._cv.wait(left)
+                    continue
+                heapq.heappop(self._heap)
+                if not cancelled.is_set():
+                    threading.Thread(target=fn, name="sigagg-watchdog-expiry",
+                                     daemon=True).start()
+
+
+_ALARMS = _Alarms()
+
+
 class TorchImpl(FrScalarOps):
     """tbls implementation running the device work on one CUDA device."""
 
     name = "torch-cuda"
+    # False: a device-class error raises instead of landing natively
+    # (chip_smoke.py's phases 1-8, as the reference's benches)
+    fallback_on_device_error = True
 
     def __init__(self, device: str | torch.device | None = None, verify: str = "device"):
         if verify not in PA.VERIFY_PATHS:
@@ -144,11 +229,27 @@ class TorchImpl(FrScalarOps):
     def threshold_aggregate(self, partial_sigs: dict[int, Signature]) -> Signature:
         return self.threshold_aggregate_batch([partial_sigs])[0]
 
+    def _lands_native(self, op: str, exc: BaseException) -> bool:
+        """The belt: may `op` answer natively after `exc`? Only a
+        device-class error with the fallback on, and the landing is
+        counted."""
+        if not (self.fallback_on_device_error and guard.is_device_error(exc)):
+            return False
+        guard.note_call_fallback(op, exc)
+        return True
+
     def threshold_aggregate_batch(self, batches: list[dict[int, Signature]]) -> list[Signature]:
         if not batches:
             return []
-        raw = PA.aggregate(PA.layout_slots(self._raw(batches)), self.device)
-        return [Signature(r) for r in raw]
+        raw = self._raw(batches)
+        try:
+            with guard.fallback(self.fallback_on_device_error):
+                out = PA.aggregate(PA.layout_slots(raw), self.device)
+        except Exception as exc:
+            if not self._lands_native("threshold_aggregate_batch", exc):
+                raise
+            out = native.threshold_aggregate(raw)
+        return [Signature(r) for r in out]
 
     def verify_batch(self, public_keys: list[PublicKey], datas: list[bytes],
                      signatures: list[Signature]) -> bool:
@@ -156,18 +257,26 @@ class TorchImpl(FrScalarOps):
         (n = 0 is True): a False means at least one bad triple, including
         a bad encoding, an infinity or an out-of-subgroup point."""
         self._check_lengths(public_keys, datas, signatures)
-        return PA.rlc_verify_batch(
-            [bytes(p) for p in public_keys], [bytes(d) for d in datas],
-            [bytes(s) for s in signatures], self.device, self.pk_cache, self.h2c,
-            self.pairing_path, self.rung)
+        pks, msgs, sigs = ([bytes(x) for x in xs] for xs in (public_keys, datas, signatures))
+        try:
+            with guard.fallback(self.fallback_on_device_error):
+                return PA.rlc_verify_batch(pks, msgs, sigs, self.device, self.pk_cache,
+                                           self.h2c, self.pairing_path, self.rung)
+        except Exception as exc:
+            if not self._lands_native("verify_batch", exc):
+                raise
+        return native.verify_batch_chunked(pks, msgs, sigs)
 
     def threshold_aggregate_verify_batch(self, batches, public_keys, datas):
-        """Fused slot: the aggregates plus one RLC verdict over all of them."""
+        """Fused slot: the aggregates plus one RLC verdict over all of them,
+        through the guard (PA.threshold_aggregate_and_verify lands its own
+        device-class failures while the fallback is on)."""
         self._check_lengths(batches, public_keys, datas)
-        raw, ok = PA.threshold_aggregate_and_verify(
-            self._raw(batches), [bytes(pk) for pk in public_keys],
-            [bytes(d) for d in datas], self.device, self.pk_cache, self.h2c,
-            self.pairing_path, times=self.last_times, verify=self.rung)
+        with guard.fallback(self.fallback_on_device_error):
+            raw, ok = PA.threshold_aggregate_and_verify(
+                self._raw(batches), [bytes(pk) for pk in public_keys],
+                [bytes(d) for d in datas], self.device, self.pk_cache, self.h2c,
+                self.pairing_path, times=self.last_times, verify=self.rung)
         return [Signature(r) for r in raw], ok
 
     def threshold_aggregate_verify_overlapped(self, batches, public_keys, datas):
@@ -178,9 +287,92 @@ class TorchImpl(FrScalarOps):
     def threshold_aggregate_verify_submit(self, batches, public_keys, datas) -> futures.Future:
         """Queue threshold_aggregate_verify_batch on the device's slot thread
         and return its Future of (aggregates, ok) at once. Every error,
-        input validation included, arrives through the Future."""
-        return slot_thread(self.device).submit(self.threshold_aggregate_verify_batch,
-                                               batches, public_keys, datas)
+        input validation included, arrives through the Future. With a
+        watchdog deadline (guard.slot_deadline_default(), read here; 0
+        disables it) the Future is the first to settle of the slot and
+        the watchdog (the reference's SigAggPipeline._watchdog_wrap)."""
+        args = (batches, public_keys, datas)
+        deadline = guard.slot_deadline_default()
+        if not deadline:
+            return self._queue(args)[1]
+        return self._watched(args, deadline)
+
+    def _queue(self, args) -> tuple:
+        """(the slot thread, the slot's Future): the slot queued on the
+        device's current slot thread, again on its successor if a watchdog
+        replaced it in between."""
+        pool = slot_thread(self.device)
+        try:
+            return pool, pool.submit(self.threshold_aggregate_verify_batch, *args)
+        except RuntimeError:
+            if slot_thread(self.device) is pool:    # not replaced: the interpreter is exiting
+                raise
+            return self._queue(args)
+
+    def _watched(self, args, deadline: float) -> futures.Future:
+        """The slot on the device's slot thread under an alarm (_ALARMS) of
+        `deadline` seconds, armed now. The slot's result settles the
+        returned Future if it comes first. Otherwise the alarm replaces the
+        slot thread (replace_slot_thread) and settles it from the native
+        rung (guard.watchdog_recover; with the fallback off, a TimeoutError)
+        and the slot's late result is dropped. A slot cancelled while it
+        queued behind a hung one runs again on the new slot thread."""
+        out: futures.Future = futures.Future()
+        out.set_running_or_notify_cancel()
+        lock = threading.Lock()
+        pools, expired = [], threading.Event()
+
+        def settle(value=None, exc=None) -> bool:
+            with lock:
+                if out.done():
+                    return False
+                if exc is not None:
+                    out.set_exception(exc)
+                else:
+                    out.set_result(value)
+                return True
+
+        def submit() -> None:
+            pool, fut = self._queue(args)
+            pools.append(pool)
+            fut.add_done_callback(done)
+
+        def done(fut: futures.Future) -> None:
+            if fut.cancelled():
+                if not expired.is_set():
+                    submit()
+                return
+            alarm.set()
+            exc = fut.exception()
+            settle(None if exc is not None else fut.result(), exc)
+
+        def expire() -> None:
+            if out.done():
+                return
+            expired.set()
+            if pools:
+                replace_slot_thread(self.device, pools[-1])
+            if not self.fallback_on_device_error:
+                guard.note_watchdog_expiry()
+                settle(exc=TimeoutError("sigagg slot watchdog deadline expired"))
+                return
+            try:
+                self._check_lengths(*args)
+                raw, ok = guard.watchdog_recover(
+                    (self._raw(args[0]), [bytes(pk) for pk in args[1]],
+                     [bytes(d) for d in args[2]]))
+            except BaseException as exc:  # noqa: BLE001 — the Future carries it
+                settle(exc=exc)
+            else:
+                settle(([Signature(r) for r in raw], ok))
+
+        alarm = _ALARMS.arm(deadline, expire)
+        try:
+            submit()
+        except BaseException:
+            alarm.set()
+            raise
+        return out
 
     def pin_pubkeys(self, public_keys) -> None:
         """Keep this set's pk planes (every span, bucket and device) through

@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, hold each
 against its plain version, and run the fused sigagg slot at 1000 validators
 x 4-of-6 through TorchImpl — verified on the device by default — checked
-against the native oracle, then the bulk verify, the submit front door and
-the FROST DKG ceremony's device paths.
+against the native oracle, then the bulk verify, the submit front door, the
+FROST DKG ceremony's device paths, and the guard that lands a slot the
+device failed on the native rung.
 
     python3 chip_smoke.py            # the whole check (one CUDA card)
     python3 chip_smoke.py --profile  # the whole check, then one slot traced
@@ -130,7 +131,31 @@ Phases, any failure exits non-zero:
                lanes (an empty group, cancelling points, a repeated point,
                infinity and padding lanes), held and timed, in the kernels
                JSON as dkg_by_width.
-The last two lines are the kernels JSON and the device JSON.
+  9. guard   — the device plane's guard at the headline's full width
+               (ops/guard.py; phases 1-8 run with fallback_on_device_error
+               off, and after phase 8 every guard counter must be 0, the
+               breaker closed and no ceremony fallback taken, so a kernel
+               that fails on the card fails the run): a fault-free device
+               slot gives the reference bytes (native ct_lincomb_g2's) and
+               verdict; one slot with a planned device_lost fault at each
+               of sigagg.pack, .execute, .readback and .finish and one with
+               a timeout lands on the native rung byte-identical, each
+               landing counted once; a tampered partial under a fault is
+               False; a bad encoding raises the reference's ValueError with
+               no landing; the breaker (threshold 3, cooldown 5 s) opens on
+               three failures, the next slot launches no kernel and lands
+               as breaker_open, and a probe slot after the cooldown
+               launches phase 4's first slot's kernels and closes it; a
+               lost device pairing check gives the native verdict, its
+               pairs counted native; a submitted slot whose readback is
+               held past the 2 s watchdog resolves from the native rung and
+               the next one runs on a fresh slot thread on the device; node
+               1's share checks of phase 8 under a frost.msm fault pass
+               natively, a tampered share raises phase 8's CharonError, and
+               an open breaker closes device_gate. Its JSON (the counters,
+               the median walls of native-landed and device slots, the
+               card) is printed before the kernels JSON.
+The last three lines are the guard JSON, the kernels JSON and the device JSON.
 
 --ab builds each variant NAME=DIR (the plane_kernels.cu and fp.cuh in DIR,
 with `constexpr int CONST = V;` lines of the source set as given, e.g. the
@@ -189,6 +214,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -204,13 +230,15 @@ from charon_tpu_torch.ops import convert as CV
 from charon_tpu_torch.ops import curve as C
 from charon_tpu_torch.ops import cuda_plane as CP
 from charon_tpu_torch.ops import field as F
+from charon_tpu_torch.ops import guard as GD
 from charon_tpu_torch.ops import h2c as H2C
 from charon_tpu_torch.ops import pairing as PR
 from charon_tpu_torch.ops import plane_agg as PA
 from charon_tpu_torch.ops import point_schedule as PS
 from charon_tpu_torch.ops import rows as RW
+from charon_tpu_torch.tbls import torch_impl as TI
 from charon_tpu_torch.tbls.torch_impl import TorchImpl
-from charon_tpu_torch.utils import errors
+from charon_tpu_torch.utils import errors, faults
 
 N_VALIDATORS, NUM_SHARES, THRESHOLD = 1000, 6, 4
 MSG = b"\x42" * 32
@@ -2159,7 +2187,289 @@ def dkg_phase(pool, smi: str, device) -> tuple[dict, dict, dict]:
     extra = path_counts()
     dkg_pinned(items[1], device)
     dkg_walls(parts, nonces, items[1], device, smi)
-    return launches, main, merge_counts(main, extra)
+    return launches, main, merge_counts(main, extra), items[1]
+
+
+# ---------------------------------------------------------------------------
+# The guard (phase 9): the fault seam, the plane breaker, the native slot
+# rung, the verify fallback, the watchdog and the ceremony's fallback
+# ---------------------------------------------------------------------------
+
+GUARD_SITES = ("sigagg.pack", "sigagg.execute", "sigagg.readback", "sigagg.finish")
+GUARD_DEADLINE_S = 2.0      # the watchdog's deadline in phase 9
+# the breaker's cooldown in phase 9: longer than the third failure's native
+# landing (1.3-1.6 s at 1000 validators on the H100 host), which runs after
+# the breaker opened, so that the next slot still finds it open
+GUARD_COOLDOWN_S = 5.0
+
+
+def guard_quiet(label: str) -> None:
+    """Fail the run unless no device failure was absorbed: every guard
+    counter at 0, the breaker closed, no ceremony fallback."""
+    c = GD.counters()
+    if c["fallback"] or c["watchdog"] or c["breaker"] != GD.CLOSED or TF.FALLBACKS:
+        raise SystemExit(f"{label}: a device failure was absorbed: guard {c}, ceremony "
+                         f"{dict(TF.FALLBACKS)}")
+    log(f"{label}: every guard counter at 0, the breaker closed, no ceremony fallback")
+
+
+def _guarded() -> TorchImpl:
+    impl = TorchImpl()
+    impl.fallback_on_device_error = True
+    return impl
+
+
+def _launch_total() -> int:
+    return sum(sum(k.launches.values()) for k in CP.KERNELS.values())
+
+
+def _timed_slot(impl: TorchImpl, args, submit: bool = False) -> tuple:
+    """((aggregate bytes, ok), synchronised wall seconds) of one slot."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if submit:
+        aggs, ok = impl.threshold_aggregate_verify_submit(*args).result(timeout=120)
+    else:
+        aggs, ok = impl.threshold_aggregate_verify_batch(*args)
+    torch.cuda.synchronize()
+    return ([bytes(a) for a in aggs], ok), time.perf_counter() - t0
+
+
+def _landed_once(label: str, reason: str, before: int) -> None:
+    if GD.fallback_total(reason) != before + 1:
+        raise SystemExit(f"guard {label}: FALLBACKS[({reason!r}, 'native')] went "
+                         f"{before} -> {GD.fallback_total(reason)}, not up by one")
+
+
+def guard_phase(pool, batches, pubkeys, tampered, phase4_launches: dict, dkg_items,
+                smi: str, device) -> dict:
+    """Phase 9: the guard at the headline's full width (1000 x 4-of-6, the
+    probe's keys and message), on TorchImpls with fallback_on_device_error
+    on. (1) A fault-free device slot gives the reference bytes and verdict,
+    equal to native ct_lincomb_g2 of every validator; three steady device
+    slots timed. (2) One slot a site (sigagg.pack, .execute, .readback,
+    .finish) with a planned device_lost fault and one with a timeout fault:
+    each lands on the native rung with the reference bytes and verdict,
+    FALLBACKS[(reason, "native")] up by one. (3) A tampered partial under a
+    fault: False. (4) A bad encoding: the reference's ValueError text, no
+    landing counted. (5) The breaker (threshold 3, cooldown GUARD_COOLDOWN_S): three
+    sigagg.pack failures open it; the next slot launches no kernel and
+    lands as breaker_open; after the cooldown a fault-free probe slot on a
+    fresh TorchImpl launches phase 4's first slot's kernels and closes the
+    breaker. (6) The verify fallback: device_pairing_check raising
+    DeviceLostFault gives the native verdict, pairing_path["native"] up by
+    the slot's pairs. (7) The watchdog (deadline 2 s): a submitted slot
+    whose readback is held resolves from the native rung, byte-identical,
+    watchdog_total 1; the next submitted slot runs on a fresh slot thread
+    on the device, with a steady slot's launches. (8) Node 1's 1,200 share
+    checks of phase 8 with frost.msm device_lost: no error, all counted
+    native, one ceremony fallback; a tampered share under the fault gives
+    phase 8's CharonError; with the breaker open device_gate is False.
+    Returns the phase's JSON (counters, walls, the card)."""
+    t_phase = time.perf_counter()
+    datas = [MSG] * N_VALIDATORS
+    args = (batches, pubkeys, datas)
+    deadline_env = os.environ.get(GD.SLOT_DEADLINE_ENV)
+    GD.reset_for_testing()
+    GD.configure(threshold=10 ** 6, cooldown=30.0)   # (1)-(4): no landing opens the breaker
+    impl = _guarded()
+    ref, first_s = _timed_slot(impl, args)
+
+    def oracle(batch):
+        ids = sorted(batch)
+        return _lincomb([batch[i] for i in ids], PF.lagrange_coefficients_at_zero(ids))
+
+    if ref[1] is not True or ref[0] != list(pool.map(oracle, batches)):
+        raise SystemExit("guard: the fault-free device slot is not native ct_lincomb_g2's / True")
+    device_s = []
+    for _ in range(3):
+        CP.reset_counts()
+        got, wall = _timed_slot(impl, args)
+        steady_launches = _launch_total()
+        device_s.append(wall)
+        if got != ref:
+            raise SystemExit("guard: a steady device slot differs from the first")
+    log(f"guard reference slot: {N_VALIDATORS}/{N_VALIDATORS} aggregates native ct_lincomb_g2's, "
+        f"True; first {first_s:.4f} s, steady median {statistics.median(device_s):.4f} s "
+        f"({steady_launches} launches a steady slot)")
+
+    native_s, landed = [], {}
+    try:
+        for site, kind in [(s, "device_lost") for s in GUARD_SITES] + [("sigagg.execute",
+                                                                          "timeout")]:
+            before = GD.fallback_total(kind)
+            faults.arm([{"site": site, "kind": kind}])
+            got, wall = _timed_slot(impl, args)
+            faults.disarm()
+            if got != ref:
+                raise SystemExit(f"guard {site} {kind}: the native landing gave "
+                                 f"{sum(a == b for a, b in zip(got[0], ref[0]))}/{N_VALIDATORS} "
+                                 f"reference aggregates, verdict {got[1]}")
+            _landed_once(f"{site} {kind}", kind, before)
+            if impl.last_times.native <= 0 or faults.injected(site) < 1:
+                raise SystemExit(f"guard {site} {kind}: no native time or no fault fired")
+            landed[f"{site} {kind}"] = wall
+            if site == "sigagg.pack":
+                native_s.append(wall)
+            log(f"guard {site} {kind}: landed native in {wall:.4f} s (native rung "
+                f"{impl.last_times.native:.4f} s), {N_VALIDATORS}/{N_VALIDATORS} aggregates the "
+                f"reference's, {got[1]}")
+
+        before = GD.fallback_total("device_lost")
+        faults.arm([{"site": "sigagg.execute"}])
+        (_aggs, ok_t), _wall = _timed_slot(impl, (tampered, pubkeys, datas))
+        faults.disarm()
+        if ok_t is not False:
+            raise SystemExit("guard: a tampered partial under a fault verified True")
+        _landed_once("tampered", "device_lost", before)
+        log("guard: a tampered partial under a sigagg.execute fault lands native, False")
+
+        bad = [dict(b) for b in batches]
+        v300 = 300 % len(batches)
+        i1 = sorted(bad[v300])[1]
+        bad[v300][i1] = off_curve_x(bad[v300][i1])
+        want_text = f"invalid G2 point at index {PA.layout_slots(bad)[0].index(bad[v300][i1])}"
+        counts = GD.counters()
+        try:
+            impl.threshold_aggregate_verify_batch(bad, pubkeys, datas)
+        except ValueError as exc:
+            if str(exc) != want_text or GD.counters() != counts:
+                raise SystemExit(f"guard bad encoding: {exc!r}, counters {GD.counters()}; "
+                                 f"expected ValueError({want_text!r}) and {counts}")
+        else:
+            raise SystemExit("guard: a bad encoding did not raise")
+        log(f"guard bad encoding: ValueError({want_text!r}), no landing counted")
+
+        GD.configure(threshold=3, cooldown=GUARD_COOLDOWN_S)
+        faults.arm([{"site": "sigagg.pack", "count": 3}])
+        for k in range(3):
+            got, wall = _timed_slot(impl, args)
+            if got != ref or GD.BREAKER.state != (GD.OPEN if k == 2 else GD.CLOSED):
+                raise SystemExit(f"guard breaker: failure {k + 1} gave state {GD.BREAKER.state}")
+            native_s.append(wall)
+        faults.disarm()
+        opened = time.perf_counter()       # the breaker opened before this
+        CP.reset_counts()
+        before = GD.fallback_total("breaker_open")
+        got, wall = _timed_slot(impl, args)
+        if got != ref or _launch_total() != 0:
+            raise SystemExit(f"guard breaker open: {_launch_total()} launches, aggregates "
+                             f"{'equal' if got == ref else 'different'}")
+        _landed_once("breaker open", "breaker_open", before)
+        native_s.append(wall)
+        time.sleep(max(0.0, GUARD_COOLDOWN_S + 0.05 - (time.perf_counter() - opened)))
+        probe_impl = _guarded()
+        CP.reset_counts()
+        got, probe_s = _timed_slot(probe_impl, args)
+        probe = {(k, E): CP.KERNELS[k].launches[E] for k in CP.KERNELS
+                 for E in CP.KERNELS[k].variants}
+        if got != ref or probe != phase4_launches or GD.BREAKER.state != GD.CLOSED:
+            raise SystemExit(f"guard probe: launches {probe} (phase 4: {phase4_launches}), "
+                             f"breaker {GD.BREAKER.state}")
+        log(f"guard breaker: 3 sigagg.pack failures opened it; the next slot launched 0 kernels "
+            f"and landed as breaker_open in {wall:.4f} s; after the {GUARD_COOLDOWN_S} s cooldown "
+            f"the probe slot "
+            f"launched phase 4's {sum(probe.values())} kernels in {probe_s:.4f} s and closed it")
+
+        GD.configure(threshold=3, cooldown=30.0)
+        real_check = PA.device_pairing_check
+
+        def lost(*_a):
+            raise faults.DeviceLostFault("device pairing check lost (planned)")
+
+        PA.device_pairing_check = lost
+        try:
+            before_fb, before_path = GD.fallback_total("device_lost"), dict(impl.pairing_path)
+            got, wall = _timed_slot(impl, args)
+            pairs = len(set(datas)) + 1
+            grew = {r: impl.pairing_path.get(r, 0) - before_path.get(r, 0) for r in PA.VERIFY_PATHS}
+            if got != ref or grew != {"device": 0, "native": pairs}:
+                raise SystemExit(f"guard verify fallback: pairs by rung {grew}, verdict {got[1]}")
+            _landed_once("verify fallback", "device_lost", before_fb)
+            (_aggs, ok_t), _wall = _timed_slot(impl, (tampered, pubkeys, datas))
+            if ok_t is not False:
+                raise SystemExit("guard verify fallback: the tampered slot verified True")
+        finally:
+            PA.device_pairing_check = real_check
+        log(f"guard verify fallback: the device pairing check lost, the native rung's verdict "
+            f"True ({pairs} pairs native) in {wall:.4f} s; tampered False")
+
+        GD.configure(threshold=3, cooldown=30.0, slot_deadline=GUARD_DEADLINE_S)
+        gate, threads = threading.Event(), []
+        real_readback = PA.readback
+        hung_pool = TI.slot_thread(impl.device)
+
+        def held(state):
+            threads.append(threading.current_thread())
+            if len(threads) == 1:
+                gate.wait(120)
+            return real_readback(state)
+
+        PA.readback = held
+        try:
+            got, wd_s = _timed_slot(impl, args, submit=True)
+            if got != ref or GD.watchdog_total() != 1 or GD.fallback_total("watchdog_timeout") != 1:
+                raise SystemExit(f"guard watchdog: counters {GD.counters()}, aggregates "
+                                 f"{'equal' if got == ref else 'different'}")
+            CP.reset_counts()
+            got, next_s = _timed_slot(impl, args, submit=True)
+            fresh = len(threads) == 2 and threads[1] is not threads[0]
+            if got != ref or not fresh or _launch_total() != steady_launches:
+                raise SystemExit(f"guard watchdog: the next slot launched {_launch_total()} "
+                                 f"(steady {steady_launches}); readbacks on {len(threads)} "
+                                 f"threads, a fresh one: {fresh}; counters {GD.counters()}")
+        finally:
+            gate.set()
+            PA.readback = real_readback
+            hung_pool.shutdown(wait=True)
+            if deadline_env is None:
+                os.environ.pop(GD.SLOT_DEADLINE_ENV, None)
+            else:
+                os.environ[GD.SLOT_DEADLINE_ENV] = deadline_env
+        log(f"guard watchdog (deadline {GUARD_DEADLINE_S} s): the held slot resolved from the "
+            f"native rung in {wd_s:.4f} s, byte-identical; watchdog_total 1; the next submitted slot ran on a "
+            f"fresh slot thread with a steady slot's {steady_launches} launches in {next_s:.4f} s")
+
+        GD.configure(threshold=3, cooldown=30.0)
+        before = (TF.MSM_PATHS["native"], TF.FALLBACKS["frost.msm", "device_lost"],
+                  GD.fallback_total("device_lost"))
+        faults.arm([{"site": "frost.msm"}])
+        t0 = time.perf_counter()
+        TF.verify_shares_batch(dkg_items, device)
+        dkg_s = time.perf_counter() - t0
+        after = (TF.MSM_PATHS["native"], TF.FALLBACKS["frost.msm", "device_lost"],
+                 GD.fallback_total("device_lost"))
+        if after != (before[0] + len(dkg_items), before[1] + 1, before[2] + 1):
+            raise SystemExit(f"guard dkg: native checks, ceremony and guard fallbacks went "
+                             f"{before} -> {after}")
+        faults.arm([{"site": "frost.msm"}])
+        mi, sh, cm = dkg_items[3]
+        bad_items = dkg_items[:3] + [(mi, (sh + 1) % PF.R, cm)] + dkg_items[4:]
+        _raises(lambda: TF.verify_shares_batch(bad_items, device),
+                errors.CharonError, "share does not match commitments: index=1")
+        faults.disarm()
+        GD.configure(threshold=1, cooldown=60.0)
+        GD.BREAKER.record_failure()
+        if TF.device_gate(sum(len(c) for _, _, c in dkg_items)):
+            raise SystemExit("guard dkg: device_gate admits a batch with the breaker open")
+        log(f"guard dkg: node 1's {len(dkg_items):,} share checks under a frost.msm device_lost "
+            f"fault pass natively in {dkg_s:.4f} s, as in phase 8; a tampered share raises phase "
+            f"8's CharonError; with the breaker open device_gate is False")
+    finally:
+        faults.disarm()
+    counters = GD.counters()
+    out = {"counters": {"fallback": {f"{r}/{t}": n for (r, t), n in
+                                     sorted(counters["fallback"].items())},
+                        "watchdog": counters["watchdog"], "breaker_at_end": counters["breaker"],
+                        "ceremony": {f"{p}/{r}": n for (p, r), n in sorted(TF.FALLBACKS.items())}},
+           "device_slot_s": {"median": statistics.median(device_s), "runs": device_s},
+           "native_landed_slot_s": {"median": statistics.median(native_s), "runs": native_s},
+           "landed_by_fault_s": landed, "watchdog_slot_s": wd_s, "dkg_native_checks_s": dkg_s,
+           "phase_s": time.perf_counter() - t_phase, "card": smi}
+    log(f"guard walls ({smi}): native-landed slot median "
+        f"{out['native_landed_slot_s']['median']:.4f} s beside the device slot's {out['device_slot_s']['median']:.4f} s; phase 9 "
+        f"{out['phase_s']:.1f} s")
+    return out
 
 
 def _reduce_cases(n: int, G: int, device) -> list:
@@ -2708,6 +3018,9 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
         return 2
+    # phases 1-8 and the A/B: a device error fails the run, it never lands on
+    # the native rung (phase 9 turns the fallback on for its own TorchImpls)
+    TorchImpl.fallback_on_device_error = False
     if argv[:1] == ["--ab"]:
         return ab_main(argv[1:])
     if argv[:1] == ["--sass"]:
@@ -2805,7 +3118,7 @@ def main(argv: list[str]) -> int:
         # the DKG, then every case it launched that phases 4-6 did not (the
         # E = 1 windowed sweeps, the G1 check, decompression and affine
         # form at the chunks' buckets, every group reduction), held and timed
-        dkg_launches, dkg_main, dkg = dkg_phase(pool, smi, device)
+        dkg_launches, dkg_main, dkg, dkg_items = dkg_phase(pool, smi, device)
         _rows, more = other_cases(dkg, merge_counts(slot, committee, bulk_counts))
         # each case at the launches of the DKG's main path (0: the soundness
         # or mixed-point cases only)
@@ -2816,6 +3129,11 @@ def main(argv: list[str]) -> int:
                          **check_mul(device, mul_cases(more), reps=3),
                          **check_reduce(device, more["pt_reduce_groups"], reps=20)}.items():
             rows.setdefault(key, row)["dkg_by_width"] = row["by_width"]
+        # no device failure may have been absorbed by phases 1-8; then the
+        # guard itself, faults planned
+        guard_quiet("phases 1-8")
+        guard = guard_phase(pool, batches, pubkeys, slot["tampered"], slot["launches"],
+                            dkg_items, smi, device)
     rfc_vector(device)
     torch.cuda.synchronize()
     if "--profile" in argv:
@@ -2832,6 +3150,7 @@ def main(argv: list[str]) -> int:
         for w in row.get("by_width", ()):
             w.setdefault("launches", slot["widths"][key[0]].get((key[1], w["width"]), 0))
     log(smi)
+    print(json.dumps({"guard": guard}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
