@@ -14,15 +14,29 @@ reference's (charon_tpu/ops/policy.py), with the same defaults and clamps:
     slot submitted through TorchImpl.threshold_aggregate_verify_submit; 0
     disables the watchdog. Read at each submit.
 
-A value that does not parse reads as the default. The reference's
-SlotPolicy seam (install / update / subscribe, epochs) is not ported: no
-caller of the port installs a policy. Its other knobs are left out with
-their variables: `pipeline_depth` and `finish_workers` (the SigAggPipeline's,
-not ported: the port's submit front door runs the serial slot on one
-thread), `field_plane` (the TPU's XLA or Pallas field plane; the port has
-one set of kernels), `sigagg_devices` (the mesh clamp: the multi-GPU
-slice), `flush_at` and `deadline_budget_s` (the coalescer's window) and
-`device_verify` (TorchImpl takes its verify rung explicitly).
+A value that does not parse reads as the default.
+
+The coalescer (core/coalesce.py) reads two accessors, which have no
+environment variable in the reference either:
+
+  * flush_at_default(): the count that flushes a batching window, one
+    verify chunk of 1,024 (the reference's TILE, plane_agg.VERIFY_CHUNK)
+    times the devices the port drives, one. The reference's is TILE times
+    its mesh's devices (8,192 on an 8-device mesh). An explicit flush_at
+    given to the coalescer wins over it.
+  * deadline_budget_override(): None, so the coalescer keeps its own
+    admission budget (12 s by default), as the reference's does with no
+    policy installed.
+
+The reference's SlotPolicy seam (install / update / subscribe, epochs),
+through which its autotuner manages `flush_at` and `deadline_budget_s`, is
+not ported: no caller of the port installs a policy. Its other knobs are
+left out with their variables: `pipeline_depth` and `finish_workers` (the
+SigAggPipeline's, not ported: the port's submit front door runs the serial
+slot on one thread), `field_plane` (the TPU's XLA or Pallas field plane;
+the port has one set of kernels), `sigagg_devices` (the mesh clamp: the
+multi-GPU slice) and `device_verify` (TorchImpl takes its verify rung
+explicitly).
 """
 
 from __future__ import annotations
@@ -64,3 +78,14 @@ def breaker_cooldown_default() -> float:
 
 def slot_deadline_default() -> float:
     return _env_float(ENV_SLOT_DEADLINE, 600.0)
+
+
+def flush_at_default() -> int:
+    """One verify chunk (plane_agg.VERIFY_CHUNK) on the port's one device."""
+    from .plane_agg import VERIFY_CHUNK
+
+    return VERIFY_CHUNK
+
+
+def deadline_budget_override() -> float | None:
+    return None

@@ -13,7 +13,11 @@ pipeline reach:
     fused slot (ops/plane_agg.py) on the device.
   * verify_batch: the bulk RLC verify of (pk, msg, sig) triples
     (plane_agg.rlc_verify_batch: chunks of 1,024 on the device, the G2
-    subgroup check included, then the pairing on the impl's rung).
+    subgroup check included, then the pairing on the impl's rung), run on
+    the device's slot thread in order with the slots and verifies queued
+    there before it: the coalescer calls it from executor threads, and
+    device work on two threads at once shares the interpreter lock and
+    the stream, each part taking several times as long as alone.
   * threshold_aggregate_verify_submit / _overlapped: the serial fused slot
     run whole on the device's slot thread (`slot_thread`), so the caller (the
     duty pipeline's event loop) is free while it runs. The reference's
@@ -76,28 +80,33 @@ _SLOT_THREADS: dict[str, futures.ThreadPoolExecutor] = {}
 _SLOT_THREADS_LOCK = threading.Lock()
 
 
+def _thread_prefix(device) -> str:
+    return f"sigagg-slot-{torch.device(device)}"
+
+
 def slot_thread(device) -> futures.ThreadPoolExecutor:
     """The device's slot thread, shared by every TorchImpl on it: submitted
-    slots run on it one at a time, in submission order."""
+    slots and bulk verifies run on it one at a time, in submission order."""
     key = str(torch.device(device))
     with _SLOT_THREADS_LOCK:
         pool = _SLOT_THREADS.get(key)
         if pool is None:
             pool = _SLOT_THREADS[key] = futures.ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix=f"sigagg-slot-{key}")
+                max_workers=1, thread_name_prefix=_thread_prefix(key))
         return pool
 
 
 def replace_slot_thread(device, hung: futures.ThreadPoolExecutor) -> None:
     """After a watchdog expiry: give the device a fresh slot thread, unless
-    `hung` was replaced already. The slots queued behind the hung one are
-    cancelled there; their watchdogs run them again on the new thread."""
+    `hung` was replaced already. The slots and verifies queued behind the
+    hung one are cancelled there and run again on the new thread (the
+    slots by their watchdogs, the verifies by TorchImpl._on_slot_thread)."""
     key = str(torch.device(device))
     with _SLOT_THREADS_LOCK:
         if _SLOT_THREADS.get(key) is not hung:
             return
         _SLOT_THREADS[key] = futures.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix=f"sigagg-slot-{key}")
+            max_workers=1, thread_name_prefix=_thread_prefix(key))
     hung.shutdown(wait=False, cancel_futures=True)
 
 
@@ -255,17 +264,37 @@ class TorchImpl(FrScalarOps):
                      signatures: list[Signature]) -> bool:
         """All-or-nothing RLC batch verify on the device for every n >= 1
         (n = 0 is True): a False means at least one bad triple, including
-        a bad encoding, an infinity or an out-of-subgroup point."""
+        a bad encoding, an infinity or an out-of-subgroup point. The device
+        part runs on the device's slot thread, after the slots and verifies
+        queued before it."""
         self._check_lengths(public_keys, datas, signatures)
         pks, msgs, sigs = ([bytes(x) for x in xs] for xs in (public_keys, datas, signatures))
         try:
-            with guard.fallback(self.fallback_on_device_error):
-                return PA.rlc_verify_batch(pks, msgs, sigs, self.device, self.pk_cache,
-                                           self.h2c, self.pairing_path, self.rung)
+            return self._on_slot_thread(self._verify_device, pks, msgs, sigs)
         except Exception as exc:
             if not self._lands_native("verify_batch", exc):
                 raise
         return native.verify_batch_chunked(pks, msgs, sigs)
+
+    def _verify_device(self, pks, msgs, sigs) -> bool:
+        with guard.fallback(self.fallback_on_device_error):
+            return PA.rlc_verify_batch(pks, msgs, sigs, self.device, self.pk_cache, self.h2c,
+                                       self.pairing_path, self.rung)
+
+    def _on_slot_thread(self, fn, *args):
+        """fn(*args) on the device's slot thread, after the work queued there
+        before it (inline when called there). A watchdog that replaces the
+        thread cancels what queued behind the hung slot: that runs again on
+        the new thread."""
+        if threading.current_thread().name.startswith(_thread_prefix(self.device) + "_"):
+            return fn(*args)
+        while True:
+            pool, fut = self._queue(fn, args)
+            try:
+                return fut.result()
+            except futures.CancelledError:
+                if slot_thread(self.device) is pool:
+                    raise
 
     def threshold_aggregate_verify_batch(self, batches, public_keys, datas):
         """Fused slot: the aggregates plus one RLC verdict over all of them,
@@ -294,20 +323,20 @@ class TorchImpl(FrScalarOps):
         args = (batches, public_keys, datas)
         deadline = guard.slot_deadline_default()
         if not deadline:
-            return self._queue(args)[1]
+            return self._queue(self.threshold_aggregate_verify_batch, args)[1]
         return self._watched(args, deadline)
 
-    def _queue(self, args) -> tuple:
-        """(the slot thread, the slot's Future): the slot queued on the
-        device's current slot thread, again on its successor if a watchdog
-        replaced it in between."""
+    def _queue(self, fn, args) -> tuple:
+        """(the slot thread, fn's Future): fn(*args) queued on the device's
+        current slot thread, again on its successor if a watchdog replaced
+        it in between."""
         pool = slot_thread(self.device)
         try:
-            return pool, pool.submit(self.threshold_aggregate_verify_batch, *args)
+            return pool, pool.submit(fn, *args)
         except RuntimeError:
             if slot_thread(self.device) is pool:    # not replaced: the interpreter is exiting
                 raise
-            return self._queue(args)
+            return self._queue(fn, args)
 
     def _watched(self, args, deadline: float) -> futures.Future:
         """The slot on the device's slot thread under an alarm (_ALARMS) of
@@ -333,7 +362,7 @@ class TorchImpl(FrScalarOps):
                 return True
 
         def submit() -> None:
-            pool, fut = self._queue(args)
+            pool, fut = self._queue(self.threshold_aggregate_verify_batch, args)
             pools.append(pool)
             fut.add_done_callback(done)
 

@@ -3,8 +3,8 @@
 against its plain version, and run the fused sigagg slot at 1000 validators
 x 4-of-6 through TorchImpl — verified on the device by default — checked
 against the native oracle, then the bulk verify, the submit front door, the
-FROST DKG ceremony's device paths, and the guard that lands a slot the
-device failed on the native rung.
+FROST DKG ceremony's device paths, the guard that lands a slot the device
+failed on the native rung, and the duty pipeline's signing back half.
 
     python3 chip_smoke.py            # the whole check (one CUDA card)
     python3 chip_smoke.py --profile  # the whole check, then one slot traced
@@ -13,6 +13,7 @@ device failed on the native rung.
                                      # A/B of kernel builds, in turns (below)
     python3 chip_smoke.py --sass [--out DIR] [NAME=DIR[:CONST=V,...] ...]
                                      # each build's SASS to DIR (build/.../sass)
+    python3 chip_smoke.py --duty     # phase 10 alone
 
 Phases, any failure exits non-zero:
   1. device  — CUDA present; the card's name and power limit (nvidia-smi).
@@ -155,7 +156,37 @@ Phases, any failure exits non-zero:
                an open breaker closes device_gate. Its JSON (the counters,
                the median walls of native-landed and device slots, the
                card) is printed before the kernels JSON.
-The last three lines are the guard JSON, the kernels JSON and the device JSON.
+ 10. duty    — the duty pipeline's signing back half of node 1 of a 4-of-6
+               cluster (seed 13) through the port's tbls facade with
+               TorchImpl() installed (DutyNode: ParSigEx with the batch
+               verifier through the coalescer, ParSigDB, SigAgg through the
+               coalescer, AggSigDB): BASELINE config 2 (100 validators, an
+               attestation a slot), config 3 (500 validators, an attestation
+               and a sync-committee message a slot) and 1000 validators (an
+               attestation), DUTY_ROUNDS fresh slots each, every count at 0
+               just before each config: the node's own partials into
+               ParSigDB, five peers' sets (signed natively before) through
+               MemTransport into the coalescer at its default flush_at
+               (policy.flush_at_default(), one verify chunk of 1,024): a
+               slot's sets flushed on the count trigger, the rest closed on
+               the quorum of 5 or the timer, the verifies one at a time on
+               the card; every aggregate in AggSigDB byte-identical to the
+               root key's native signature; each config launched every
+               kernel of the device slot and the device verify and
+               pt_mul_shared<2> at X_ABS, none of OFF_PATH; a partial of
+               peer 3 signed over another root beside a second duty in the
+               window: the set dropped with the reference's "invalid
+               partial signature", attributed to share 3, both duties
+               aggregated; a second duty's verify window closing on its
+               timer while a slot runs; no guard counter moved. It prints
+               the walls of the verify, of threshold -> AggSigDB (p50, max),
+               of each flush, the pk-plane decodes and the host's signing
+               roots, beside the card's name and power limit. Then every
+               case it launched that phases 4-8 did not, held and timed, in
+               the kernels JSON as duty_by_width; each kernel row's
+               duty_launches is its launches on phase 10's main path.
+The last four lines are the duty JSON, the guard JSON, the kernels JSON and the
+device JSON.
 
 --ab builds each variant NAME=DIR (the plane_kernels.cu and fp.cuh in DIR,
 with `constexpr int CONST = V;` lines of the source set as given, e.g. the
@@ -205,8 +236,10 @@ Variants of one call are comparable; calls are not.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import collections
 import ctypes
+import hashlib
 import json
 import os
 import random
@@ -216,16 +249,22 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from charon_tpu_torch import native
+from charon_tpu_torch import tbls as TB
+from charon_tpu_torch.core import (aggsigdb, coalesce, deadline, gater, keyshares, parsigdb, parsigex,
+                                   sigagg, signeddata)
+from charon_tpu_torch.core import types as CT
 from charon_tpu_torch.crypto import curve as PC
 from charon_tpu_torch.crypto import fields as PF
 from charon_tpu_torch.crypto.serialize import (g1_from_bytes, g1_to_bytes, g2_affine_from_bytes,
                                                g2_to_bytes)
 from charon_tpu_torch.dkg import frost as TF
+from charon_tpu_torch.eth2 import spec as ES
 from charon_tpu_torch.ops import convert as CV
 from charon_tpu_torch.ops import curve as C
 from charon_tpu_torch.ops import cuda_plane as CP
@@ -238,7 +277,7 @@ from charon_tpu_torch.ops import point_schedule as PS
 from charon_tpu_torch.ops import rows as RW
 from charon_tpu_torch.tbls import torch_impl as TI
 from charon_tpu_torch.tbls.torch_impl import TorchImpl
-from charon_tpu_torch.utils import errors, faults
+from charon_tpu_torch.utils import aio, errors, faults
 
 N_VALIDATORS, NUM_SHARES, THRESHOLD = 1000, 6, 4
 MSG = b"\x42" * 32
@@ -1789,6 +1828,14 @@ def bulk_verify(pool, smi: str) -> dict:
         bulk_steps(triples, impl.device, f"{len(triples[0]):,} triples")
     for triples in (one, burst):
         label = f"{len(triples[0]):,}"
+        # native ct_verify_batch, timed once for both rungs' lines
+        nat = []
+        for r in range(3):
+            coefs = _coefs(len(triples[0]), f"{label} {r}")
+            t0 = time.perf_counter()
+            if not native.verify_batch(*triples, coefs):
+                raise SystemExit(f"bulk verify {label}: native ct_verify_batch False")
+            nat.append(time.perf_counter() - t0)
         for rung in PA.VERIFY_PATHS:
             rimpl = TorchImpl(verify=rung)
             rimpl.verify_batch(*triples)
@@ -1798,13 +1845,6 @@ def bulk_verify(pool, smi: str) -> dict:
                 if not rimpl.verify_batch(*triples):
                     raise SystemExit(f"bulk verify {label} ({rung}): False on valid triples")
                 walls.append(time.perf_counter() - t0)
-            nat = []
-            for r in range(3):
-                coefs = _coefs(len(triples[0]), f"{label} {r}")
-                t0 = time.perf_counter()
-                if not native.verify_batch(*triples, coefs):
-                    raise SystemExit(f"bulk verify {label}: native ct_verify_batch False")
-                nat.append(time.perf_counter() - t0)
             log(f"bulk verify {label} triples (verify={rung}, steady): median "
                 f"{statistics.median(walls):.4f} s, runs " + ", ".join(f"{w:.4f}" for w in walls)
                 + f"; native ct_verify_batch median {statistics.median(nat):.4f} s, runs "
@@ -2472,6 +2512,419 @@ def guard_phase(pool, batches, pubkeys, tampered, phase4_launches: dict, dkg_ite
     return out
 
 
+# ---------------------------------------------------------------------------
+# The duty pipeline's signing back half (phase 10): node 1 of a 4-of-6
+# cluster, ParSigEx -> ParSigDB -> SigAgg -> AggSigDB through the coalescer
+# ---------------------------------------------------------------------------
+
+# (label, validators, duty types of each slot): BASELINE configs 2 and 3 and
+# the headline's width
+DUTY_CONFIGS = (("config 2", 100, ("attester",)),
+                ("config 3", 500, ("attester", "sync_message")),
+                ("1000 x 4-of-6", 1000, ("attester",)))
+DUTY_ROUNDS = 5         # slots a config, each fresh
+DUTY_SLOT0 = 4096       # the current slot when a config starts
+DUTY_TIMEOUT_S = 300.0
+DUTY_TYPES = {"attester": "ATTESTER", "sync_message": "SYNC_MESSAGE"}     # DutyType names
+ZERO96 = bytes(96)
+
+
+def duty_modules() -> types.SimpleNamespace:
+    """The port's back half, as DutyNode and duty_sets take a package."""
+    return types.SimpleNamespace(aggsigdb=aggsigdb, aio=aio, coalesce=coalesce, deadline=deadline,
+                                 gater=gater, parsigdb=parsigdb, parsigex=parsigex, sigagg=sigagg,
+                                 signeddata=signeddata, spec=ES, types=CT)
+
+
+class DutyNode:
+    """One node's signing back half, wired as the reference's node wires it
+    (charon_tpu/app/app.py:413-426): ParSigEx, whose batch verifier goes
+    through the coalescer, into ParSigDB.store_external; ParSigDB's
+    threshold into SigAgg (through the coalescer) and AggSigDB. `m` holds a
+    package's modules (duty_modules()), so the tests run the reference's
+    components through the same wiring. Records each inbound set's verify
+    (its wall, and its error), each duty's threshold and store times, and
+    every coalescer flush: (kind, submissions, items, start, end).
+    `coalescer` goes to TblsCoalescer (its defaults: a 25 ms window, a
+    flush at policy.flush_at_default(), a 12 s admission budget)."""
+
+    def __init__(self, m, keys, chain, **coalescer):
+        self.m, self.chain = m, chain
+        deadliner = m.deadline.Deadliner(m.deadline.new_duty_deadline_func(chain))
+        self.co = m.coalesce.TblsCoalescer(**coalescer)
+        self.db = m.parsigdb.MemDB(keys.threshold, deadliner)
+        self.agg = m.sigagg.SigAgg(keys, chain, coalescer=self.co)
+        self.adb = m.aggsigdb.MemDB(deadliner)
+        self.transport = m.parsigex.MemTransport()
+        self.verify_set = self._timed_verify(
+            m.parsigex.new_batch_eth2_verifier(chain, keys, coalescer=self.co))
+        self.ex = m.parsigex.ParSigEx(self.transport, keys.my_share_idx,
+                                      m.gater.new_duty_gater(chain), self.verify_set)
+        self.ex.subscribe(self.db.store_external)
+        self.db.subscribe_threshold(self._on_threshold)
+        self.db.subscribe_threshold(self._aggregate)
+        self.agg.subscribe(self.adb.store)
+        self.agg.subscribe(self._on_stored)
+        self.verifies, self.errors, self.flushes, self.failures = [], [], [], []
+        self.threshold_at, self.stored_at = {}, {}
+        self.on_flush = None        # called with the kind as a flush starts
+        for w in (self.co._agg, self.co._ver):
+            w._dispatch = self._timed_flush(w.kind, w._dispatch)
+
+    def _timed_verify(self, verify):
+        async def verify_set(duty, parsigs):
+            sender = next(iter(parsigs.values())).share_idx
+            t0 = time.perf_counter()
+            try:
+                await verify(duty, parsigs)
+            except Exception as exc:
+                self.errors.append((duty, sender, exc))
+                raise
+            finally:
+                self.verifies.append((duty, sender, t0, time.perf_counter()))
+        return verify_set
+
+    def _timed_flush(self, kind: str, dispatch):
+        async def run(payloads, futs):
+            # [kind, submissions, items, start, end]; end None while it runs
+            rec = [kind, len(payloads), sum(len(p[0]) for p in payloads), time.perf_counter(), None]
+            self.flushes.append(rec)
+            if self.on_flush is not None:
+                self.on_flush(kind)
+            try:
+                await dispatch(payloads, futs)
+            finally:
+                rec[4] = time.perf_counter()
+        return run
+
+    async def _on_threshold(self, duty, payload) -> None:
+        self.threshold_at.setdefault(duty, time.perf_counter())
+
+    async def _aggregate(self, duty, payload) -> None:
+        """SigAgg.aggregate, its error recorded (the inbound set's handler
+        that reached the threshold only logs it)."""
+        try:
+            await self.agg.aggregate(duty, payload)
+        except Exception as exc:
+            self.failures.append((duty, exc))
+            raise
+
+    async def _on_stored(self, duty, signed) -> None:
+        self.stored_at[duty] = time.perf_counter()
+
+    async def deliver(self, duties) -> dict:
+        """duties: [(duty, own set, {peer: set})]. The node's own partials go
+        to ParSigDB, then every peer's sets arrive through the transport, all
+        at once, peer by peer (a peer sends its sets of the slot's duties
+        together); returns {(duty, pubkey): aggregate bytes} once every
+        validator of every duty has its aggregate in AggSigDB and every
+        inbound set was handled. The chain's clock is set first so that the
+        first duty's slot is the current one, 6 s in: the gater passes the
+        duties and the deadliner keeps them for five slots."""
+        self.chain.genesis_time = time.time() - duties[0][0].slot * 12.0 - 6.0
+        for duty, own, _peers in duties:
+            await self.db.store_internal(duty, own)
+        for peer in duties[0][2]:
+            for duty, _own, peers in duties:
+                await self.transport.broadcast(peer, duty, peers[peer])
+        out = {}
+        t_end = time.perf_counter() + DUTY_TIMEOUT_S
+        for duty, own, _peers in duties:
+            for pk in own:
+                waiter = asyncio.ensure_future(self.adb.await_(duty, pk))
+                while not waiter.done():
+                    await asyncio.wait({waiter}, timeout=0.01)
+                    if self.failures or time.perf_counter() > t_end:
+                        waiter.cancel()
+                        t0 = min(f[3] for f in self.flushes) if self.flushes else 0.0
+                        raise RuntimeError(
+                            f"duty {duty}: no aggregate of {pk[:10]} in AggSigDB: sigagg raised "
+                            f"{self.failures[:1]}; flushes (kind, submissions, items, start, end) "
+                            f"{[(k, c, i, round(a - t0, 4), b and round(b - t0, 4)) for k, c, i, a, b in self.flushes]}"
+                            f"; verifies {[(str(d), x, round(a - t0, 4), round(b - t0, 4)) for d, x, a, b in self.verifies]}")
+                out[duty, pk] = bytes(waiter.result().signature())
+        # every inbound set handled (aio.spawn's tasks reaped)
+        while self.m.aio.pending_count():
+            await asyncio.sleep(0.001)
+        return out
+
+    def verify_wall(self, duty) -> float:
+        runs = [(t0, t1) for d, _s, t0, t1 in self.verifies if d == duty]
+        return max(t1 for _t0, t1 in runs) - min(t0 for t0, _t1 in runs)
+
+
+def duty_cluster(pool, n: int, seed: int = 13) -> dict:
+    """n validators at 4-of-6 from a seed: root and share secrets (ints),
+    root and share pubkeys (bytes) by native ct_pubkey."""
+    rng = random.Random(seed)
+    roots = [rng.randrange(1, PF.R) for _ in range(n)]
+    shares = [shamir_split(sk, NUM_SHARES, THRESHOLD, rng) for sk in roots]
+    flat = [(v, i) for v in range(n) for i in range(NUM_SHARES + 1)]
+    pks = list(pool.map(lambda t: _pubkey(shares[t[0]][t[1]] if t[1] else roots[t[0]]), flat))
+    k = NUM_SHARES + 1
+    return {"root_sk": roots, "share_sk": shares, "root_pk": pks[::k],
+            "share_pk": [dict(zip(range(1, k), pks[v * k + 1:(v + 1) * k])) for v in range(n)]}
+
+
+def duty_data(m, kind: str, slot: int, v: int):
+    """Validator v's unsigned datum of a duty of `kind` at `slot`: an
+    attestation of committee 0 (every validator of the slot signs the same
+    data) or a sync-committee message over the slot's block root."""
+    block = hashlib.sha256(b"block %d" % slot).digest()
+    if kind == "attester":
+        epoch = slot // 32
+        data = m.spec.AttestationData(
+            slot, 0, block, m.spec.Checkpoint(epoch - 1, hashlib.sha256(b"source").digest()),
+            m.spec.Checkpoint(epoch, hashlib.sha256(b"target %d" % epoch).digest()))
+        return m.signeddata.SignedAttestation(m.spec.Attestation([True], data, ZERO96))
+    return m.signeddata.SignedSyncMessage(m.spec.SyncCommitteeMessage(slot, block, v, ZERO96))
+
+
+def duty_sets(m, pool, cluster: dict, chain, kind: str, slot: int, n: int, node: int = 1,
+              tamper: int | None = None) -> tuple:
+    """(duty, node's own set, {peer: set}, signing root) of the first n
+    validators: every share's partial over the duty's signing root, made
+    natively (H(m) once, then each share's scalar multiple of it). With
+    `tamper`, that peer's partial of validator 0 is over another root."""
+    duty = m.types.Duty(slot, m.types.DutyType[DUTY_TYPES[kind]])
+    datas = [duty_data(m, kind, slot, v) for v in range(n)]
+    root = datas[0].signing_root(chain)
+    h = native.hash_to_g2(root)
+    shares = sorted(cluster["share_sk"][0])
+    jobs = [(v, i) for v in range(n) for i in shares]
+    sigs = dict(zip(jobs, pool.map(lambda t: native.lincomb_g2([h], [cluster["share_sk"][t[0]][t[1]]]),
+                                   jobs)))
+    if tamper is not None:
+        other = native.hash_to_g2(hashlib.sha256(b"other" + root).digest())
+        sigs[0, tamper] = native.lincomb_g2([other], [cluster["share_sk"][0][tamper]])
+    pks = [m.types.pubkey_from_bytes(pk) for pk in cluster["root_pk"][:n]]
+    sets = {i: {pks[v]: m.types.ParSignedData(datas[v].set_signature(sigs[v, i]), i)
+                for v in range(n)} for i in shares}
+    own = sets.pop(node)
+    return duty, own, sets, root
+
+
+def duty_keys(cluster: dict, n: int) -> keyshares.KeyShares:
+    """Node 1's KeyShares of the first n validators."""
+    return keyshares.KeyShares.from_bytes(
+        1, THRESHOLD, {cluster["root_pk"][v]: cluster["share_pk"][v] for v in range(n)},
+        {cluster["root_pk"][v]: cluster["share_sk"][v][1].to_bytes(32, "big") for v in range(n)})
+
+
+def duty_chain() -> ES.ChainSpec:
+    """The phase's chain (DutyNode.deliver sets its clock to each round)."""
+    return ES.ChainSpec(genesis_time=time.time() - DUTY_SLOT0 * 12.0 - 6.0,
+                        genesis_validators_root=hashlib.sha256(b"charon duty").digest())
+
+
+def duty_expected(pool, cluster: dict, sets, n: int) -> dict:
+    """{(duty, pubkey): the root key's native signature of the duty's
+    signing root}."""
+    out = {}
+    for duty, own, _peers, root in sets:
+        h = native.hash_to_g2(root)
+        sigs = pool.map(lambda sk: native.lincomb_g2([h], [sk]), cluster["root_sk"][:n])
+        out.update({(duty, pk): s for pk, s in zip(own, sigs)})
+    return out
+
+
+def _timed_chunk_planes(cache, record: list):
+    inner = cache.chunk_planes
+
+    def chunk_planes(pks, chunks, buckets, device):
+        misses = cache.misses
+        t0 = time.perf_counter()
+        out = inner(pks, chunks, buckets, device)
+        record.append((len(pks), cache.misses - misses, time.perf_counter() - t0))
+        return out
+    return chunk_planes
+
+
+def _duty_round(node, pool, cluster, chain, n, slot, kinds, tamper=None, extra=()) -> tuple:
+    """Sign one slot's duties (host, not timed), deliver them to the node,
+    and hold every aggregate against the root key's native signature.
+    Returns (the round's sets, {duty: verify wall}, {duty: sigagg latency})."""
+    sets = [duty_sets(node.m, pool, cluster, chain, kind, s, n, tamper=tamper if j == 0 else None)
+            for j, (kind, s) in enumerate([(k, slot) for k in kinds] + list(extra))]
+    got = asyncio.run(node.deliver([s[:3] for s in sets]))
+    want = duty_expected(pool, cluster, sets, n)
+    if got != want:
+        bad = sorted(str(d) for (d, _pk), sig in got.items() if want.get((d, _pk)) != sig)
+        raise SystemExit(f"duty back half: aggregates of {len(bad)} (duty, validator) pairs are "
+                         f"not the root key's native signature: {bad[:4]}")
+    duties = [s[0] for s in sets]
+    return (sets, {d: node.verify_wall(d) for d in duties},
+            {d: node.stored_at[d] - node.threshold_at[d] for d in duties})
+
+
+def verify_flushes(sets: int, n: int, flush_at: int) -> list:
+    """A slot's verify flushes (submissions, items) when `sets` inbound sets
+    of n partials each arrive at once: a flush at every count trigger, the
+    remainder closed on the quorum or the timer."""
+    k = -(-flush_at // n)       # sets that reach the count
+    full, rest = divmod(sets, k)
+    return [(k, k * n)] * full + ([(rest, rest * n)] if rest else [])
+
+
+def duty_config(pool, cluster, label: str, n: int, kinds, slot: int, smi: str) -> tuple:
+    """One config: DUTY_ROUNDS slots of its duties through node 1's back
+    half, every count at 0 just before (the main path), then a slot with a
+    tampered partial of peer 3 beside a second duty in the same window.
+    Returns (path_counts of the main path, the config's JSON, the node)."""
+    impl = TorchImpl()
+    TB.set_implementation(impl)
+    decodes: list = []
+    impl.pk_cache.chunk_planes = _timed_chunk_planes(impl.pk_cache, decodes)
+    chain = duty_chain()
+    node = DutyNode(duty_modules(), duty_keys(cluster, n), chain)
+    _duty, _own, peers, _root = duty_sets(node.m, pool, cluster, chain, kinds[0], slot, n)
+    t0 = time.perf_counter()
+    for s in peers.values():
+        for p in s.values():
+            p.data.signing_root(chain)
+    roots_s = time.perf_counter() - t0
+    CP.reset_counts()
+    walls, lat, rounds = {}, {}, []
+    for r in range(DUTY_ROUNDS):
+        before = (len(node.flushes), len(decodes))
+        _sets, w, lt = _duty_round(node, pool, cluster, chain, n, slot + r, kinds)
+        walls.update(w)
+        lat.update(lt)
+        rd = {"flushes": [(k, c, i, round(end - start, 6))
+                          for k, c, i, start, end in node.flushes[before[0]:]],
+              "pk_decode_s": sum(s for _n, miss, s in decodes[before[1]:] if miss),
+              "pk_lookups_s": sum(s for _n, _m, s in decodes[before[1]:])}
+        rounds.append(rd)
+        log(f"duty {label} slot {r}: verify walls " + ", ".join(f"{x:.4f}" for x in w.values())
+            + " s, sigagg latency " + ", ".join(f"{x:.4f}" for x in lt.values())
+            + f" s; flushes (kind, submissions, items, s) {rd['flushes']}; pk planes decoded "
+            f"{rd['pk_decode_s']:.4f} s, lookups {rd['pk_lookups_s']:.4f} s ({smi})")
+    torch.cuda.synchronize()
+    counts = path_counts()
+    if node.errors:
+        raise SystemExit(f"duty {label}: valid partials raised {node.errors[0][2]}")
+    want = verify_flushes(len(kinds) * (NUM_SHARES - 1), n, node.co._ver.flush_at)
+    got = [[(c, i) for k, c, i, _s in rd["flushes"] if k == "verify"] for rd in rounds]
+    if any(g != want for g in got):
+        raise SystemExit(f"duty {label}: verify flushes (submissions, items) {got}, not {want} "
+                         f"a slot (the count trigger, then the quorum or the timer)")
+    # a tampered partial of peer 3 (validator 0, the slot's first duty) beside
+    # a second duty in the same window: the set is dropped with the
+    # reference's error, attributed to share 3; both duties complete
+    extra = () if len(kinds) > 1 else [(kinds[0], slot + DUTY_ROUNDS + 1)]
+    t0 = time.perf_counter()
+    node.errors.clear()
+    sets, _w, _lt = _duty_round(node, pool, cluster, chain, n, slot + DUTY_ROUNDS, kinds,
+                                tamper=3, extra=extra)
+    tampered_s = time.perf_counter() - t0
+    errs = [(d, s, str(e), getattr(e, "fields", {}).get("share_idx")) for d, s, e in node.errors]
+    if len(errs) != 1 or errs[0][:2] != (sets[0][0], 3) or errs[0][3] != 3 \
+            or "invalid partial signature" not in errs[0][2]:
+        raise SystemExit(f"duty {label}: a tampered partial of peer 3 gave {errs}")
+    lats = [lat[d] for d in sorted(lat)]
+    out = {"validators": n, "duties": len(lat), "inbound_sets": len(lat) * (NUM_SHARES - 1),
+           "flush_at": node.co._ver.flush_at,
+           "signing_roots_s": roots_s, "signing_roots": (NUM_SHARES - 1) * n,
+           "verify_wall_s": [walls[d] for d in sorted(walls)],
+           "sigagg_latency_s": {"p50": statistics.median(lats), "max": max(lats), "runs": lats},
+           "rounds": rounds, "tampered_slot_s": tampered_s, "tampered_error": errs[0][2],
+           "card": smi}
+    log(f"duty {label} ({n} validators x {THRESHOLD}-of-{NUM_SHARES}, {', '.join(kinds)}; {smi}): "
+        f"sigagg latency (threshold -> aggsigdb) p50 {out['sigagg_latency_s']['p50']:.4f} s, max "
+        f"{out['sigagg_latency_s']['max']:.4f} s, runs " + ", ".join(f"{x:.4f}" for x in lats)
+        + "; parsigex verify walls " + ", ".join(f"{x:.4f}" for x in out["verify_wall_s"]) + " s")
+    log(f"duty {label}: host signing roots {roots_s:.4f} s for one duty's {(NUM_SHARES - 1) * n} "
+        f"inbound partials ({smi})")
+    log(f"duty {label}: a tampered partial of peer 3 raises {errs[0][2][:120]!r} (share 3), its "
+        f"set dropped, both duties of the window complete, byte-identical, in {tampered_s:.4f} s")
+    return counts, out, node
+
+
+def duty_overlap(node, pool, cluster, n: int, slot: int, kind: str) -> dict:
+    """While one duty's slot runs on the slot thread, a second duty's set
+    (peer 2's partials of 64 validators) goes into the verify window, which
+    must close on its 25 ms timer before that slot ends."""
+    chain = node.agg._chain
+    first = duty_sets(node.m, pool, cluster, chain, kind, slot, n)
+    duty_b, _own, peers_b, _root = duty_sets(node.m, pool, cluster, chain, kind, slot + 1,
+                                             min(64, n))
+
+    async def run():
+        started = asyncio.Event()
+        node.on_flush = lambda k: k == "agg" and started.set()
+        task = asyncio.ensure_future(node.deliver([first[:3]]))
+        await started.wait()
+        node.on_flush = None
+        t_submit = time.perf_counter()
+        await node.verify_set(duty_b, peers_b[2])
+        await task
+        return t_submit
+
+    before = len(node.flushes)
+    t_submit = asyncio.run(run())
+    new = node.flushes[before:]
+    slot_flush = next(f for f in new if f[0] == "agg")
+    probe = next(f for f in new if f[0] == "verify" and f[3] >= t_submit)
+    out = {"window_wait_s": probe[3] - t_submit, "slot_left_s": slot_flush[4] - probe[3],
+           "slot_s": slot_flush[4] - slot_flush[3]}
+    if probe[3] >= slot_flush[4]:
+        raise SystemExit(f"duty overlap: a second duty's window closed {out['window_wait_s']:.4f} s "
+                         f"after its submission, after the first duty's slot ended")
+    log(f"duty overlap: a second duty's window closed {out['window_wait_s'] * 1e3:.1f} ms after its "
+        f"submission (timer 25 ms), {out['slot_left_s']:.4f} s before the running slot "
+        f"({out['slot_s']:.4f} s) ended")
+    return out
+
+
+def duty_phase(pool, smi: str) -> tuple[dict, dict]:
+    """Phase 10: the back half of node 1 of a 4-of-6 cluster (seed 13) at
+    each of DUTY_CONFIGS, through the port's tbls facade with TorchImpl()
+    installed (fallback_on_device_error off): DUTY_ROUNDS fresh slots each,
+    counts at 0 just before; every aggregate byte-identical to the root
+    key's native signature; the verify window closed on the quorum of 5
+    once a slot; the launches of the device slot, the device verify and the
+    bulk verify's psi check; a tampered partial attributed; a second duty's
+    window closing while a slot runs; the guard's counters 0. Returns (the
+    main path's counts, the phase's JSON)."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    cluster = duty_cluster(pool, max(n for _l, n, _k in DUTY_CONFIGS))
+    log(f"duty probe: {len(cluster['root_sk'])} validators x {THRESHOLD}-of-{NUM_SHARES} keys made "
+        f"natively in {time.perf_counter() - t0:.1f} s")
+    prev, guard0, ceremony0 = TB._impl, GD.counters(), dict(TF.FALLBACKS)
+    counts, out = [], {}
+    try:
+        for c, (label, n, kinds) in enumerate(DUTY_CONFIGS):
+            cnt, out[label], node = duty_config(pool, cluster, label, n, kinds,
+                                                DUTY_SLOT0 + 16 * c, smi)
+            counts.append(cnt)
+            launched = {(k, E): sum(w for (e, _n), w in cnt["widths"][k].items() if e == E)
+                        for k in CP.KERNELS for E in CP.KERNELS[k].variants}
+            missing = [f"{k}<{E}>" for (k, E), x in launched.items()
+                       if x == 0 and (k, E) not in OFF_PATH]
+            off = [f"{k}<{E}>={launched[k, E]}" for k, E in OFF_PATH if launched[k, E]]
+            x_abs = sum(x for (E, _w, k), x in cnt["cases"]["pt_mul_shared"].items()
+                        if (E, k) == (2, PF.X_ABS))
+            if missing or off or not x_abs:
+                raise SystemExit(f"duty {label}: the main path launched no {missing}, and {off}; "
+                                 f"pt_mul_shared<2> at X_ABS {x_abs} times")
+            out[label]["launches"] = {f"{k}<{E}>": x for (k, E), x in launched.items() if x}
+            log(f"duty {label} main path ({DUTY_ROUNDS} slots): launches "
+                + ", ".join(f"{k}<{E}>={x}" for (k, E), x in launched.items() if x)
+                + f"; pt_mul_shared<2> at X_ABS {x_abs}")
+        out["overlap"] = duty_overlap(node, pool, cluster, DUTY_CONFIGS[-1][1],
+                                      DUTY_SLOT0 + 16 * len(DUTY_CONFIGS), DUTY_CONFIGS[-1][2][0])
+    finally:
+        TB._impl = prev
+    if GD.counters() != guard0 or dict(TF.FALLBACKS) != ceremony0:
+        raise SystemExit(f"duty phase: the guard absorbed a device failure: {GD.counters()} "
+                         f"(before: {guard0})")
+    log("duty phase: no guard counter moved (fallback_on_device_error off)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"duty phase: {out['phase_s']:.1f} s ({smi})")
+    return merge_counts(*counts), out
+
+
 def _reduce_cases(n: int, G: int, device) -> list:
     """[(label, (X, Y, Z), gid)] at width n and G groups: the edge lanes
     (the scalar multiplications' pool: ∞, points of order 3, a G1 point plus
@@ -2979,6 +3432,20 @@ def sass_opcodes(sass: str) -> dict:
     return out
 
 
+def duty_main(argv: list[str]) -> int:
+    """--duty: build the kernels and run phase 10 alone; prints the duty
+    JSON. A process that launched no kernel before pays the first launches
+    in its first slot."""
+    argparse.ArgumentParser(prog="chip_smoke.py --duty").parse_args(argv)
+    smi = nvidia_smi_line()
+    log(f"device: {torch.cuda.get_device_name(0)} ({smi})")
+    CP.build(force=True)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        _counts, duty = duty_phase(pool, smi)
+    print(json.dumps({"duty": duty}, default=str))
+    return 0
+
+
 def sass_main(argv: list[str]) -> int:
     """--sass [--out DIR] [NAME=DIR[:CONST=V,...] ...]: build each variant as
     --ab does and write its `cuobjdump -sass` listing to DIR/NAME.sass;
@@ -3025,10 +3492,20 @@ def main(argv: list[str]) -> int:
         return ab_main(argv[1:])
     if argv[:1] == ["--sass"]:
         return sass_main(argv[1:])
+    if argv[:1] == ["--duty"]:
+        return duty_main(argv[1:])
     device = torch.device("cuda:0")
     smi = nvidia_smi_line()
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+
+    walls, t_mark = {}, [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        """The command time since the last mark, under `name`."""
+        now = time.perf_counter()
+        walls[name] = round(now - t_mark[0], 1)
+        t_mark[0] = now
 
     CP.build(force=True)
     log(f"build: nvcc {' '.join(CP.NVCC_FLAGS)} in {CP.BUILD.seconds:.1f} s")
@@ -3063,6 +3540,7 @@ def main(argv: list[str]) -> int:
     check_pow(device, {pow_case(*c): 0 for c in POW_GATE})
     check_mul(device, {c: 0 for c in MUL_GATE})
 
+    mark("build, kernel gates")
     with ThreadPoolExecutor(max_workers=8) as pool:
         t0 = time.perf_counter()
         batches, pubkeys, jobs = gen_cluster(pool)
@@ -3096,6 +3574,7 @@ def main(argv: list[str]) -> int:
         # the headline slot did not (h2c's scans, the tower and the cofactor
         # clear at 64 messages, the pairing at 65 and 1,040 pairs), held and
         # timed too
+        mark("slot and its holds")
         committee = committee_slot(pool, jobs, pubkeys)
         more_rows, more = other_cases(committee, slot)
         for key, row in {**check_fe(device, fe_cases(more), reps=50, floor_ms=floor_ms),
@@ -3107,6 +3586,7 @@ def main(argv: list[str]) -> int:
         # slot and the committee phase did not (pt_mul_shared<2> at X_ABS,
         # the chunks' field levels, fe_pow and pt_mul_windowed<2> widths,
         # the pairing and hash-to-G2 at 2 messages), held and timed
+        mark("committee and its holds")
         bulk_counts = bulk_verify(pool, smi)
         bulk_rows, bulk = other_cases(bulk_counts, merge_counts(slot, committee))
         for key, row in {**check_fe(device, fe_cases(bulk), reps=50, floor_ms=floor_ms),
@@ -3114,7 +3594,9 @@ def main(argv: list[str]) -> int:
                          **check_pow(device, bulk["fe_pow"], reps=20),
                          **check_mul(device, mul_cases(bulk), reps=3)}.items():
             rows.setdefault(key, row)["bulk_verify_by_width"] = row["by_width"]
+        mark("bulk verify and its holds")
         pipeline_phase(pool, jobs, pubkeys, smi)
+        mark("pipeline")
         # the DKG, then every case it launched that phases 4-6 did not (the
         # E = 1 windowed sweeps, the G1 check, decompression and affine
         # form at the chunks' buckets, every group reduction), held and timed
@@ -3131,9 +3613,22 @@ def main(argv: list[str]) -> int:
             rows.setdefault(key, row)["dkg_by_width"] = row["by_width"]
         # no device failure may have been absorbed by phases 1-8; then the
         # guard itself, faults planned
+        mark("dkg and its holds")
         guard_quiet("phases 1-8")
         guard = guard_phase(pool, batches, pubkeys, slot["tampered"], slot["launches"],
                             dkg_items, smi, device)
+        # the duty pipeline's back half, then every case it launched that
+        # phases 4-8 did not (the slot and the verify chunks at its widths),
+        # held and timed
+        mark("guard")
+        duty_counts, duty = duty_phase(pool, smi)
+        _rows, more = other_cases(duty_counts, merge_counts(slot, committee, bulk_counts, dkg))
+        for key, row in {**check_fe(device, fe_cases(more), reps=50, floor_ms=floor_ms),
+                         **check_rows_kernels(device, _rows, reps=50),
+                         **check_pow(device, more["fe_pow"], reps=20),
+                         **check_mul(device, mul_cases(more), reps=3)}.items():
+            rows.setdefault(key, row)["duty_by_width"] = row["by_width"]
+        mark("duty and its holds")
     rfc_vector(device)
     torch.cuda.synchronize()
     if "--profile" in argv:
@@ -3149,7 +3644,12 @@ def main(argv: list[str]) -> int:
     for key, row in zip(rows, kernels):
         for w in row.get("by_width", ()):
             w.setdefault("launches", slot["widths"][key[0]].get((key[1], w["width"]), 0))
+        # the launches under (kernel, E) of phase 10's main path
+        row["duty_launches"] = sum(c for (e, _n), c in duty_counts["widths"][key[0]].items()
+                                   if e == key[1])
+    log(f"command time by phase, s: {walls}")
     log(smi)
+    print(json.dumps({"duty": duty}, default=str))
     print(json.dumps({"guard": guard}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
