@@ -14,6 +14,11 @@ the verify; TorchImpl's slot thread behind threshold_aggregate_verify_submit
 for the slot), so the loop — and with it the NEXT duty's submission path —
 stays live.
 
+A fused call that returns False is attributed per submission: one
+per-item verify of the flush (tbls.verify_batch_each), each submission's
+verdict the AND of its own items, where the reference re-verifies each
+submission with a verify_batch of its own.
+
 A dispatch that raises is bisected to isolate the offending submission,
 unless `ops.guard.is_device_error` calls the error device-class (a lost or
 faulted card, an allocation failure, a timeout): then the whole flush fails
@@ -405,14 +410,15 @@ class TblsCoalescer:
             for f, s in zip(futs, slices):
                 _resolve(f, (s, True))
             return
-        # attribution: the fused batch failed somewhere — re-verify each
-        # request's slice so only the offending request(s) see ok=False
+        # attribution: the fused batch failed somewhere — one per-item
+        # verify of the whole flush, so only the offending request(s) see
+        # ok=False
         _log.debug("coalesced aggregate batch failed; attributing",
                    requests=len(payloads), items=len(batches))
-        for p, f, s in zip(payloads, futs, slices):
-            r_ok = await loop.run_in_executor(
-                None, tbls.verify_batch, p[1], p[2], s)
-            _resolve(f, (s, bool(r_ok)))
+        oks = await self._attribute(loop, [p[1] for p in payloads],
+                                    [p[2] for p in payloads], slices)
+        for f, s, r_ok in zip(futs, slices, oks):
+            _resolve(f, (s, r_ok))
 
     async def _dispatch_ver_inner(self, payloads, futs) -> None:
         loop = asyncio.get_running_loop()
@@ -426,7 +432,23 @@ class TblsCoalescer:
             for f in futs:
                 _resolve(f, True)
             return
-        for p, f in zip(payloads, futs):
-            r_ok = await loop.run_in_executor(
-                None, tbls.verify_batch, p[0], p[1], p[2])
-            _resolve(f, bool(r_ok))
+        oks = await self._attribute(loop, *([p[c] for p in payloads]
+                                            for c in range(3)))
+        for f, r_ok in zip(futs, oks):
+            _resolve(f, r_ok)
+
+    @staticmethod
+    async def _attribute(loop, pks, roots, sigs) -> list[bool]:
+        """A failed flush's verdicts per request (pks, roots and sigs hold
+        each request's list): ONE tbls.verify_batch_each over the flush's
+        items (on a TorchImpl one device call), each request's verdict the
+        AND of its slice. The reference re-runs verify_batch a request, one
+        after another; the verdicts are the same."""
+        each = await loop.run_in_executor(
+            None, tbls.verify_batch_each, [k for p in pks for k in p],
+            [r for p in roots for r in p], [s for p in sigs for s in p])
+        out, off = [], 0
+        for p in pks:
+            out.append(bool(all(each[off:off + len(p)])))
+            off += len(p)
+        return out

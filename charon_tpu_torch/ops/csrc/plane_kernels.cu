@@ -27,7 +27,8 @@
 //                         digit planes)
 // and one sums a plane by groups, where the reference masks the plane once a
 // group and runs _reduce_tree_jit's pt_add levels and the host fold:
-//   pt_reduce_groups<E> (E = 1 launched) -> _reduce_tree_jit + _host_fold
+//   pt_reduce_groups<E> (E = 1: the DKG's group sums; E = 2: the sigagg
+//                        paths' RLC sums) -> _reduce_tree_jit + _host_fold
 // and one more stands for XLA-op code of the reference's rows field plane
 // (charon_tpu/ops/field.py fq_add / fq_sub / fq_neg):
 //   fe_add_rows (adds, then subtracts past a split; at n_add = 0 a
@@ -1401,8 +1402,10 @@ __global__ void __launch_bounds__(WinTraits<E, P, T, R>::kThreads)
 // ---------------------------------------------------------------------------
 //
 // pt_reduce_groups<E> replaces what the reference runs for each group g of
-// the FROST share check's MSM (charon_tpu/ops/plane_agg.py:1661, :1683) and
-// for the RLC MSM of msm_sum (pallas_plane.py:754): jnp.where(gmask[g], P,
+// the FROST share check's MSM (charon_tpu/ops/plane_agg.py:1661, :1683), for
+// the RLC MSM of msm_sum (pallas_plane.py:754) and, at E = 2, for the fused
+// slot's and the bulk verify's combined sig + pk MSM (the signature lanes one
+// group, each message's embedded pk lanes another): jnp.where(gmask[g], P,
 // 0), the lane- and sublane-halving pt_add levels of _reduce_tree_jit
 // (pallas_plane.py:763) and the host's 127 bigint adds of _host_fold (:778),
 // here for every group of a call at once and to one point each: out[g] = the
@@ -1431,7 +1434,8 @@ __global__ void __launch_bounds__(WinTraits<E, P, T, R>::kThreads)
 // once) against 1,024 adds of 4 Fq squares and 12 products (~8.9 M
 // multiply-adds): ~0.53 us at the card's integer rate. Its chain is 8 + 3
 // adds in the first launch and 2 + 3 in the second, ~6 us an add: ~100 us a
-// call on the H100 (PERF.md).
+// call on the H100 (PERF.md). At E = 2 an add is 44 Fq products on the same
+// lanes (the Karatsuba forms), so the chain is ~3x as long a step.
 constexpr int kRedPoints = 8;
 constexpr int kRedLanes = 4;
 constexpr int kRedRanks = 8;
@@ -1785,13 +1789,16 @@ int charon_pt_mul_windowed(int E, const void* x, const void* y, const void* z, v
 
 // out[g] = the sum of the n points (E, 12, n) whose gid (n int32) is g, for
 // g < G, as three (E, 12, G) planes; scratch holds 3 * E * 12 * G * nb words,
-// nb = ceil(n / kRedSpan). E = 1.
+// nb = ceil(n / kRedSpan). E = 1 or 2.
 int charon_pt_reduce_groups(int E, const void* x, const void* y, const void* z, const void* gid,
                             long long n, int G, void* ox, void* oy, void* oz, void* scratch,
                             void* stream) {
     if (n <= 0 || G < 1 || !gid || !scratch) return (int)cudaErrorInvalidValue;
     if (E == 1)
         return reduce_groups_launch<1>(x, y, z, (const int*)gid, n, G, ox, oy, oz,
+                                       (uint32_t*)scratch, (cudaStream_t)stream);
+    if (E == 2)
+        return reduce_groups_launch<2>(x, y, z, (const int*)gid, n, G, ox, oy, oz,
                                        (uint32_t*)scratch, (cudaStream_t)stream);
     return (int)cudaErrorInvalidValue;
 }

@@ -32,8 +32,8 @@ ops/rows.py):
                                                   split over 4 lanes each), pt_mul_windowed
                                                   a point a lane, a level's operations on
                                                   the block's ranks of lanes
-    pt_reduce_groups                              E = 1: per-group sums of a plane (a group
-                                                  id a lane) in two launches, on
+    pt_reduce_groups                              for E in {1, 2}: per-group sums of a plane
+                                                  (a group id a lane) in two launches, on
                                                   pt_mul_windowed's add and block shape
 
 Build: the point schedules' header into `build/charon_tpu_torch/`, then
@@ -60,9 +60,8 @@ Composites: `pow_scan` (_pow_scan :593) is one fe_pow launch, `shared_mul`
 pt_mul_shared launch and `scalar_mul_windowed` (_scalar_mul_windowed :677)
 one pt_mul_windowed launch; `reduce_groups` (a mask a group,
 _reduce_tree_jit :763 and _host_fold :778, for every group at once) is one
-pt_reduce_groups call; `reduce_tree` (_reduce_tree_jit) is still a Python
-loop of one pt_add launch per level on the sigagg paths, and `host_fold`
-(_host_fold) folds on the host. Bucket sizes (`pad_batch`), the 4-bit windows
+pt_reduce_groups call, and `host_points` reads its sums back as host
+Jacobians. Bucket sizes (`pad_batch`), the 4-bit windows
 and the MSB-first digit order are the reference's: they decide the outputs'
 shapes.
 """
@@ -79,7 +78,6 @@ import time
 import numpy as np
 import torch
 
-from ..crypto import curve as PC
 from . import curve as C
 from . import field as F
 from . import point_schedule as PS
@@ -290,8 +288,9 @@ KERNELS = {
     "pt_mul_windowed": Kernel("pt_mul_windowed", "charon_tpu/ops/pallas_plane.py:677"),
     # the masked per-group reduction: a jnp.where mask a group, then
     # _reduce_tree_jit's pt_add levels and _host_fold (:778); a call, its two
-    # launches, counts one
-    "pt_reduce_groups": Kernel("pt_reduce_groups", "charon_tpu/ops/pallas_plane.py:763", (1,)),
+    # launches, counts one; E = 1 the DKG's group sums, E = 2 the sigagg
+    # paths' combined MSM (the slot, the bulk verify's chunks)
+    "pt_reduce_groups": Kernel("pt_reduce_groups", "charon_tpu/ops/pallas_plane.py:763"),
 }
 
 
@@ -659,22 +658,19 @@ def scalar_mul_windowed(X, Y, Z, digits: torch.Tensor, E: int):
 
 
 # ---------------------------------------------------------------------------
-# Reductions: the group sums in one pt_reduce_groups call; the sigagg paths'
-# tree, one pt_add launch per level, then the host fold
+# Reductions: the group sums in one pt_reduce_groups call
 # ---------------------------------------------------------------------------
 
 
 def reduce_groups(X, Y, Z, gid: torch.Tensor, G: int, E: int = 1):
-    """Per-group sums of a (1, 12, n) plane of Jacobians: out[g] = the sum of
-    the points whose (n,) int32 id is g, for g < G (an id outside [0, G),
-    −1 for padding, is in no group; an empty group is ∞, zeros), as three
-    (1, 12, G) planes. One pt_reduce_groups call on the card (two launches:
-    spans of C.RED_SPAN lanes, then each group's partials), counted once;
-    on the CPU its plain version, in the kernel's order of adds. Counted by
-    (E, width, G) in `cases`."""
+    """Per-group sums of an (E, 12, n) plane of Jacobians, E = 1 or 2:
+    out[g] = the sum of the points whose (n,) int32 id is g, for g < G (an
+    id outside [0, G), −1 for padding, is in no group; an empty group is ∞,
+    zeros), as three (E, 12, G) planes. One pt_reduce_groups call on the
+    card (two launches: spans of C.RED_SPAN lanes, then each group's
+    partials), counted once; on the CPU its plain version, in the kernel's
+    order of adds. Counted by (E, width, G) in `cases`."""
     device = _check((X, Y, Z), E)
-    if E != 1:
-        raise ValueError(f"reduce_groups takes E = 1, got {E}")
     n = X.shape[2]
     if (gid.dtype != torch.int32 or gid.shape != (n,) or gid.device != device
             or not gid.is_contiguous()):
@@ -685,7 +681,7 @@ def reduce_groups(X, Y, Z, gid: torch.Tensor, G: int, E: int = 1):
     case = (E, n, G)
     if device.type == "cpu":
         KERNELS["pt_reduce_groups"].count(E, case=case, plain=True)
-        return C.pt_reduce_groups_plain(X, Y, Z, gid, G)
+        return C.pt_reduce_groups_plain(X, Y, Z, gid, G, E)
     nb = -(-n // C.RED_SPAN)
     scratch = torch.empty(3 * E * LIMBS * G * nb, dtype=torch.int32, device=device)
     outs = [torch.empty((E, LIMBS, G), dtype=torch.int32, device=device) for _ in range(3)]
@@ -700,46 +696,11 @@ def reduce_groups(X, Y, Z, gid: torch.Tensor, G: int, E: int = 1):
 
 
 def host_points(X, Y, Z) -> list:
-    """The (1, 12, k) planes' k Jacobians as host tuples of canonical ints."""
-    xs, ys, zs = (F.fq_ints(c[0].T.cpu().numpy()) for c in (X, Y, Z))
+    """The (E, 12, k) planes' k Jacobians as host tuples of canonical ints
+    (Fq: (x, y, z); Fq2: ((x0, x1), ...))."""
+    E, k = X.shape[0], X.shape[-1]
+    xs, ys, zs = (F.fq_ints(np.ascontiguousarray(c.cpu().numpy().transpose(2, 0, 1))
+                            .reshape(k * E, LIMBS)) for c in (X, Y, Z))
+    if E == 2:
+        xs, ys, zs = (list(zip(v[0::2], v[1::2])) for v in (xs, ys, zs))
     return list(zip(xs, ys, zs))
-
-
-def reduce_tree(X, Y, Z, E: int):
-    """The reference's lane- then sublane-halving sums over the (8, W) view
-    of the batch, down to min(W, 128) points, returned as (E, 12, k)."""
-    n = X.shape[-1]
-    W = n // SUB
-    pts = [c.reshape(E, LIMBS, SUB, W) for c in (X, Y, Z)]
-
-    def add(a, b):
-        shape = a[0].shape
-        out = pt_add(*[c.reshape(E, LIMBS, -1) for c in (*a, *b)], E)
-        return [c.reshape(shape) for c in out]
-
-    while pts[0].shape[-1] > TW:
-        h = pts[0].shape[-1] // 2
-        pts = add([c[..., :h].contiguous() for c in pts],
-                  [c[..., h:].contiguous() for c in pts])
-    while pts[0].shape[-2] > 1:
-        h = pts[0].shape[-2] // 2
-        pts = add([c[:, :, :h].contiguous() for c in pts],
-                  [c[:, :, h:].contiguous() for c in pts])
-    return tuple(c.reshape(E, LIMBS, -1) for c in pts)
-
-
-def host_fold(X, Y, Z, E: int):
-    """Fold an (E, 12, k) plane of Jacobians into one host Jacobian tuple of
-    canonical ints (Fq: (x, y, z); Fq2: ((x0, x1), ...))."""
-    xs, ys, zs = (np.ascontiguousarray(c.cpu().numpy()) for c in (X, Y, Z))
-    ops = PC.FqOps if E == 1 else PC.Fq2Ops
-
-    def elem(arr, i):
-        if E == 1:
-            return F.fq_to_int(arr[0, :, i])
-        return (F.fq_to_int(arr[0, :, i]), F.fq_to_int(arr[1, :, i]))
-
-    acc = PC.jac_infinity(ops)
-    for i in range(xs.shape[-1]):
-        acc = PC.jac_add(ops, acc, (elem(xs, i), elem(ys, i), elem(zs, i)))
-    return acc

@@ -179,18 +179,18 @@ RED_POINTS = 8      # pt_reduce_groups' accumulators a block (kRedPoints)
 RED_SPAN = 64       # lanes a block of its first launch (kRedSpan)
 
 
-def _reduce_blocks(coords, gid, n: int, G: int, nb: int, span: int):
+def _reduce_blocks(coords, gid, n: int, G: int, nb: int, span: int, E: int):
     """One launch of the pt_reduce_groups kernel: block k = g·nb + b sums,
     from zeros, accumulator l adding element base + i at step j (i = b·span
     + j·RED_POINTS + l; base 0 with gid, else g·n), zeros where i >= n or
     gid[i] != g; then l += l + h for h = RED_POINTS/2 .. 1. Returns the
-    blocks' sums as (1, 12, G·nb) planes."""
+    blocks' sums as (E, 12, G·nb) planes."""
     dev = coords[0].device
     K, P = G * nb, RED_POINTS
     k = torch.arange(K, device=dev)
     g, b = (k // nb).view(K, 1), (k % nb).view(K, 1)
     lane = torch.arange(P, device=dev).view(1, P)
-    zero = torch.zeros((1, F.LIMBS, K * P), dtype=torch.int32, device=dev)
+    zero = torch.zeros((E, F.LIMBS, K * P), dtype=torch.int32, device=dev)
     acc = (zero, zero, zero)
     for j in range(span // P):
         i = b * span + j * P + lane                                  # (K, P)
@@ -200,24 +200,24 @@ def _reduce_blocks(coords, gid, n: int, G: int, nb: int, span: int):
             take = take & (gid[addr] == g)
         addr, take = addr.reshape(-1), take.reshape(-1)
         addend = [torch.where(take.view(1, 1, -1), c.index_select(2, addr), 0) for c in coords]
-        acc = pt_add_plain(*acc, *addend, 1)
+        acc = pt_add_plain(*acc, *addend, E)
     h = P // 2
     while h >= 1:
-        lo = [c.view(1, F.LIMBS, K, P)[..., :h].reshape(1, F.LIMBS, -1) for c in acc]
-        hi = [c.view(1, F.LIMBS, K, P)[..., h:2 * h].reshape(1, F.LIMBS, -1) for c in acc]
-        acc = pt_add_plain(*lo, *hi, 1)
+        lo = [c.view(E, F.LIMBS, K, P)[..., :h].reshape(E, F.LIMBS, -1) for c in acc]
+        hi = [c.view(E, F.LIMBS, K, P)[..., h:2 * h].reshape(E, F.LIMBS, -1) for c in acc]
+        acc = pt_add_plain(*lo, *hi, E)
         P, h = h, h // 2
     return acc
 
 
-def pt_reduce_groups_plain(X, Y, Z, gid, G: int):
-    """Plain version of the pt_reduce_groups kernel on a (1, 12, n) plane and
-    (n,) int32 group ids: for each g < G the sum of the points whose id is
-    g (an id outside [0, G) is in no group; an empty group is ∞, zeros), as
-    three (1, 12, G) planes, in the kernel's order of adds: the partial sums
-    of spans of RED_SPAN lanes, then each group's partials."""
+def pt_reduce_groups_plain(X, Y, Z, gid, G: int, E: int = 1):
+    """Plain version of the pt_reduce_groups kernel on an (E, 12, n) plane
+    and (n,) int32 group ids: for each g < G the sum of the points whose id
+    is g (an id outside [0, G) is in no group; an empty group is ∞, zeros),
+    as three (E, 12, G) planes, in the kernel's order of adds: the partial
+    sums of spans of RED_SPAN lanes, then each group's partials."""
     n = X.shape[-1]
     nb = -(-n // RED_SPAN)
-    parts = _reduce_blocks([X, Y, Z], gid.to(torch.int64), n, G, nb, RED_SPAN)
+    parts = _reduce_blocks([X, Y, Z], gid.to(torch.int64), n, G, nb, RED_SPAN, E)
     span = -(-nb // RED_POINTS) * RED_POINTS
-    return tuple(_reduce_blocks(list(parts), None, nb, G, 1, span))
+    return tuple(_reduce_blocks(list(parts), None, nb, G, 1, span, E))

@@ -24,7 +24,8 @@ power of two with masked repeats of lane 0), tree-folds the lanes into one
 Fq12 product and runs a single final exponentiation. Beyond MAX_PAIR_TILE
 pairs it runs chunk by chunk and folds the per-chunk products before the
 one final exponentiation; pairing multiplicativity makes the verdict the
-same as one monolithic check.
+same as one monolithic check. `verify_triples` checks triples each on its
+own lane instead: no fold, a final exponentiation a lane.
 """
 
 from __future__ import annotations
@@ -170,6 +171,43 @@ def final_exp_is_one(f):
     t1 = T.fq12_mul(t1, t0)
     res = T.fq12_mul(res, t1)
     return T.fq12_is_one(res)
+
+
+# ---------------------------------------------------------------------------
+# Per-triple verification (the reference's _compiled_verify :213 and
+# verify_batch_device :233)
+# ---------------------------------------------------------------------------
+
+# Triples a Miller-loop chunk of verify_triples: one call's host work is one
+# pairing's launches whatever its width, so only a batch past this many
+# triples (a few MB of Fq12 rows a chunk) runs in more than one
+MAX_EACH_TILE = 8192
+
+
+def _bucket_triples(n: int) -> int:
+    return buckets.pow2_bucket(n, floor=8)
+
+
+def verify_triples(pk_x, pk_y, h_x, h_y, s_x, s_y) -> torch.Tensor:
+    """e(pk, H(m))·e(−G1, sig) == 1 for each triple on its own lane: pk_*
+    are (n, 12) affine G1 rows, h_* and s_* (n, 2, 12) affine G2 twist rows
+    of H(m) and the signature, all on one device, n >= 1. Both pairs of a triple
+    share its Miller loop's accumulator (miller_loop_pairs over the pair
+    groups (pk, H(m)) and (−G1, sig)), with no fold across lanes, then one
+    final exponentiation per lane, batched. Pads to the power-of-two bucket
+    (floor 8) with repeats of lane 0, whose verdicts are dropped. Returns
+    the (n,) bool verdicts on the device."""
+    n = pk_x.shape[0]
+    outs = []
+    for lo, hi in buckets.chunk_spans(n, MAX_EACH_TILE):
+        m = hi - lo
+        Bp = _bucket_triples(m)
+        px, py, hx, hy, sx, sy = (buckets.pad_lane0(a[lo:hi], Bp, m)
+                                  for a in (pk_x, pk_y, h_x, h_y, s_x, s_y))
+        gx, gy = (row.expand(Bp, F.LIMBS).contiguous() for row in g1_rows([_G1_NEG], px.device))
+        f = miller_loop_pairs([(px, py), (gx, gy)], [(hx, hy), (sx, sy)])
+        outs.append(final_exp_is_one(f)[:m])
+    return torch.cat(outs)
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,10 @@ sequence of kernel launches (cuda_plane) followed by a host finish:
   2. windowed Lagrange sweep + T-way pairwise combine (`sweep_combine`),
   3. affine standard-form x, sign and infinity of the aggregates
      (`g2_affine_std`),
-  4. the combined sig+pk RLC MSM and its reduction trees (`combined_msm`),
-  5. host emit: compressed aggregate bytes and the host fold of the reduced
-     MSM planes (`host_emit`),
+  4. the combined sig+pk RLC MSM and its group sums, one pt_reduce_groups
+     call (`combined_msm`),
+  5. host emit: compressed aggregate bytes and the summed points read back
+     (`host_emit`),
   6. verify: one multi-pairing over (P_m, H(m)) and (−g1, S)
      (`pairing_finish`): by default on the device (the rows kernels of
      ops/rows.py through ops/pairing.py, H(m) from the dual-form cache and
@@ -35,7 +36,10 @@ The bulk verify of compressed (pk, msg, sig) triples (`rlc_verify_batch`,
 the receipt path of peer partials) runs chunks of VERIFY_CHUNK triples:
 per chunk the parse, G2 decompression, the G2 subgroup check
 (`g2_subgroup_mask`: psi(P) == [x]P) and the combined MSM
-(`verify_slot`), then the host folds of all chunks and one pairing check.
+(`verify_slot`), then the chunks' sums added on the host and one pairing
+check. `verify_each` checks each triple on its own instead (the attribution
+after a failed batch): per-lane decoding, one Miller loop pair a triple and
+the final exponentiations batched (pairing.verify_triples).
 
 The FROST ceremony's G1 programs (dkg/frost.py's device paths) close the
 module: the batched fixed-base keygen (`g1_mul_gen_batch`), the grouped
@@ -138,6 +142,21 @@ def lex_lt_p(be48: np.ndarray) -> np.ndarray:
     return anynz & (first < 0)
 
 
+def flag_fields(data: np.ndarray):
+    """(n, size) compressed encodings -> (body, compressed, infinity, sign,
+    in_field) per lane: body the bytes with the three flag bits cleared,
+    in_field whether each 48-byte x part of the body is below p. The flag
+    rules of parse_compressed and parse_lanes."""
+    flags = data[:, 0]
+    body = data.copy()
+    body[:, 0] &= 0x1F
+    in_field = np.ones(len(data), bool)
+    for off in range(0, data.shape[1], 48):
+        in_field &= lex_lt_p(body[:, off:off + 48])
+    return (body, (flags & 0x80) != 0, (flags & 0x40) != 0,
+            ((flags & 0x20) >> 5).astype(np.int32), in_field)
+
+
 def parse_compressed(items: list[bytes], size: int, kind: str,
                      reject_infinity: bool, Bp: int):
     """Host-side byte parsing with the reference's flag rules (compression
@@ -145,13 +164,9 @@ def parse_compressed(items: list[bytes], size: int, kind: str,
     sign, loaded) with sign/loaded as flat (Bp,) arrays."""
     n = len(items)
     data = np.frombuffer(b"".join(bytes(s) for s in items), np.uint8).reshape(n, size)
-    flags = data[:, 0]
-    if not (flags & 0x80).all():
+    body, comp, inf, sign, in_field = flag_fields(data)
+    if not comp.all():
         raise ValueError(f"uncompressed {kind} not supported")
-    inf = (flags & 0x40) != 0
-    sign = ((flags & 0x20) >> 5).astype(np.int32)
-    body = data.copy()
-    body[:, 0] &= 0x1F
     if inf.any():
         if reject_infinity:
             raise ValueError(f"infinity {kind} point rejected")
@@ -159,9 +174,8 @@ def parse_compressed(items: list[bytes], size: int, kind: str,
         if bad.any():
             raise ValueError(f"invalid {kind} point at index {int(np.argmax(bad))}")
     fin = ~inf
-    for off in range(0, size, 48):
-        if not lex_lt_p(body[fin, off:off + 48]).all():
-            raise ValueError(f"invalid {kind} point: x not in field")
+    if not in_field[fin].all():
+        raise ValueError(f"invalid {kind} point: x not in field")
     sgn = np.zeros(Bp, np.int32)
     sgn[:n] = sign
     loaded = np.zeros(Bp, bool)
@@ -620,37 +634,42 @@ def group_index(msgs):
     return gidx, G, list(gidx) + [b""] * (G - len(gidx))
 
 
-def group_masks(msgs, Bp: int, index=None):
-    """(keys, (G, Bp) bool masks): element i is in its message's group;
-    padding elements are in none. `index`, group_index over a longer
-    message list, makes row g mean the same message in every chunk of
-    it."""
-    gidx, G, keys = index if index is not None else group_index(msgs)
-    gmask = np.zeros((G, Bp), bool)
-    for i, m in enumerate(msgs):
-        gmask[gidx[bytes(m)], i] = True
-    return keys, gmask
+def group_ids(msgs, Bp: int, index=None):
+    """(keys, (Bp,) int32 ids): element i's id is its message's group,
+    padding elements' −1. `index`, group_index over a longer message list,
+    makes id g mean the same message in every chunk of it."""
+    gidx, _G, keys = index if index is not None else group_index(msgs)
+    gid = np.full(Bp, -1, np.int32)
+    gid[:len(msgs)] = [gidx[bytes(m)] for m in msgs]
+    return keys, gid
 
 
-def combined_msm(SX, SY, SZ, pkX, pkY, pkZ, rdig, gmask):
+def msm_group_ids(gid: np.ndarray) -> np.ndarray:
+    """The combined MSM's (2·Bp,) group ids: its signature lanes group 0,
+    message group g's pk lanes 1 + g, padding −1."""
+    live = gid >= 0
+    return np.concatenate([np.where(live, 0, -1), np.where(live, gid + 1, -1)]).astype(np.int32)
+
+
+def combined_msm(SX, SY, SZ, pkX, pkY, pkZ, rdig, mgid, G: int):
     """Sig-G2 MSM and pk-G1 MSM through ONE windowed sweep: G1 embedded in
-    Fq2 with zero c1 and placed after the sig elements. Returns the reduced
-    sig plane and one reduced (embedded) pk plane per group."""
-    n = SX.shape[-1]
+    Fq2 with zero c1 and placed after the sig elements; then ONE
+    pt_reduce_groups<2> call over the sweep's output with the ids `mgid`
+    (msm_group_ids, on the device). Returns the sums as three (2, 12, 1 + G)
+    planes: S = Σ rᵢ·sigᵢ at 0, message group g's embedded Σ rᵢ·pkᵢ at 1 + g."""
     pk2 = [torch.cat([c, torch.zeros_like(c)], 0) for c in (pkX, pkY, pkZ)]
     CX = torch.cat([SX, pk2[0]], -1)
     CY = torch.cat([SY, pk2[1]], -1)
     CZ = torch.cat([SZ, pk2[2]], -1)
     cdig = torch.cat([rdig, rdig], -1)
-    mX, mY, mZ = CP.scalar_mul_windowed(CX, CY, CZ, cdig, 2)
-    sig_red = CP.reduce_tree(mX[..., :n].contiguous(), mY[..., :n].contiguous(),
-                             mZ[..., :n].contiguous(), 2)
-    pm = [c[..., n:] for c in (mX, mY, mZ)]
-    pk_reds = []
-    for g in range(gmask.shape[0]):
-        sel = gmask[g]
-        pk_reds.append(CP.reduce_tree(*[_sel(sel, c, 0).contiguous() for c in pm], 2))
-    return sig_red, pk_reds
+    return CP.reduce_groups(*CP.scalar_mul_windowed(CX, CY, CZ, cdig, 2), mgid, 1 + G, 2)
+
+
+def msm_points(sums) -> tuple:
+    """combined_msm's sums on the host: (S, [P_g ...]), S a G2 Jacobian and
+    each P_g a G1 one."""
+    pts = CP.host_points(*sums)
+    return pts[0], [unembed_g1(p) for p in pts[1:]]
 
 
 def unembed_g1(jac2):
@@ -872,7 +891,7 @@ def fused_slot(layout, pks, msgs, device, pk_cache: PkPlaneCache, randomizers=No
                mark=None):
     """Host parse + the slot's stream-ordered launches. Returns the pending
     state for `readback`: ("pending", V, group_msgs, outs) with outs =
-    (ok, xs, sign, inf, sig_red, pk_reds) on the device, or ("bad_pk",
+    (ok, xs, sign, inf, sums) on the device, or ("bad_pk",
     layout) when the pubkey set is invalid. `randomizers` (V nonzero
     64-bit values) replaces the CSPRNG draw, for tests only. `mark`, when
     given, is called with each step's name once the step's work is issued
@@ -889,18 +908,18 @@ def fused_slot(layout, pks, msgs, device, pk_cache: PkPlaneCache, randomizers=No
     mark("pk plane (cache, or G1 decompression + subgroup check)")
     r = sample_randomizers(V) if randomizers is None else np.asarray(randomizers, np.uint64)
     rdig = torch.as_tensor(CP.scalars_to_digitplanes(r, Vp, nbits=RLC_BITS), device=device)
-    group_msgs, gmask = group_masks(msgs, Vp)
-    mark("randomizer digits + group masks (host)")
+    group_msgs, gid = group_ids(msgs, Vp)
+    mgid = torch.as_tensor(msm_group_ids(gid), device=device)
+    mark("randomizer digits + group ids (host)")
     X, Y, Z, ok = g2_decompress(X0r, X1r, sgn, lmask)
     mark("G2 decompression")
     RX, RY, RZ = sweep_combine(X, Y, Z, ldig, T, Wv)
     mark("Lagrange sweep + combine")
     xs, sign, inf = g2_affine_std(RX, RY, RZ)
     mark("affine standard form")
-    sig_red, pk_reds = combined_msm(RX, RY, RZ, pkX, pkY, pkZ, rdig,
-                                    torch.as_tensor(gmask, device=device))
+    sums = combined_msm(RX, RY, RZ, pkX, pkY, pkZ, rdig, mgid, len(group_msgs))
     mark("combined RLC MSM + reduction trees")
-    return ("pending", V, group_msgs, (ok, xs, sign, inf, sig_red, pk_reds))
+    return ("pending", V, group_msgs, (ok, xs, sign, inf, sums))
 
 
 def readback(state):
@@ -909,35 +928,35 @@ def readback(state):
     faults.check("sigagg.execute")
     if state[0] == "bad_pk":
         return state
-    _tag, V, group_msgs, (ok, xs, sign, inf, sig_red, pk_reds) = state
+    _tag, V, group_msgs, (ok, xs, sign, inf, sums) = state
     if ok.is_cuda:
         torch.cuda.current_stream(ok.device).synchronize()
     faults.check("sigagg.readback")
     host = (ok.cpu().numpy(), xs.cpu().numpy(), sign.cpu().numpy(), inf.cpu().numpy(),
-            tuple(c.cpu() for c in sig_red), [tuple(c.cpu() for c in r) for r in pk_reds])
+            tuple(c.cpu() for c in sums))
     return ("host", V, group_msgs, host)
 
 
 def host_emit(hstate, device):
-    """Validity check, byte emission and RLC host folds. Returns
+    """Validity check, byte emission and the RLC sums read back. Returns
     (aggregates, S, group_points) for `pairing_finish`; a bad pubkey set
     still yields the aggregates, with S and group_points None (verdict
     False)."""
     faults.check("sigagg.finish")
     if hstate[0] == "bad_pk":
         return aggregate(hstate[1], device), None, None
-    _tag, V, group_msgs, (ok, xs, sign, inf, sig_red, pk_reds) = hstate
-    if not ok.all():
-        raise_bad(ok, "G2")
+    _tag, V, group_msgs, host = hstate
+    if not host[0].all():
+        raise_bad(host[0], "G2")
+    _ok, xs, sign, inf, sums = host
     out = g2_emit_bytes(xs, sign, inf, V)
-    S = CP.host_fold(*sig_red, 2)
-    pts = [(m, unembed_g1(CP.host_fold(*pk_reds[g], 2))) for g, m in enumerate(group_msgs)]
-    return out, S, pts
+    S, P = msm_points(sums)
+    return out, S, list(zip(group_msgs, P))
 
 
 class SlotTimes:
     """Seconds of the last slot's phases: dispatch (host parse + launches),
-    readback, emit (bytes + host folds), verify (the pairing check on
+    readback, emit (bytes + the sums read back), verify (the pairing check on
     whichever rung ran) and native (the native rung, when the slot landed
     there: the phases before it keep the time they took, the ones it
     skipped are 0)."""
@@ -1017,16 +1036,14 @@ def verify_chunks(n: int) -> list[tuple[int, int]]:
     return [(s, min(s + VERIFY_CHUNK, n)) for s in range(0, n, VERIFY_CHUNK)]
 
 
-def verify_slot(X0r, X1r, sgn, lmask, rdig, pk, gmask):
+def verify_slot(X0r, X1r, sgn, lmask, rdig, pk, mgid, G: int):
     """One chunk's launches: G2 decompression of its signatures, their
-    subgroup check, and the combined sig + pk RLC MSM with its reduction
-    trees. Returns (ok, sub_ok, sig_red, pk_reds) on the device: the
-    decompression's per-lane validity, the subgroup verdict (one bool) and
-    the reduced planes."""
+    subgroup check, and the combined sig + pk RLC MSM with its group sums.
+    Returns (ok, sub_ok, sums) on the device: the decompression's per-lane
+    validity, the subgroup verdict (one bool) and combined_msm's sums."""
     X, Y, Z, ok = g2_decompress(X0r, X1r, sgn, lmask)
     sub_ok = g2_subgroup_mask(X, Y, Z).all()
-    sig_red, pk_reds = combined_msm(X, Y, Z, *pk, rdig, gmask)
-    return ok, sub_ok, sig_red, pk_reds
+    return ok, sub_ok, combined_msm(X, Y, Z, *pk, rdig, mgid, G)
 
 
 def rlc_verify_dispatch(pks, msgs, sigs, device, pk_cache: PkPlaneCache, randomizers=None,
@@ -1059,11 +1076,11 @@ def rlc_verify_dispatch(pks, msgs, sigs, device, pk_cache: PkPlaneCache, randomi
         except ValueError:
             return ("invalid",)
         rdig = torch.as_tensor(CP.scalars_to_digitplanes(r[s:e], Bc, nbits=RLC_BITS), device=device)
-        _keys, gmask = group_masks(msgs[s:e], Bc, index)
+        _keys, gid = group_ids(msgs[s:e], Bc, index)
         pending.append(verify_slot(
             raw_to_plane(body[:, 48:], Bc, device), raw_to_plane(body[:, :48], Bc, device),
             torch.as_tensor(sgn, device=device), torch.as_tensor(loaded, device=device), rdig,
-            pk, torch.as_tensor(gmask, device=device)))
+            pk, torch.as_tensor(msm_group_ids(gid), device=device), index[1]))
         mark(f"chunk {k + 1}")
     return ("pending", index[2], pending)
 
@@ -1071,21 +1088,20 @@ def rlc_verify_dispatch(pks, msgs, sigs, device, pk_cache: PkPlaneCache, randomi
 def rlc_fold(state):
     """Read the chunks back and combine their RLC sums: (S, [(m, P_m)]) with
     S = Σ rᵢ·sigᵢ and P_m = Σ rᵢ·pkᵢ over message m's triples, by Jacobian
-    adds of the chunks' host folds; None when the state is invalid, a
-    signature did not decompress or one lies outside the subgroup."""
+    adds of the chunks' summed points (1 + G a chunk); None when the state
+    is invalid, a signature did not decompress or one lies outside the
+    subgroup."""
     if state[0] == "invalid":
         return None
     _tag, group_msgs, pending = state
     S, Pg = None, [None] * len(group_msgs)
-    for ok, sub_ok, sig_red, pk_reds in pending:
+    for ok, sub_ok, sums in pending:
         if not (bool(ok.all()) and bool(sub_ok)):
             return None
-        sc = CP.host_fold(*sig_red, 2)
+        sc, pcs = msm_points(sums)
         S = sc if S is None else jac_add(Fq2Ops, S, sc)
-        for g, red in enumerate(pk_reds):
-            pc = CP.host_fold(*red, 2)
-            Pg[g] = pc if Pg[g] is None else jac_add(Fq2Ops, Pg[g], pc)
-    return S, [(m, unembed_g1(P)) for m, P in zip(group_msgs, Pg)]
+        Pg = [pc if P is None else jac_add(FqOps, P, pc) for P, pc in zip(Pg, pcs)]
+    return S, list(zip(group_msgs, Pg))
 
 
 def rlc_verify_finish(state, h2c: H2CCache, pairing_path: dict, verify: str = "device",
@@ -1111,6 +1127,94 @@ def rlc_verify_batch(pks, msgs, sigs, device, pk_cache: PkPlaneCache, h2c: H2CCa
         raise ValueError("length mismatch")
     state = rlc_verify_dispatch(pks, msgs, sigs, device, pk_cache, randomizers)
     return rlc_verify_finish(state, h2c, pairing_path, verify, device)
+
+
+# ---------------------------------------------------------------------------
+# Per-triple verdicts (the attribution after a failed batch): verify_each,
+# the reference's verify_batch_device (charon_tpu/ops/pairing.py:233) on
+# compressed triples
+# ---------------------------------------------------------------------------
+
+
+def parse_lanes(items, size: int, Bp: int):
+    """Host parse of compressed points lane by lane, raising nothing: (body,
+    sign, usable), body the (n, size) bytes with the flag bits cleared
+    (zeros in a lane that is not usable), sign and usable flat (Bp,)
+    arrays. A lane is usable when it is `size` bytes that parse_compressed
+    would take as a finite point (flag_fields: the compression bit, no
+    infinity bit, x < p); every other lane is not, and is not loaded."""
+    raw = [bytes(x) for x in items]
+    n = len(raw)
+    fit = np.array([len(r) == size for r in raw], bool)
+    data = np.zeros((n, size), np.uint8)
+    if fit.any():
+        data[fit] = np.frombuffer(b"".join(r for r, f in zip(raw, fit) if f),
+                                  np.uint8).reshape(-1, size)
+    body, comp, inf, sgn, in_field = flag_fields(data)
+    ok = fit & comp & ~inf & in_field
+    body[~ok] = 0
+    sign = np.zeros(Bp, np.int32)
+    sign[:n] = np.where(ok, sgn, 0)
+    usable = np.zeros(Bp, bool)
+    usable[:n] = ok
+    return body, sign, usable
+
+
+def g1_lanes(pks, Bp: int, device):
+    """Compressed pubkeys -> ((X, Y, Z) G1 plane of Bp elements, (Bp,) bool
+    on the device): per lane, whether it decoded to a point of the subgroup
+    other than infinity. Raises nothing."""
+    body, sgn, usable = parse_lanes(pks, 48, Bp)
+    lmask = torch.as_tensor(usable, device=device)
+    X, Y, Z, ok = g1_decompress(raw_to_plane(body, Bp, device), torch.as_tensor(sgn, device=device),
+                                lmask)
+    return (X, Y, Z), ok & lmask & g1_subgroup_mask(X, Y, Z)
+
+
+def verify_each(pks, msgs, sigs, device, pk_cache: PkPlaneCache, h2c: H2CCache) -> np.ndarray:
+    """Per-triple verdicts of compressed (pk, msg, sig) triples as an (n,)
+    bool array, each native ct_verify's: e(pk, H(m))·e(−G1, sig) == 1 on
+    the triple's own lane of one device pairing (pairing.verify_triples),
+    whose host work is one pairing's whatever n. In verify_chunks' spans:
+    the pubkeys through the cache's chunk planes (the spans and buckets of
+    rlc_verify_batch, so after a failed batch they are hits), or, when the
+    cache rejects the set, decoded lane by lane (g1_lanes); the signatures'
+    G2 decompression and subgroup check lane by lane. The decompressed
+    points are affine (Z = 1), so their coordinates are the pairing's rows.
+    H(m) from the cache, one device hash-to-G2 batch on its misses. A lane
+    whose pubkey or signature is a bad encoding, infinity, off the curve or
+    outside the subgroup is False, and its neighbours keep their verdicts.
+    n = 0 gives an empty array; a length mismatch raises ValueError."""
+    n = len(msgs)
+    if not (len(pks) == len(sigs) == n):
+        raise ValueError("length mismatch")
+    if n == 0:
+        return np.zeros(0, bool)
+    device = torch.device(device)
+    chunks = verify_chunks(n)
+    bks = [CP.pad_batch(e - s) for s, e in chunks]
+    try:
+        pk_planes = [(p, None) for p in pk_cache.chunk_planes(pks, chunks, bks, device)]
+    except ValueError:
+        pk_planes = [g1_lanes(pks[s:e], Bc, device) for (s, e), Bc in zip(chunks, bks)]
+    rows, oks = [], []
+    for (s, e), Bc, ((pX, pY, _pZ), pk_ok) in zip(chunks, bks, pk_planes):
+        body, sgn, usable = parse_lanes(sigs[s:e], 96, Bc)
+        lmask = torch.as_tensor(usable, device=device)
+        X, Y, Z, dec = g2_decompress(raw_to_plane(body[:, 48:], Bc, device),
+                                     raw_to_plane(body[:, :48], Bc, device),
+                                     torch.as_tensor(sgn, device=device), lmask)
+        ok = dec & lmask & g2_subgroup_mask(X, Y, Z)
+        m = e - s
+        oks.append((ok if pk_ok is None else ok & pk_ok)[:m])
+        rows.append((pX[0, :, :m].T, pY[0, :, :m].T, X[..., :m].permute(2, 0, 1),
+                     Y[..., :m].permute(2, 0, 1)))
+    pk_x, pk_y, s_x, s_y = (torch.cat([r[i] for r in rows]).contiguous() for i in range(4))
+    distinct = {m: g for g, m in enumerate(dict.fromkeys(bytes(m) for m in msgs))}
+    hx, hy = h2c.planes(list(distinct), device)
+    idx = torch.as_tensor([distinct[bytes(m)] for m in msgs], device=device)
+    ok = pairing_mod.verify_triples(pk_x, pk_y, hx[idx], hy[idx], s_x, s_y)
+    return (ok & torch.cat(oks)).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

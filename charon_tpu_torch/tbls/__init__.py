@@ -19,6 +19,8 @@ import concurrent.futures as _cf
 import threading
 from typing import Protocol
 
+import numpy as np
+
 from .types import PrivateKey, PublicKey, Signature
 
 __all__ = [
@@ -40,6 +42,7 @@ __all__ = [
     "sign",
     "verify",
     "verify_batch",
+    "verify_batch_each",
     "aggregate",
     "verify_aggregate",
 ]
@@ -60,6 +63,8 @@ class Implementation(Protocol):
     def aggregate(self, sigs: list[Signature]) -> Signature: ...
     def verify_aggregate(self, public_keys: list[PublicKey], data: bytes, signature: Signature) -> bool: ...
     def verify_batch(self, public_keys: list[PublicKey], datas: list[bytes], signatures: list[Signature]) -> bool: ...
+    def verify_batch_each(self, public_keys: list[PublicKey], datas: list[bytes],
+                          signatures: list[Signature]) -> np.ndarray: ...
     def threshold_aggregate_batch(self, batches: list[dict[int, Signature]]) -> list[Signature]: ...
 
     def threshold_aggregate_verify_batch(
@@ -141,6 +146,14 @@ def verify(public_key: PublicKey, data: bytes, signature: Signature) -> bool:
 
 def verify_batch(public_keys: list[PublicKey], datas: list[bytes], signatures: list[Signature]) -> bool:
     return get_implementation().verify_batch(public_keys, datas, signatures)
+
+
+def verify_batch_each(public_keys: list[PublicKey], datas: list[bytes],
+                      signatures: list[Signature]) -> np.ndarray:
+    """Per-item validity of (pk, data, sig) triples as a bool array, the
+    attribution after a failed verify_batch (TorchImpl answers in one
+    device call)."""
+    return get_implementation().verify_batch_each(public_keys, datas, signatures)
 
 
 def threshold_aggregate_verify_batch(

@@ -24,11 +24,16 @@ pipeline reach:
     SigAggPipeline, which overlaps one slot's pack with another's finish, is
     not ported: the port's slot is host-bound, and two slots' host work at
     once share the interpreter lock and lose to one after another.
+  * verify_batch_each: per-triple verdicts, the attribution after a failed
+    batch (the coalescer's), in ONE device call on the slot thread
+    (plane_agg.verify_each: each triple's pairing on its own lane, the final
+    exponentiations batched), where the reference's TPUImpl runs native
+    ct_verify an item; the same verdicts.
   * pin_pubkeys: pins the set's planes in this impl's pk-plane cache.
   * key material (generate_secret_key, threshold_split, recover_secret over
-    Fr; secret_to_public_key, sign, verify, aggregate, verify_aggregate)
-    and verify_batch_each (per-item attribution): the native library
-    through the port's loader, as the reference's calls go to NativeImpl.
+    Fr; secret_to_public_key, sign, verify, aggregate, verify_aggregate):
+    the native library through the port's loader, as the reference's calls
+    go to NativeImpl.
 
 Every batch size goes to the device: there is no small-batch routing. The
 device is explicit. `TorchImpl()` runs on cuda:0 and raises when CUDA is
@@ -47,7 +52,8 @@ same bytes and verdicts, as in the reference: the slot through the guard
 (the plane breaker, the native slot rung), the device pairing check through
 its verify fallback, and, as the belt of the calls with no guard below
 them, threshold_aggregate_batch and verify_batch answer natively when a
-device-class error reaches them (`fallback_on_device_error`, default True,
+device-class error reaches them, and verify_batch_each, behind the
+verify's breaker gate, does too (`fallback_on_device_error`, default True,
 as TPUImpl's). Set it False and every device-class error raises instead,
 through the call or the Future. Input errors (ValueError), a kernel that
 failed to build or to launch and any other error always raise. A
@@ -225,14 +231,6 @@ class TorchImpl(FrScalarOps):
         pk = native.aggregate_g1([bytes(p) for p in public_keys])
         return pk is not None and self.verify(PublicKey(pk), data, signature)
 
-    def verify_batch_each(self, public_keys: list[PublicKey], datas: list[bytes],
-                          signatures: list[Signature]) -> np.ndarray:
-        """Per-item validity, the attribution after a failed batch: native
-        per-item verification."""
-        self._check_lengths(public_keys, datas, signatures)
-        return np.asarray([self.verify(pk, d, s) for pk, d, s
-                           in zip(public_keys, datas, signatures)], dtype=bool)
-
     # -- the device paths -------------------------------------------------
 
     def threshold_aggregate(self, partial_sigs: dict[int, Signature]) -> Signature:
@@ -275,6 +273,32 @@ class TorchImpl(FrScalarOps):
             if not self._lands_native("verify_batch", exc):
                 raise
         return native.verify_batch_chunked(pks, msgs, sigs)
+
+    def verify_batch_each(self, public_keys: list[PublicKey], datas: list[bytes],
+                          signatures: list[Signature]) -> np.ndarray:
+        """Per-item validity, the attribution after a failed batch: native
+        ct_verify's verdict for each triple (a bad encoding, an infinity or
+        an out-of-subgroup point False in its own item), from one device
+        call (plane_agg.verify_each) on the device's slot thread, after the
+        work queued there. Guarded as the verify's pairing check is: with
+        the fallback on, an open breaker answers natively item by item, and
+        so does a device-class error of the call, counted
+        (guard.note_verify_fallback); any other error raises. The native
+        rung (`rung == "native"`) answers natively item by item."""
+        self._check_lengths(public_keys, datas, signatures)
+        pks, msgs, sigs = ([bytes(x) for x in xs] for xs in (public_keys, datas, signatures))
+        guarded = self.fallback_on_device_error
+        if self.rung == "device" and not (guarded and guard.BREAKER.state == guard.OPEN):
+            try:
+                return self._on_slot_thread(PA.verify_each, pks, msgs, sigs, self.device,
+                                            self.pk_cache, self.h2c)
+            except Exception as exc:
+                reason = guard.device_reason(exc)
+                if not guarded or reason is None:
+                    raise
+                guard.note_verify_fallback(reason, exc)
+        return np.asarray([native.verify(pk, d, s) for pk, d, s in zip(pks, msgs, sigs)],
+                          dtype=bool)
 
     def _verify_device(self, pks, msgs, sigs) -> bool:
         with guard.fallback(self.fallback_on_device_error):

@@ -68,7 +68,10 @@ Phases, any failure exits non-zero:
                synchronised wall) on both rungs; the launches of one first
                and one steady device verify by kernel and E (a steady one
                at most 4,800), and the PyTorch ops the host dispatches in a
-               steady one.
+               steady one; the MSM's group sums, pt_reduce_groups<2> at the
+               slot's width (2,048 lanes, the signatures and the message's
+               pk lanes), held bit for bit against its plain version with
+               the edge lanes and timed.
   5. verify  — the committee slot (64 messages, validator v signs message
                v % 64; 65 pairs, a 64-message device hash-to-G2 batch):
                True, tampered False, each verdict the native rung's, all 64
@@ -94,9 +97,18 @@ Phases, any failure exits non-zero:
                burst a replaced partial of the last chunk, each verdict
                native ct_verify_batch's; the launches of each chunk those of
                the CPU (VERIFY_CHUNK_LAUNCHES); per size and rung the median
-               of 3 steady walls beside native ct_verify_batch's; then every
-               case it launched that phases 4-5 did not, held and timed, in
-               the kernels JSON as bulk_verify_by_width.
+               of 3 steady walls beside native ct_verify_batch's. The
+               per-triple verify (TorchImpl().verify_batch_each, the
+               attribution after a failed flush) on 1,500, 2,000 and 5,000
+               of those triples, each with four bad ones (another key's
+               signature, a cleared flag byte, an order-13 component, an
+               infinity), counts at 0 just before: every bad triple and 256
+               seeded good ones as native ct_verify, every good one True;
+               then per size its steady wall and launches beside
+               verify_batch's on the same triples with the tampered one
+               only. Then every case it launched that phases 4-5 did not
+               (pt_reduce_groups<2> at the chunks' widths among them), held
+               and timed, in the kernels JSON as bulk_verify_by_width.
   7. pipeline — four 1000 x 4-of-6 slots of the probe's keys, each over its
                own message, through threshold_aggregate_verify_submit (the
                device's slot thread): byte-identical to the serial call,
@@ -177,7 +189,9 @@ Phases, any failure exits non-zero:
                peer 3 signed over another root beside a second duty in the
                window: the set dropped with the reference's "invalid
                partial signature", attributed to share 3, both duties
-               aggregated; a second duty's verify window closing on its
+               aggregated, each failed flush attributed by exactly one
+               verify_batch_each call, the window ending within the 12 s
+               slot (its wall printed); a second duty's verify window closing on its
                timer while a slot runs; no guard counter moved. It prints
                the walls of the verify, of threshold -> AggSigDB (p50, max),
                of each flush, the pk-plane decodes and the host's signing
@@ -1363,10 +1377,10 @@ def first_slot_steps(batches, pubkeys, datas, device, pk_cache=None, h2c=None,
 
 
 # a slot's dispatch by step (plane_agg.fused_slot's marks: parse, pk plane,
-# randomizers, G2 decompression, sweep + combine, affine, MSM + trees): the
-# exact counts of tests/test_torch_slice.py; a steady slot's pk plane is a
-# cache hit
-DISPATCH_STEPS = {"first": [0, 12, 0, 19, 4, 8, 7], "steady": [0, 0, 0, 19, 4, 8, 7]}
+# randomizers, G2 decompression, sweep + combine, affine, MSM + group sums:
+# one pt_mul_windowed<2> and one pt_reduce_groups<2> call): the exact counts
+# of tests/test_torch_slice.py; a steady slot's pk plane is a cache hit
+DISPATCH_STEPS = {"first": [0, 12, 0, 19, 4, 8, 2], "steady": [0, 0, 0, 19, 4, 8, 2]}
 
 
 def slot_steps(batches, pubkeys, datas, device, total: int) -> None:
@@ -1399,9 +1413,9 @@ def _width_text(widths: dict) -> str:
 
 # kernels the sigagg paths (the slot, the bulk verify) do not launch: every
 # point double and every G1 add run inside pt_mul_shared / pt_mul_windowed
-# (pt_add<2> still adds the combine, the reduction trees and hash-to-G2's
-# q0 + q1), the windowed product runs at E = 2 only (the MSM's G1 lanes
-# embedded in Fq2), and the group reduction serves the DKG (phase 8)
+# (pt_add<2> still adds the combine and hash-to-G2's q0 + q1), the windowed
+# product and the MSM's group sums run at E = 2 only (the MSM's G1 lanes
+# embedded in Fq2), and the group reduction at E = 1 serves the DKG (phase 8)
 OFF_PATH = (("pt_double", 1), ("pt_double", 2), ("pt_add", 1), ("pt_mul_windowed", 1),
             ("pt_reduce_groups", 1))
 
@@ -1655,14 +1669,15 @@ G2_COFACTOR = 0x5D543A95414E7F1091D50792876A202CD91DE4547085ABAA68A205B2E5A7DDFA
 # marks), two message groups, at a chunk bucket of up to 1,024: a pk
 # chunk's decode on a miss (G1 decompression 7, subgroup check 5) and each
 # chunk's G2 decompression 19, subgroup check 5 (pt_mul_shared<2> at X_ABS,
-# a level of negations, 3 product levels) and MSM 10 (one
-# pt_mul_windowed<2>, three trees of 3 pt_add<2> levels): the exact counts
-# of tests/test_torch_verify_chunks.py
+# a level of negations, 3 product levels) and MSM 2 (one
+# pt_mul_windowed<2> and one pt_reduce_groups<2> call over the signatures
+# and both groups' pk lanes): the exact counts of
+# tests/test_torch_verify_chunks.py
 VERIFY_CHUNK_LAUNCHES = {
     "pk plane": {"fe_mul": {1: 7}, "fe_addsub": {1: 3}, "fe_pow": {"plane": 1},
                  "pt_mul_shared": {1: 1}},
     "chunk": {"fe_mul": {1: 9, 2: 5}, "fe_addsub": {1: 5, 2: 2}, "fe_pow": {"plane": 2},
-              "pt_mul_shared": {2: 1}, "pt_mul_windowed": {2: 1}, "pt_add": {2: 9}},
+              "pt_mul_shared": {2: 1}, "pt_mul_windowed": {2: 1}, "pt_reduce_groups": {2: 1}},
 }
 
 
@@ -1794,6 +1809,104 @@ def bulk_steps(triples, device, label: str) -> None:
             for name, c, ms in steps) + " (synchronised wall; launches by chunk as on the CPU)")
 
 
+# the per-triple verify's sizes (phase 6): a failed flush of three and of
+# four 500-validator sets at flush_at 1,024 (as 1,000 validators' two), and
+# a whole window of 5,000 triples
+EACH_SIZES = (1500, 2000, 5000)
+EACH_BAD_PK = 1500      # the size whose call also has two bad pubkeys
+EACH_SAMPLE = 256       # good triples whose verdicts are held against native
+
+
+def each_triples(sets, n: int, seed: str) -> tuple:
+    """n triples of the peers' sets (repeated past the 2,500 of one round)
+    with four bad ones at seeded positions: another share's partial, a
+    cleared flag byte, the partial plus an order-13 point, an infinity
+    signature; at EACH_BAD_PK two more, an infinity pubkey and one with its
+    flag byte cleared, so that the pk cache rejects the set and the call
+    decodes the pubkeys lane by lane. Returns ((pks, msgs, sigs), the bad
+    positions, the same triples with only the first bad one, which
+    verify_batch pairs through)."""
+    flat = [t for _ in range(-(-n // (BULK_PEERS * BULK_VALIDATORS)))
+            for i in sorted(sets) for t in zip(*sets[i])][:n]
+    pks, msgs, sigs = (list(c) for c in zip(*flat))
+    rng = random.Random(seed)
+    bad = rng.sample(range(n), 6 if n == EACH_BAD_PK else 4)
+    k = bad[0]
+    other = next(j for j in range(n) if msgs[j] == msgs[k] and pks[j] != pks[k])
+    tampered = list(sigs)
+    tampered[k] = sigs[other]
+    sigs = list(tampered)
+    sigs[bad[1]] = bytes([sigs[bad[1]][0] & 0x7F]) + sigs[bad[1]][1:]
+    sigs[bad[2]] = off_subgroup_g2(sigs[bad[2]])[1]
+    sigs[bad[3]] = INF96
+    tampered_pks = list(pks)
+    if len(bad) == 6:
+        pks[bad[4]] = INF48
+        pks[bad[5]] = bytes([pks[bad[5]][0] & 0x7F]) + pks[bad[5]][1:]
+    return (pks, msgs, sigs), sorted(bad), (tampered_pks, msgs, tampered)
+
+
+def each_phase(sets, smi: str) -> dict:
+    """The per-triple verify of phase 6 (TorchImpl().verify_batch_each, the
+    coalescer's attribution after a failed flush) at EACH_SIZES, each call
+    with four bad triples, six at EACH_BAD_PK (each_triples). The main
+    path, every count at 0 just before: one call a size on a fresh
+    TorchImpl (pk planes decoded, lane by lane at EACH_BAD_PK, H(m) hashed
+    on the device); gates: the verdicts native ct_verify's on
+    every bad triple and on EACH_SAMPLE seeded good ones, True on every
+    good one. Then per size the steady wall and launches of
+    verify_batch_each beside verify_batch's on the same triples with only
+    the first bad one (the RLC check pairs through to False), medians of 3.
+    Returns the main path's counts (path_counts)."""
+    cases = {n: each_triples(sets, n, f"each {n}") for n in EACH_SIZES}
+    impl = TorchImpl()
+    CP.reset_counts()
+    got = {n: impl.verify_batch_each(*trip) for n, (trip, _bad, _t) in cases.items()}
+    torch.cuda.synchronize()
+    counts = path_counts()
+    for n, (trip, bad, _t) in cases.items():
+        sample = sorted(random.Random(f"sample {n}").sample(
+            [i for i in range(n) if i not in bad], EACH_SAMPLE))
+        want = {i: native.verify(trip[0][i], trip[1][i], trip[2][i]) for i in bad + sample}
+        if any(want[i] for i in bad) or not all(want[i] for i in sample):
+            raise SystemExit(f"per-triple verify {n}: native ct_verify gives {want}")
+        wrong = [i for i in want if bool(got[n][i]) != want[i]]
+        if wrong or int(got[n].sum()) != n - len(bad):
+            raise SystemExit(f"per-triple verify {n:,} triples: verdicts differ from native "
+                             f"ct_verify at {wrong[:8]}; {int(got[n].sum())} True of {n - len(bad)} "
+                             f"good")
+        log(f"per-triple verify {n:,} triples: the {len(bad)} bad triples (signatures: another "
+            f"share's partial, a cleared flag byte, an order-13 component, infinity"
+            + ("; pubkeys, decoded lane by lane: infinity, a cleared flag byte" if len(bad) > 4
+               else "") + f") False and {EACH_SAMPLE} sampled good ones True, as native "
+            f"ct_verify; all {n - len(bad):,} good ones True")
+    out = {}
+    for n, (trip, _bad, tampered) in cases.items():
+        row = {}
+        for name, fn, args in (("verify_batch", impl.verify_batch, tampered),
+                               ("verify_batch_each", impl.verify_batch_each, trip)):
+            walls, launches = [], []
+            for _ in range(3):
+                CP.reset_counts()
+                t0 = time.perf_counter()
+                res = fn(*args)
+                walls.append(time.perf_counter() - t0)
+                launches.append(sum(sum(k.launches.values()) for k in CP.KERNELS.values()))
+            if name == "verify_batch" and res is not False:
+                raise SystemExit(f"verify_batch {n}: True on a tampered partial")
+            row[name] = {"median_s": statistics.median(walls), "runs_s": walls,
+                         "launches": launches[-1]}
+        out[n] = row
+        log(f"per-triple verify {n:,} triples (steady; {smi}): verify_batch_each median "
+            f"{row['verify_batch_each']['median_s']:.4f} s, runs "
+            + ", ".join(f"{w:.4f}" for w in row["verify_batch_each"]["runs_s"])
+            + f", {row['verify_batch_each']['launches']} launches; beside verify_batch (one "
+            f"tampered partial, False) median {row['verify_batch']['median_s']:.4f} s, "
+            f"{row['verify_batch']['launches']} launches")
+    log(f"per-triple verify JSON: {json.dumps(out)}")
+    return counts
+
+
 def bulk_verify(pool, smi: str) -> dict:
     """Phase 6: BASELINE config 3 at full size. The main path, every count
     at 0 just before: a fresh TorchImpl().verify_batch (device rung) on one
@@ -1824,6 +1937,7 @@ def bulk_verify(pool, smi: str) -> dict:
         "planes decoded, H(m) hashed on the device): launches "
         + ", ".join(f"{k}<{E}>={c}" for (k, E), c in launched.items()))
     bulk_gates(sets, impl.device)
+    each_counts = each_phase(sets, smi)
     for triples in (one, burst):
         bulk_steps(triples, impl.device, f"{len(triples[0]):,} triples")
     for triples in (one, burst):
@@ -1849,7 +1963,7 @@ def bulk_verify(pool, smi: str) -> dict:
                 f"{statistics.median(walls):.4f} s, runs " + ", ".join(f"{w:.4f}" for w in walls)
                 + f"; native ct_verify_batch median {statistics.median(nat):.4f} s, runs "
                 + ", ".join(f"{w:.4f}" for w in nat) + f" ({smi})")
-    return counts
+    return merge_counts(counts, each_counts)
 
 
 # ---------------------------------------------------------------------------
@@ -2525,6 +2639,7 @@ DUTY_CONFIGS = (("config 2", 100, ("attester",)),
 DUTY_ROUNDS = 5         # slots a config, each fresh
 DUTY_SLOT0 = 4096       # the current slot when a config starts
 DUTY_TIMEOUT_S = 300.0
+DUTY_SLOT_S = 12.0      # a tampered window must end within the slot
 DUTY_TYPES = {"attester": "ATTESTER", "sync_message": "SYNC_MESSAGE"}     # DutyType names
 ZERO96 = bytes(96)
 
@@ -2741,12 +2856,16 @@ def _timed_chunk_planes(cache, record: list):
 
 
 def _duty_round(node, pool, cluster, chain, n, slot, kinds, tamper=None, extra=()) -> tuple:
-    """Sign one slot's duties (host, not timed), deliver them to the node,
-    and hold every aggregate against the root key's native signature.
-    Returns (the round's sets, {duty: verify wall}, {duty: sigagg latency})."""
+    """Sign one slot's duties (host), deliver them to the node, and hold
+    every aggregate against the root key's native signature. Returns (the
+    round's sets, {duty: verify wall}, {duty: sigagg latency}, the window's
+    wall: the first set's delivery to the last aggregate stored and every
+    inbound set handled)."""
     sets = [duty_sets(node.m, pool, cluster, chain, kind, s, n, tamper=tamper if j == 0 else None)
             for j, (kind, s) in enumerate([(k, slot) for k in kinds] + list(extra))]
+    t0 = time.perf_counter()
     got = asyncio.run(node.deliver([s[:3] for s in sets]))
+    window_s = time.perf_counter() - t0
     want = duty_expected(pool, cluster, sets, n)
     if got != want:
         bad = sorted(str(d) for (d, _pk), sig in got.items() if want.get((d, _pk)) != sig)
@@ -2754,7 +2873,7 @@ def _duty_round(node, pool, cluster, chain, n, slot, kinds, tamper=None, extra=(
                          f"not the root key's native signature: {bad[:4]}")
     duties = [s[0] for s in sets]
     return (sets, {d: node.verify_wall(d) for d in duties},
-            {d: node.stored_at[d] - node.threshold_at[d] for d in duties})
+            {d: node.stored_at[d] - node.threshold_at[d] for d in duties}, window_s)
 
 
 def verify_flushes(sets: int, n: int, flush_at: int) -> list:
@@ -2787,7 +2906,7 @@ def duty_config(pool, cluster, label: str, n: int, kinds, slot: int, smi: str) -
     walls, lat, rounds = {}, {}, []
     for r in range(DUTY_ROUNDS):
         before = (len(node.flushes), len(decodes))
-        _sets, w, lt = _duty_round(node, pool, cluster, chain, n, slot + r, kinds)
+        _sets, w, lt, _window = _duty_round(node, pool, cluster, chain, n, slot + r, kinds)
         walls.update(w)
         lat.update(lt)
         rd = {"flushes": [(k, c, i, round(end - start, 6))
@@ -2812,11 +2931,41 @@ def duty_config(pool, cluster, label: str, n: int, kinds, slot: int, smi: str) -
     # a second duty in the same window: the set is dropped with the
     # reference's error, attributed to share 3; both duties complete
     extra = () if len(kinds) > 1 else [(kinds[0], slot + DUTY_ROUNDS + 1)]
+    # the window's failed flushes (verify_batch False) and their attribution
+    # (verify_batch_each), counted through the facade's backend
+    failed, each = [], []
+    verify_batch, verify_batch_each = impl.verify_batch, impl.verify_batch_each
+
+    def counted_verify(*args):
+        ok = verify_batch(*args)
+        failed.extend([] if ok else [len(args[0])])
+        return ok
+
+    def counted_each(*args):
+        each.append(len(args[0]))
+        return verify_batch_each(*args)
+
+    impl.verify_batch, impl.verify_batch_each = counted_verify, counted_each
     t0 = time.perf_counter()
     node.errors.clear()
-    sets, _w, _lt = _duty_round(node, pool, cluster, chain, n, slot + DUTY_ROUNDS, kinds,
-                                tamper=3, extra=extra)
+    flushed = len(node.flushes)
+    try:
+        sets, _w, _lt, window_s = _duty_round(node, pool, cluster, chain, n,
+                                              slot + DUTY_ROUNDS, kinds, tamper=3, extra=extra)
+    finally:
+        impl.verify_batch, impl.verify_batch_each = verify_batch, verify_batch_each
     tampered_s = time.perf_counter() - t0
+    t_first = node.flushes[flushed][3]
+    tampered_flushes = [(k, c, i, round(a - t_first, 6), round(b - t_first, 6))
+                        for k, c, i, a, b in node.flushes[flushed:]]
+    if not failed or each != failed:
+        raise SystemExit(f"duty {label}: the tampered window's failed flushes (items) {failed} "
+                         f"were attributed by verify_batch_each calls (items) {each}, not one "
+                         f"each")
+    if window_s > DUTY_SLOT_S:
+        raise SystemExit(f"duty {label}: the tampered window took {window_s:.4f} s, past the "
+                         f"{DUTY_SLOT_S:.0f} s slot; flushes (kind, submissions, items, start, "
+                         f"end) {tampered_flushes}")
     errs = [(d, s, str(e), getattr(e, "fields", {}).get("share_idx")) for d, s, e in node.errors]
     if len(errs) != 1 or errs[0][:2] != (sets[0][0], 3) or errs[0][3] != 3 \
             or "invalid partial signature" not in errs[0][2]:
@@ -2828,6 +2977,8 @@ def duty_config(pool, cluster, label: str, n: int, kinds, slot: int, smi: str) -
            "verify_wall_s": [walls[d] for d in sorted(walls)],
            "sigagg_latency_s": {"p50": statistics.median(lats), "max": max(lats), "runs": lats},
            "rounds": rounds, "tampered_slot_s": tampered_s, "tampered_error": errs[0][2],
+           "tampered_window_s": window_s, "tampered_flushes": tampered_flushes,
+           "tampered_failed_flush_items": failed, "tampered_each_items": each,
            "card": smi}
     log(f"duty {label} ({n} validators x {THRESHOLD}-of-{NUM_SHARES}, {', '.join(kinds)}; {smi}): "
         f"sigagg latency (threshold -> aggsigdb) p50 {out['sigagg_latency_s']['p50']:.4f} s, max "
@@ -2836,7 +2987,11 @@ def duty_config(pool, cluster, label: str, n: int, kinds, slot: int, smi: str) -
     log(f"duty {label}: host signing roots {roots_s:.4f} s for one duty's {(NUM_SHARES - 1) * n} "
         f"inbound partials ({smi})")
     log(f"duty {label}: a tampered partial of peer 3 raises {errs[0][2][:120]!r} (share 3), its "
-        f"set dropped, both duties of the window complete, byte-identical, in {tampered_s:.4f} s")
+        f"set dropped, both duties of the window complete, byte-identical; the tampered window "
+        f"{window_s:.4f} s (the round with its host signing {tampered_s:.4f} s; {smi}), its "
+        f"{len(failed)} failed flush(es) of {failed} items each attributed in one "
+        f"verify_batch_each call; flushes (kind, submissions, items, start, end) "
+        f"{tampered_flushes}")
     return counts, out, node
 
 
@@ -2925,22 +3080,25 @@ def duty_phase(pool, smi: str) -> tuple[dict, dict]:
     return merge_counts(*counts), out
 
 
-def _reduce_cases(n: int, G: int, device) -> list:
-    """[(label, (X, Y, Z), gid)] at width n and G groups: the edge lanes
-    (the scalar multiplications' pool: ∞, points of order 3, a G1 point plus
-    one; in group 0 lanes 7 and 15 a point and its negation, lanes 8 and 16
+def _reduce_cases(n: int, G: int, device, E: int = 1) -> list:
+    """[(label, (X, Y, Z), gid)] at width n and G groups, E = 1 or 2: the edge
+    lanes (the scalar multiplications' pool, _mul_lanes(E): ∞, points of
+    order 3, a G1 point plus one, at E = 2 embedded in Fq2 beside G2 points;
+    in group 0 lanes 7 and 15 a point and its negation, lanes 8 and 16
     one point twice after the ∞ of lane 0, so that one accumulator of the
     kernel adds P + (−P) and another P + P; ids drawn below G - 1, so group
     G - 1 is empty where G > 1; the last eighth of the lanes padding, id
     -1), every lane padding (every group empty), and last the case that is
     timed: seeded multiples of the generator, lane i in group i % G, as the
-    ceremony's chunks."""
-    pool = _mul_lanes(1)
+    ceremony's chunks (at E = 2 G2 points, the combined MSM's groups being
+    its signature lanes and each message's embedded pk lanes)."""
+    pool = _mul_lanes(E)
     rng = random.Random(f"reduce {n} {G}")
     gid = [rng.randrange(max(G - 1, 1)) for _ in range(n)]
     pts = [pool[i % 16] for i in range(n)]
     if n > 16:
-        neg = (pool[7][0], (-pool[7][1]) % PF.P, pool[7][2])
+        y = pool[7][1]
+        neg = (pool[7][0], (-y) % PF.P if E == 1 else tuple((-c) % PF.P for c in y), pool[7][2])
         pts[7], pts[15], pts[8], pts[16] = pool[7], neg, pool[8], pool[8]
         for i in (0, 7, 15, 8, 16):
             gid[i] = 0
@@ -2950,51 +3108,50 @@ def _reduce_cases(n: int, G: int, device) -> list:
     out = []
     for label, ps, ids in (("edge lanes", pts, gid), ("all padding", pts, [-1] * n),
                            ("general lanes", general, [i % G for i in range(n)])):
-        planes = tuple(CV.port_from_ints([p[c] for p in ps], 1, device) for c in range(3))
+        planes = tuple(CV.port_from_ints([p[c] for p in ps], E, device) for c in range(3))
         out.append((label, planes, torch.tensor(ids, dtype=torch.int32, device=device)))
     return out
 
 
 def check_reduce(device, cases: dict, reps: int = 0) -> dict:
-    """pt_reduce_groups<1> bit for bit (X, Y, Z words) against its plain
-    version at each case (1, width, G) -> launches, on _reduce_cases'
+    """pt_reduce_groups<E> bit for bit (X, Y, Z words) against its plain
+    version at each case (E, width, G) -> launches, on _reduce_cases'
     inputs; with reps the general lanes are timed (device us back to back,
     host wall, the plain version's wall). Bound: the lanes' points and ids
-    read once and the G sums written, against one pt_add<1> a lane in a
-    group. Returns the JSON row of its most launched case, every case in
-    by_width."""
-    timed = []
+    read once and the G sums written, against one pt_add<E> a lane in a
+    group. Returns per E the JSON row of its most launched case, every case
+    in by_width."""
+    timed: dict = {}
     for (E, n, G), launches in sorted(cases.items(), key=lambda kv: -kv[1]):
-        for label, pts, gid in _reduce_cases(n, G, device):
+        for label, pts, gid in _reduce_cases(n, G, device, E):
             tag = f"pt_reduce_groups<{E}> n={n} G={G} ({label})"
-            got = CP.reduce_groups(*pts, gid, G)
-            err = _hold(tag, got, C.pt_reduce_groups_plain(*pts, gid, G))
+            got = CP.reduce_groups(*pts, gid, G, E)
+            err = _hold(tag, got, C.pt_reduce_groups_plain(*pts, gid, G, E))
             if label != "general lanes" or not reps:
                 log(f"kernel {tag}: bit-equal to plain (X, Y, Z words)")
                 continue
             members = int(((gid >= 0) & (gid < G)).sum().item())
-            bound_ms, by = _bound(n * (3 * 48 + 4) + 3 * 48 * G, members * point_ops("pt_add", 1))
+            bound_ms, by = _bound(n * (3 * E * 48 + 4) + 3 * E * 48 * G,
+                                  members * point_ops("pt_add", E))
             row = {"width": n, "groups": G, "launches": launches,
-                   "ms": _time_ms(lambda: CP.reduce_groups(*pts, gid, G), reps),
-                   "wall_ms": _wall_ms(lambda: CP.reduce_groups(*pts, gid, G), reps),
-                   "plain_ms": _wall_ms(lambda: C.pt_reduce_groups_plain(*pts, gid, G), 1),
+                   "ms": _time_ms(lambda: CP.reduce_groups(*pts, gid, G, E), reps),
+                   "wall_ms": _wall_ms(lambda: CP.reduce_groups(*pts, gid, G, E), reps),
+                   "plain_ms": _wall_ms(lambda: C.pt_reduce_groups_plain(*pts, gid, G, E), 1),
                    "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
-            timed.append(row)
+            timed.setdefault(E, []).append(row)
             log(f"kernel {tag}: bit-equal to plain (max_abs_err 0); {launches} calls on the "
                 f"main path; {row['ms'] * 1e3:.1f} us a call (two launches; host wall "
                 f"{row['wall_ms'] * 1e3:.1f} us); plain {row['plain_ms']:.1f} ms; bound "
                 f"{bound_ms * 1e3:.3f} us ({by})")
     torch.cuda.synchronize()
-    if not timed:
-        return {}
-    top = timed[0]
-    return {("pt_reduce_groups", 1): {
-        "name": "pt_reduce_groups<1>", "route": "cuda", "source": CP.KERNELS["pt_reduce_groups"].source,
-        "replaces": CP.KERNELS["pt_reduce_groups"].site(1), "launches": 0, "library_ms": None,
-        **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "width",
-                               "groups")},
+    return {("pt_reduce_groups", E): {
+        "name": f"pt_reduce_groups<{E}>", "route": "cuda",
+        "source": CP.KERNELS["pt_reduce_groups"].source,
+        "replaces": CP.KERNELS["pt_reduce_groups"].site(E), "launches": 0, "library_ms": None,
+        **{k: rows[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "width", "groups")},
         "by_width": [{k: v for k, v in r.items() if k not in ("bound_by", "max_abs_err")}
-                     for r in timed]}}
+                     for r in rows]} for E, rows in timed.items()}
 
 
 def merge_counts(*runs) -> dict:
@@ -3562,6 +3719,8 @@ def main(argv: list[str]) -> int:
         rows.update(check_pow(device, {**{pow_case(*c): 0 for c in POW_GATE},
                                        **slot["cases"]["fe_pow"]}, reps=20))
         rows.update(check_mul(device, mul_cases(slot["cases"]), reps=3))
+        # the MSM's group sums, pt_reduce_groups<2>, at the slot's width
+        rows.update(check_reduce(device, slot["cases"]["pt_reduce_groups"], reps=20))
         native_twin(batches, pubkeys, datas, slot["tampered"])
         S, live = slot_pairs(impl, batches, pubkeys, datas)
         verify_launches(TorchImpl(), S, live, "first (H(m) miss)")
@@ -3580,7 +3739,8 @@ def main(argv: list[str]) -> int:
         for key, row in {**check_fe(device, fe_cases(more), reps=50, floor_ms=floor_ms),
                          **check_rows_kernels(device, more_rows, reps=50),
                          **check_pow(device, more["fe_pow"], reps=20),
-                         **check_mul(device, mul_cases(more), reps=3)}.items():
+                         **check_mul(device, mul_cases(more), reps=3),
+                         **check_reduce(device, more["pt_reduce_groups"], reps=20)}.items():
             rows[key]["committee_by_width"] = row["by_width"]
         # the bulk verify, then every case it launched that the headline
         # slot and the committee phase did not (pt_mul_shared<2> at X_ABS,
@@ -3592,7 +3752,8 @@ def main(argv: list[str]) -> int:
         for key, row in {**check_fe(device, fe_cases(bulk), reps=50, floor_ms=floor_ms),
                          **check_rows_kernels(device, bulk_rows, reps=50),
                          **check_pow(device, bulk["fe_pow"], reps=20),
-                         **check_mul(device, mul_cases(bulk), reps=3)}.items():
+                         **check_mul(device, mul_cases(bulk), reps=3),
+                         **check_reduce(device, bulk["pt_reduce_groups"], reps=20)}.items():
             rows.setdefault(key, row)["bulk_verify_by_width"] = row["by_width"]
         mark("bulk verify and its holds")
         pipeline_phase(pool, jobs, pubkeys, smi)
@@ -3626,7 +3787,8 @@ def main(argv: list[str]) -> int:
         for key, row in {**check_fe(device, fe_cases(more), reps=50, floor_ms=floor_ms),
                          **check_rows_kernels(device, _rows, reps=50),
                          **check_pow(device, more["fe_pow"], reps=20),
-                         **check_mul(device, mul_cases(more), reps=3)}.items():
+                         **check_mul(device, mul_cases(more), reps=3),
+                         **check_reduce(device, more["pt_reduce_groups"], reps=20)}.items():
             rows.setdefault(key, row)["duty_by_width"] = row["by_width"]
         mark("duty and its holds")
     rfc_vector(device)

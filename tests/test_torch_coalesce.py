@@ -2,7 +2,10 @@
 scenarios of tests/test_coalesce.py, each behind its own package's tbls
 facade with a counting backend, plus the port's own: its policy accessors
 (ops/policy.py), a device-class error of the port's guard failing a
-flush without a bisect, and the flushes' verifies queueing on the device."""
+flush without a bisect, the flushes' verifies queueing on the device, and
+a failed flush attributed in one verify_batch_each call (the reference
+re-verifies each submission) with the reference's outcomes on natively
+signed triples."""
 
 import asyncio
 import threading
@@ -35,6 +38,7 @@ class _CountingImpl:
     def __init__(self):
         self.agg_calls: list[int] = []
         self.ver_calls: list[int] = []
+        self.each_calls: list[int] = []
         self.fail_roots: set[bytes] = set()
 
     def threshold_aggregate_verify_batch(self, batches, pks, roots):
@@ -45,6 +49,10 @@ class _CountingImpl:
     def verify_batch(self, pks, roots, sigs):
         self.ver_calls.append(len(sigs))
         return not any(r in self.fail_roots for r in roots)
+
+    def verify_batch_each(self, pks, roots, sigs):
+        self.each_calls.append(len(sigs))
+        return [r not in self.fail_roots for r in roots]
 
 
 @pytest.fixture(params=list(PACKAGES))
@@ -101,7 +109,11 @@ def test_failure_attributed_to_offending_request_only(pkg):
 
     (_, ok1), (_, ok2) = asyncio.run(run())
     assert ok1 is True and ok2 is False
-    assert impl.agg_calls == [200] and sorted(impl.ver_calls) == [100, 100]
+    assert impl.agg_calls == [200]
+    if cls is PortCoalescer:     # one per-item verify of the flush
+        assert impl.ver_calls == [] and impl.each_calls == [200]
+    else:                        # a verify_batch a request
+        assert sorted(impl.ver_calls) == [100, 100] and impl.each_calls == []
 
 
 def test_verify_path_coalesces_peers(pkg):
@@ -268,7 +280,9 @@ def test_bisect_isolates_offenders(pkg, bad):
 
 def test_both_coalescers_flush_alike():
     """The same submissions through each package's coalescer give the same
-    dispatches, in the same order, and the same verdicts."""
+    dispatches, in the same order, and the same verdicts; the failed flush
+    (submissions 5-9, 7 failing) is attributed by the reference in a
+    verify_batch a submission, by the port in one verify_batch_each."""
     got = {}
     for name, (cls, tbls) in PACKAGES.items():
         old = tbls._impl
@@ -283,11 +297,12 @@ def test_both_coalescers_flush_alike():
                               key=("attester", i % 2), expected=5, contributor=i)
                     for i in range(10)])
 
-            got[name] = (asyncio.run(run()), impl.ver_calls)
+            got[name] = (asyncio.run(run()), impl.ver_calls, impl.each_calls)
         finally:
             tbls.set_implementation(old)
-    assert got["port"] == got["reference"]
-    assert got["port"][0] == [i != 7 for i in range(10)]
+    assert got["port"][0] == got["reference"][0] == [i != 7 for i in range(10)]
+    assert got["reference"][1:] == ([300, 300] + [60] * 5, [])
+    assert got["port"][1:] == ([300, 300], [300])
 
 
 # -- the port's own -------------------------------------------------------
@@ -453,3 +468,112 @@ def test_a_verify_queued_behind_a_hung_slot_runs_on_the_new_slot_thread(monkeypa
     finally:
         release.set()
         guard.reset_for_testing()
+
+
+# -- a failed flush, attributed in one call --------------------------------
+
+
+class _NativeCounting:
+    """The reference's NativeImpl behind either facade, counting the calls
+    a coalescer makes: the fused slot and verify, and the per-item verify
+    (native ct_verify an item, as TPUImpl.verify_batch_each)."""
+
+    def __init__(self):
+        from charon_tpu.tbls.native_impl import NativeImpl
+
+        self.native = NativeImpl()
+        self.calls: list[tuple[str, int]] = []
+
+    def threshold_aggregate_verify_batch(self, batches, pks, roots):
+        self.calls.append(("aggregate", len(batches)))
+        return self.native.threshold_aggregate_verify_batch(batches, pks, roots)
+
+    def verify_batch(self, pks, roots, sigs):
+        self.calls.append(("verify", len(sigs)))
+        return self.native.verify_batch(pks, roots, sigs)
+
+    def verify_batch_each(self, pks, roots, sigs):
+        self.calls.append(("each", len(sigs)))
+        return [self.native.verify(*t) for t in zip(pks, roots, sigs)]
+
+
+@pytest.fixture(scope="module")
+def signed():
+    """Three validators' keys (root and 2-of-3 shares, native) and, for three
+    roots, each validator's root signature and share partials."""
+    import random
+
+    from charon_tpu.crypto import fields as RPF
+    from charon_tpu.tbls.native_impl import NativeImpl
+    from charon_tpu.tbls.types import PrivateKey
+
+    native = NativeImpl()
+    rng = random.Random(23)
+    roots = [bytes([0x30 + i]) * 32 for i in range(3)]
+    vals = []
+    for _ in range(3):
+        sk = PrivateKey(rng.randrange(1, RPF.R).to_bytes(32, "big"))
+        shares = native.threshold_split(sk, 3, 2)
+        vals.append({"pk": bytes(native.secret_to_public_key(sk)),
+                     "sig": {r: bytes(native.sign(sk, r)) for r in roots},
+                     "partials": {r: {i: native.sign(shares[i], r) for i in (1, 2)}
+                                  for r in roots}})
+    return roots, vals
+
+
+def _flush_of_three(cls, tbls, kind, submissions):
+    """The three submissions through one flush of `cls` behind `tbls` with
+    a _NativeCounting backend: (outcomes, the backend's calls)."""
+    old = tbls._impl
+    impl = _NativeCounting()
+    tbls.set_implementation(impl)
+    try:
+        async def run():
+            co = cls(window=5.0, flush_at=sum(len(s[0]) for s in submissions),
+                     deadline_budget_s=None)
+            call = co.aggregate_verify if kind == "aggregate" else co.verify
+            return await asyncio.gather(*[call(*s) for s in submissions])
+
+        out = asyncio.run(run())
+    finally:
+        tbls.set_implementation(old)
+    if kind == "aggregate":
+        out = [([bytes(x) for x in sigs], ok) for sigs, ok in out]
+    return out, impl.calls
+
+
+@pytest.mark.parametrize("kind", ["verify", "aggregate"])
+@pytest.mark.parametrize("tampered", [None, 1])
+def test_a_failed_flush_is_attributed_in_one_call(signed, kind, tampered):
+    """A flush of three submissions (3, 2 and 1 items over natively signed
+    triples or partials), the middle one tampered (validator 1's signature,
+    or its partial of share 2, over another root): the port's futures get
+    the reference coalescer's outcomes, every other submission True. The
+    port makes one verify_batch_each over the flush's 6 items after the
+    failed fused call and no verify_batch; the reference one verify_batch a
+    submission. A passing flush makes the fused call alone."""
+    roots, vals = signed
+    subs = []
+    for k, items in enumerate(([0, 1, 2], [0, 1], [2])):
+        root = roots[k]
+        if kind == "verify":
+            sigs = [vals[v]["sig"][root] for v in items]
+            if k == tampered:
+                sigs[1] = vals[1]["sig"][roots[0]]
+            subs.append(([vals[v]["pk"] for v in items], [root] * len(items), sigs))
+        else:
+            batches = [dict(vals[v]["partials"][root]) for v in items]
+            if k == tampered:
+                batches[1][2] = vals[1]["partials"][roots[0]][2]
+            subs.append((batches, [vals[v]["pk"] for v in items], [root] * len(items)))
+    got = {name: _flush_of_three(cls, tbls, kind, subs) for name, (cls, tbls) in PACKAGES.items()}
+    port, ref = got["port"], got["reference"]
+    assert port[0] == ref[0]
+    oks = [o if kind == "verify" else o[1] for o in port[0]]
+    assert oks == [k != tampered for k in range(3)]
+    fused = ("verify" if kind == "verify" else "aggregate", 6)
+    if tampered is None:
+        assert port[1] == ref[1] == [fused]
+    else:
+        assert port[1] == [fused, ("each", 6)]
+        assert ref[1] == [fused, ("verify", 3), ("verify", 2), ("verify", 1)]

@@ -5,8 +5,8 @@ points; the plain versions of the two scalar-multiplication kernels
 (pt_mul_shared, pt_mul_windowed) word for word against the reference's
 pt_double/pt_add chained in the order of _shared_mul_call and
 _scalar_mul_windowed; and the composites (pow scan, windowed and
-shared-scalar multiplication, reduction tree + host fold) against the
-pure-Python oracle."""
+shared-scalar multiplication) against the pure-Python oracle. The group
+reduction is tests/test_torch_g1_msm.py's."""
 
 import random
 
@@ -135,24 +135,6 @@ def test_windowed_scalar_mul_with_zero_digits(E):
     assert digits.shape == (16, 8) and int(digits[:, 0].max()) == 0
     got = _affine(CP.scalar_mul_windowed(*planes, digits, E), E)
     assert got == [RC.to_affine(_ops(E), RC.jac_mul(_ops(E), p, k)) for p, k in zip(pts, scalars)]
-
-
-def test_reduce_tree_and_host_fold_sum_the_plane():
-    ops = RC.FqOps
-    g = RC.g1_generator()
-    pts, acc = [], g
-    for _ in range(200):
-        pts.append(acc)
-        acc = RC.jac_add(ops, acc, g)
-    pts += [(1, 1, 0)] * (256 - len(pts))           # ∞ padding
-    planes = [CV.port_from_ints([p[c] for p in pts], 1) for c in range(3)]
-    red = CP.reduce_tree(*planes, 1)
-    assert red[0].shape == (1, 12, 32)              # (8, 32) -> one sublane
-    total = CP.host_fold(*red, 1)
-    assert RC.to_affine(ops, total) == RC.to_affine(ops, RC.jac_mul(ops, g, 200 * 201 // 2))
-    emb = [torch.cat([c, torch.zeros_like(c)]) for c in planes]
-    total2 = CP.host_fold(*CP.reduce_tree(*emb, 2), 2)
-    assert RC.to_affine(ops, tuple(c[0] for c in total2)) == RC.to_affine(ops, total)
 
 
 def test_shared_scalar_mul():

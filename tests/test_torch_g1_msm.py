@@ -3,7 +3,8 @@ the batched fixed-base keygen g1_mul_gen_batch byte for byte against native
 (the JAX package's frost._g1_mul_gen), the G1 affine form and emit against
 the JAX package's _g1_emit_bytes and its serializer, the group reduction's
 plain version (ops/curve.py, the kernel's order of adds) against
-pure-Python sums, g1_groups_msm against pure-Python group sums, and
+pure-Python sums, at E = 1 and at E = 2 (the sigagg paths' combined MSM),
+and its kernel body built on the host at both, g1_groups_msm against pure-Python group sums, and
 g1_lincomb_is_infinity against the JAX package's own device graph at the
 size of its tier-1 test; both G1 paths reject an order-3 and an infinity
 point; the launches of a keygen call and of a chunk, which chip_smoke.py
@@ -101,11 +102,11 @@ def test_g1_affine_std_and_emit_match_the_reference():
     assert inf.tolist() == [p[2] == 0 for p in pts] + [True] * 118
 
 
-def _python_groups(pts, gid, G):
-    sums = [RC.jac_infinity(RC.FqOps) for _ in range(G)]
+def _python_groups(pts, gid, G, ops=RC.FqOps):
+    sums = [RC.jac_infinity(ops) for _ in range(G)]
     for p, g in zip(pts, gid):
         if 0 <= g < G:
-            sums[g] = RC.jac_add(RC.FqOps, sums[g], p)
+            sums[g] = RC.jac_add(ops, sums[g], p)
     return sums
 
 
@@ -136,6 +137,42 @@ def test_reduce_groups_plain_is_each_groups_sum(n, G):
     if G > 1:
         assert _affine(sums[G - 1]) is None        # empty group: ∞, zeros
         assert sums[G - 1] == (0, 0, 0)
+
+
+@pytest.mark.parametrize("n,G", [(8, 3), (70, 3), (130, 5)])
+def test_reduce_groups_plain_at_e2_is_each_groups_sum(n, G):
+    """reduce_groups at E = 2, as the combined MSM calls it: group 0 G2
+    points (its signature lanes), groups 1 .. G − 2 G1 points embedded in
+    Fq2 (c1 = 0: its pk lanes), group G − 1 empty. Each group's affine sum
+    is the pure-Python sum of its lanes over Fq2 (charon_tpu.crypto.curve),
+    with a point and its negation, a point twice, infinity lanes (zeros,
+    and Z = 0 with X, Y not), ids −1 and ≥ G (in no group); one plain call
+    counted at E = 2, and the sums read back by host_points."""
+    rng = random.Random(200 + n)
+    ops = RC.Fq2Ops
+    g2 = [RC.jac_mul(ops, RC.g2_generator(), rng.randrange(1, RF.R)) for _ in range(4)]
+    g1 = [tuple((c, 0) for c in RC.jac_mul(RC.FqOps, RC.g1_generator(), rng.randrange(1, RF.R)))
+          for _ in range(4)]
+    gid = [rng.randrange(-1, G - 1) for _ in range(n)]
+    pts = [g2[rng.randrange(4)] if g <= 0 else g1[rng.randrange(4)] for g in gid]
+    neg0 = (g2[0][0], tuple(RF.P - c for c in g2[0][1]), g2[0][2])
+    zero2 = ((0, 0),) * 3
+    edges = [(g2[0], 0), (neg0, 0), (g2[1], 0), (g2[1], 0), (zero2, 0), (g1[0], 1),
+             (((3, 1), (4, 0), (0, 0)), 1), (g2[2], G), (g1[1], -1)]
+    for i, (p, g) in enumerate(edges[:n]):
+        pts[i], gid[i] = p, g
+    X, Y, Z = (CV.port_from_ints([p[c] for p in pts], 2) for c in range(3))
+    CP.reset_counts()
+    got = CP.reduce_groups(X, Y, Z, torch.tensor(gid, dtype=torch.int32), G, 2)
+    assert CP.KERNELS["pt_reduce_groups"].cases == {(2, n, G): 1}
+    assert CP.KERNELS["pt_reduce_groups"].plain_calls == {1: 0, 2: 1}
+    assert [o.shape for o in got] == [(2, 12, G)] * 3
+    sums = CP.host_points(*got)
+    assert sums == [tuple(c) for c in zip(*(CV.ints_from_port(o) for o in got))]
+    want = _python_groups(pts, gid, G, ops)
+    assert [RC.to_affine(ops, s) for s in sums] == [RC.to_affine(ops, w) for w in want]
+    assert all(s[c][1] == 0 for s in sums[1:] for c in range(3))   # G1 sums stay in Fq
+    assert sums[G - 1] == zero2                  # empty group: ∞, zeros
 
 
 def _items(n_val: int, dealers: int, t: int, x: int, ctx: bytes):
@@ -244,18 +281,22 @@ def host_lib(tmp_path_factory, chip_smoke):
 
 def test_reduce_groups_kernel_is_the_plain_version(host_lib, chip_smoke):
     """The kernel body itself (two launches: the partial sums of two spans,
-    then the groups') on the host: its X, Y, Z words are the plain version's on
-    chip_smoke.py's edge lanes (∞, order 3, P + (−P) and P + P in an
-    accumulator, padding, an empty group) and with every lane padding; the
-    card holds it at every width the DKG launches."""
-    n, G = 72, 2
-    for label, pts, gid in chip_smoke._reduce_cases(n, G, CPU)[:2]:
-        want = CP.C.pt_reduce_groups_plain(*pts, gid, G)
-        nb = -(-n // CP.C.RED_SPAN)
-        scratch = torch.empty(3 * 12 * G * nb, dtype=torch.int32)
-        outs = [torch.empty((1, 12, G), dtype=torch.int32) for _ in range(3)]
-        rc = host_lib.charon_pt_reduce_groups(1, *[t.data_ptr() for t in pts], gid.data_ptr(), n, G,
-                                              *[o.data_ptr() for o in outs], scratch.data_ptr(),
-                                              None)
-        assert rc == 0
-        assert all(torch.equal(o, w) for o, w in zip(outs, want)), label
+    then the groups') on the host, at E = 1 and E = 2: its X, Y, Z words are
+    the plain version's on chip_smoke.py's edge lanes (∞, order 3, P + (−P)
+    and P + P in an accumulator, padding, an empty group; at E = 2 G2
+    points beside embedded G1 ones) and with every lane padding; the card
+    holds it at every width the DKG, the slot and the bulk verify launch.
+    E = 2 runs at 24 lanes, one span a group (its 256-thread blocks take
+    seconds each on the host), on the edge lanes."""
+    G = 2
+    for E, n, cases in ((1, 72, 2), (2, 24, 1)):
+        for label, pts, gid in chip_smoke._reduce_cases(n, G, CPU, E)[:cases]:
+            want = CP.C.pt_reduce_groups_plain(*pts, gid, G, E)
+            nb = -(-n // CP.C.RED_SPAN)
+            scratch = torch.empty(3 * E * 12 * G * nb, dtype=torch.int32)
+            outs = [torch.empty((E, 12, G), dtype=torch.int32) for _ in range(3)]
+            rc = host_lib.charon_pt_reduce_groups(E, *[t.data_ptr() for t in pts], gid.data_ptr(),
+                                                  n, G, *[o.data_ptr() for o in outs],
+                                                  scratch.data_ptr(), None)
+            assert rc == 0
+            assert all(torch.equal(o, w) for o, w in zip(outs, want)), (E, label)

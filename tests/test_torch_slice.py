@@ -80,7 +80,7 @@ def slot():
     calls = {k: dict(v.plain_calls) for k, v in CP.KERNELS.items()}
     launches = {k: dict(v.launches) for k, v in CP.KERNELS.items()}
     cases = {k: dict(CP.KERNELS[k].cases)
-             for k in ("pt_mul_shared", "pt_mul_windowed", "fe_mul", "fe_addsub")}
+             for k in ("pt_mul_shared", "pt_mul_windowed", "fe_mul", "fe_addsub", "pt_reduce_groups")}
     return dict(impl=impl, native=native, batches=batches, pks=pks, datas=datas,
                 aggs=aggs, ok=ok, calls=calls, launches=launches, cases=cases, pairs=seen[0],
                 pairing_path=dict(impl.pairing_path))
@@ -203,24 +203,26 @@ def test_one_slot_goes_through_every_kernel(slot):
     (Vp·T = 512 lanes, 64 windows) and the combined RLC MSM (256 lanes, 16
     windows) pt_mul_windowed<2>, the pk subgroup check's [u²]P
     pt_mul_shared<1> and the device hash-to-G2's cofactor clear
-    pt_mul_shared<2>; what is left of the point ops is pt_add<2>: 3 combine
-    + 3·(1 + 2) reduction trees (Vp = 128, G = 2 groups) + hash-to-G2's
-    q0 + q1 = 13. Everything else of the verify runs on the rows kernels.
+    pt_mul_shared<2>; the MSM's sums are one pt_reduce_groups<2> call (the
+    signatures and G = 2 message groups); what is left of the point ops is
+    pt_add<2>: 3 combine + hash-to-G2's q0 + q1 = 4. Everything else of
+    the verify runs on the rows kernels.
     The four plane power scans (the G2 partials' sqrt and (p−3)/4, the
     affine p−2, the G1 sqrt) are one fe_pow<plane> call each. The plane
     field kernels take a level of independent operations a call: fe_mul 19
-    levels at E = 1 and 5 at E = 2, fe_addsub 8 and 2. The group reduction
-    (the DKG's pt_reduce_groups) is not called."""
+    levels at E = 1 and 5 at E = 2, fe_addsub 8 and 2. The DKG's group
+    reduction at E = 1 is not called."""
     rows = {k: {E: c + H2C_CALLS[k][E] for E, c in v.items()} for k, v in VERIFY_CALLS.items()}
     rows["fe_pow"]["plane"] = 4
     assert slot["calls"] == {
         "fe_mul": {1: 19, 2: 5}, "fe_addsub": {1: 8, 2: 2},
-        "pt_double": {1: 0, 2: 0}, "pt_add": {1: 0, 2: 13}, **rows,
+        "pt_double": {1: 0, 2: 0}, "pt_add": {1: 0, 2: 4}, **rows,
         "pt_mul_shared": {1: 1, 2: 1}, "pt_mul_windowed": {1: 0, 2: 2},
-        "pt_reduce_groups": {1: 0}}
+        "pt_reduce_groups": {1: 0, 2: 1}}
     assert slot["cases"]["pt_mul_shared"] == {(1, 128, RPF.X_ABS * RPF.X_ABS): 1,
                                               (2, 2, H.H_EFF_G2): 1}
     assert slot["cases"]["pt_mul_windowed"] == {(2, 512, 64): 1, (2, 256, 16): 1}
+    assert slot["cases"]["pt_reduce_groups"] == {(2, 256, 3): 1}
     assert all(c == {E: 0 for E in c} for c in slot["launches"].values())
 
 
@@ -231,9 +233,9 @@ def test_first_slot_dispatch_steps(slot):
     pt_mul_shared<1>, a negation and 3 product levels), G2 decompression 19
     (17 field levels and 2 fe_pow), sweep + combine 4 (one
     pt_mul_windowed<2>, 3 pt_add<2>), the affine standard form 8 (7 field
-    levels and one fe_pow) and MSM + trees 7 (one pt_mul_windowed<2>, 2
-    trees of 3 pt_add<2> levels). Vp = 128 here and 1,024 at the headline
-    reduce in the same 3 levels, so the counts are the headline's."""
+    levels and one fe_pow) and MSM + group sums 2 (one pt_mul_windowed<2>
+    and one pt_reduce_groups<2> call). Vp = 128 here and 1,024 at the
+    headline launch the same, so the counts are the headline's."""
     steps = []
 
     def mark(name):
@@ -244,7 +246,7 @@ def test_first_slot_dispatch_steps(slot):
     state = PA.fused_slot(PA.layout_slots(slot["batches"]), slot["pks"], [MSGS[0]] * V,
                           torch.device("cpu"), PA.PkPlaneCache(), mark=mark)
     assert state[0] == "pending"
-    assert [c for _name, c in steps] == [0, 12, 0, 19, 4, 8, 7]
+    assert [c for _name, c in steps] == [0, 12, 0, 19, 4, 8, 2]
     assert steps[1][0].startswith("pk plane") and steps[4][0] == "Lagrange sweep + combine"
 
 
@@ -270,7 +272,7 @@ def test_one_verify_goes_through_the_rows_kernels(slot):
     assert calls == {"fe_mul": {1: 0, 2: 0}, "fe_addsub": {1: 0, 2: 0},
                      "pt_double": {1: 0, 2: 0}, "pt_add": {1: 0, 2: 0}, **VERIFY_CALLS,
                      "pt_mul_shared": {1: 0, 2: 0}, "pt_mul_windowed": {1: 0, 2: 0},
-                     "pt_reduce_groups": {1: 0}}
+                     "pt_reduce_groups": {1: 0, 2: 0}}
 
 
 # ---------------------------------------------------------------------------
